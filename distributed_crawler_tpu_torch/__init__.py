@@ -1,0 +1,18 @@
+"""PyTorch/CUDA port of the device half of distributed_crawler_tpu.
+
+The JAX package (`distributed_crawler_tpu`) is the reference this package is
+held against; nothing here imports it, or JAX.  Layout mirrors the reference
+so each module has an obvious counterpart:
+
+- `ops/` — bucketing/packing (`padding.py`) and attention (`attention.py`,
+  whose CUDA kernel lives in `csrc/flash_attention.cu`, built by
+  `kernels.py`);
+- `models/encoder.py` — the E5/XLM-R `EmbedderClassifier`, dense path;
+  `models/from_jax.py` loads the reference's param tree into it;
+- `inference/` — tokenizer, `InferenceEngine`, `TPUWorker`;
+- `bus/` — `RecordBatch` and the in-memory bus the worker serves from;
+- `utils/` — metrics registry, span tracing, device timeline, FLOP count.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
+(`device.resolve_device`).
+"""

@@ -1,0 +1,398 @@
+"""Inference engine: the device half of the worker, in PyTorch.
+
+The counterpart of `distributed_crawler_tpu/inference/engine.py`: tokenize
+-> bucket (or pack) -> fused embed+classify on the card -> host results, with
+the same `EngineConfig`, the same result dicts, the same metric names and
+the one-deep pipeline (batch i+1 is dispatched before batch i is read back).
+
+On CUDA every input goes host -> pinned buffer -> device without blocking,
+the outputs come back into fresh pinned buffers without blocking, and a
+recorded `torch.cuda.Event` marks when they have landed; the readback waits
+on that event only.  The engine runs on ``cuda`` unless the caller passes
+``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, replace
+from typing import Any, Dict, List, Optional, Sequence, Set, Union
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models.encoder import (
+    E5_BASE,
+    E5_LARGE,
+    E5_SMALL,
+    EmbedderClassifier,
+    EncoderConfig,
+    TINY_TEST,
+    XLMR_BASE,
+)
+from ..models.from_jax import load_flax_params
+from ..ops.padding import (
+    DEFAULT_MAX_SEGMENTS_PER_ROW,
+    BucketSpec,
+    bucket_for,
+    pack_batch,
+    pack_rows,
+)
+from ..utils import trace
+from ..utils.metrics import REGISTRY, MetricsRegistry
+from ..utils.occupancy import DeviceTimeline
+from .tokenizer import HashingTokenizer, Tokenizer
+
+MODEL_REGISTRY: Dict[str, EncoderConfig] = {
+    "e5_small": E5_SMALL,
+    "e5_base": E5_BASE,
+    "e5_large": E5_LARGE,
+    "xlmr_base": XLMR_BASE,
+    "tiny": TINY_TEST,
+}
+
+# EngineConfig fields of features that are not ported yet: setting one
+# raises instead of being silently ignored.
+_WAITING_FIELDS = ("pretrained_dir", "checkpoint_dir", "param_dtype",
+                   "quantize", "moe_dispatch")
+
+
+@dataclass(frozen=True)
+class EngineConfig:
+    model: str = "e5_small"
+    n_labels: int = 8
+    batch_size: int = 256
+    buckets: tuple = (32, 64, 128, 256, 512)
+    seed: int = 0
+    pretrained_dir: Optional[str] = None
+    checkpoint_dir: Optional[str] = None
+    param_dtype: Optional[str] = None
+    quantize: Optional[str] = None
+    # "auto" | "flash" | "xla".  On the card attention is always the CUDA
+    # kernel, so "xla" (the plain version) is refused there.
+    attention: Optional[str] = None
+    moe_dispatch: Optional[str] = None
+    # Per-row segment bound for packed runs: packed results come back as a
+    # static [batch, pack_max_segments] block.
+    pack_max_segments: int = DEFAULT_MAX_SEGMENTS_PER_ROW
+
+    def encoder_config(self) -> EncoderConfig:
+        try:
+            base = MODEL_REGISTRY[self.model]
+        except KeyError:
+            raise ValueError(
+                f"unknown model {self.model!r}; "
+                f"one of {sorted(MODEL_REGISTRY)}") from None
+        return replace(base, n_labels=self.n_labels)
+
+
+class InferenceEngine:
+    """Tokenize -> bucket -> fused embed+classify on the device -> host
+    results.  ``params`` is the reference's flax param tree as numpy arrays
+    (`models/from_jax.py`); without it the weights are drawn from a
+    ``torch.Generator`` seeded with ``cfg.seed``."""
+
+    def __init__(self, cfg: EngineConfig,
+                 mesh=None,
+                 params: Optional[Any] = None,
+                 tokenizer: Optional[Tokenizer] = None,
+                 registry: MetricsRegistry = REGISTRY,
+                 device: Optional[Union[str, torch.device]] = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if mesh is not None:
+            raise NotImplementedError("multi-device serving is not ported yet")
+        for name in _WAITING_FIELDS:
+            if getattr(cfg, name):
+                raise NotImplementedError(
+                    f"EngineConfig.{name} is not ported yet")
+        if cfg.attention and cfg.attention not in ("auto", "xla", "flash"):
+            raise ValueError(f"unknown attention mode {cfg.attention!r}")
+        if cfg.attention == "xla" and self.device.type == "cuda":
+            raise ValueError("attention='xla' selects the plain version, "
+                             "which never runs on the card")
+        self.ecfg = cfg.encoder_config()
+        if cfg.attention:
+            self.ecfg = replace(self.ecfg, attention=cfg.attention)
+        self._rows = cfg.batch_size
+        self.tokenizer = tokenizer or HashingTokenizer(self.ecfg.vocab_size)
+        self.bucket_spec = BucketSpec(
+            tuple(b for b in cfg.buckets if b <= self.ecfg.max_len))
+        # Buckets dispatched so far per path: the first dispatch of each
+        # counts as a miss, as the reference counts its jit compiles.
+        self._steps: Set[int] = set()
+        self._packed_steps: Set[int] = set()
+        self.m_latency = registry.histogram(
+            "tpu_inference_batch_seconds",
+            "batch dispatch->results-on-host latency (pipelined: the "
+            "window also spans the NEXT batch's host-side pack/dispatch, "
+            "which overlaps this batch's device time)")
+        self.m_posts = registry.counter(
+            "tpu_inference_posts_total", "posts through embed+classify")
+        self.m_padding = registry.counter(
+            "tpu_inference_pad_slots_total", "wasted pad slots")
+        self.m_packed = registry.counter(
+            "tpu_inference_packed_segments_total",
+            "sequences served through packed bucket rows")
+        self.m_bucket_posts = registry.counter(
+            "tpu_inference_bucket_posts_total",
+            "posts through embed+classify per padding bucket")
+        self.m_compile_miss = registry.counter(
+            "tpu_engine_compile_cache_misses_total",
+            "first dispatches by bucket and path")
+        self.timeline = DeviceTimeline(registry=registry, path="text")
+
+        model = EmbedderClassifier(self.ecfg)
+        if params is None:
+            gen = torch.Generator().manual_seed(cfg.seed)
+            model.init_weights(gen)
+        else:
+            load_flax_params(model, params)
+        self.model = model.to(self.device).eval()
+
+    # -- device step -------------------------------------------------------
+    def _program(self, bucket: int, path: str) -> None:
+        steps = self._packed_steps if path == "packed" else self._steps
+        if bucket not in steps:
+            self.m_compile_miss.labels(bucket=str(bucket), path=path).inc()
+            steps.add(bucket)
+
+    def compile_cache_stats(self) -> Dict[str, Any]:
+        """Which (bucket, path) programs were dispatched, and the
+        cumulative first-dispatch count."""
+        misses: Dict[str, float] = {}
+        total = 0.0
+        for labels, value in self.m_compile_miss.series():
+            if not labels:
+                continue
+            misses[f"{labels['path']}:{labels['bucket']}"] = value
+            total += value
+        return {
+            "programs_unpacked": sorted(self._steps),
+            "programs_packed": sorted(self._packed_steps),
+            "misses_total": total,
+            "misses": misses,
+        }
+
+    def _place(self, arrays: Sequence[np.ndarray]) -> List[torch.Tensor]:
+        """Host arrays -> device tensors; on CUDA through pinned buffers
+        without blocking (the caching host allocator keeps each buffer
+        until its copy has completed)."""
+        placed = []
+        for a in arrays:
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            placed.append(t)
+        return placed
+
+    def _dispatch(self, placed: Sequence[torch.Tensor], **kw):
+        """Run the model on one placed batch without waiting for it:
+        returns (emb, logits, event), host tensors that are valid once
+        ``event`` (None on the CPU) has completed."""
+        extra = dict(zip(("segment_ids", "positions"), placed[2:]))
+        with torch.inference_mode():
+            emb, logits = self.model(placed[0], placed[1], **extra, **kw)
+            if self.device.type != "cuda":
+                return emb, logits, None
+            out = []
+            for t in (emb, logits):
+                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                host.copy_(t, non_blocking=True)
+                out.append(host)
+            event = torch.cuda.Event()
+            event.record()
+        return out[0], out[1], event
+
+    @staticmethod
+    def _readback(emb: torch.Tensor, logits: torch.Tensor, event):
+        if event is not None:
+            event.synchronize()
+        return emb.numpy(), logits.numpy()
+
+    # -- public API --------------------------------------------------------
+    def run_tokenized(self, token_lists: Sequence[List[int]],
+                      pack: bool = False) -> List[Dict[str, Any]]:
+        """Embed+classify pre-tokenized sequences; results in input order.
+
+        One-deep pipeline: batch i+1 is packed and dispatched before batch
+        i's results are read back, so the host's packing overlaps the
+        device's compute.  ``pack=True`` shares bucket rows between short
+        sequences behind segment masks."""
+        with trace.span("engine.run_tokenized",
+                        sequences=len(token_lists), pack=bool(pack)):
+            if any(not t for t in token_lists):
+                return self._run_with_empties(token_lists, pack)
+            if pack:
+                return self._run_packed(token_lists)
+            return self._run_unpacked(token_lists)
+
+    def _groups(self, token_lists: Sequence[List[int]]
+                ) -> Dict[int, List[int]]:
+        groups: Dict[int, List[int]] = {}
+        for i, toks in enumerate(token_lists):
+            groups.setdefault(
+                bucket_for(len(toks), self.bucket_spec), []).append(i)
+        return groups
+
+    @staticmethod
+    def _result(emb_row: np.ndarray, logits_row: np.ndarray,
+                scores_row: np.ndarray) -> Dict[str, Any]:
+        return {
+            "embedding": emb_row.tolist(),
+            "label": int(np.argmax(logits_row)),
+            "scores": scores_row.tolist(),
+        }
+
+    def _run_unpacked(self, token_lists: Sequence[List[int]]
+                      ) -> List[Dict[str, Any]]:
+        results: List[Optional[Dict[str, Any]]] = [None] * len(token_lists)
+        rows = self._rows
+        pending: Optional[tuple] = None  # (chunk, emb, logits, event, t0)
+
+        def materialize(chunk, emb, logits, event, t0):
+            with trace.span("engine.unpack", rows=len(chunk)):
+                emb_np, logits_np = self._readback(emb, logits, event)
+                dt = time.perf_counter() - t0
+                self.timeline.record(t0, t0 + dt)
+                self.m_latency.observe(dt)
+                self.m_posts.inc(len(chunk))
+                self.m_padding.inc(rows - len(chunk))
+                scores = _softmax_np(logits_np)
+                for row, i in enumerate(chunk):
+                    results[i] = self._result(emb_np[row], logits_np[row],
+                                              scores[row])
+
+        for bucket, indices in sorted(self._groups(token_lists).items()):
+            for start in range(0, len(indices), rows):
+                chunk = indices[start:start + rows]
+                self.m_bucket_posts.labels(bucket=str(bucket)).inc(len(chunk))
+                with trace.span("engine.pack", bucket=bucket,
+                                rows=len(chunk)):
+                    ids, mask = pack_batch(
+                        [token_lists[i] for i in chunk],
+                        BucketSpec((bucket,)), batch_pad_to=rows)
+                with trace.span("engine.device_put", bucket=bucket):
+                    placed = self._place((ids, mask))
+                self._program(bucket, "unpacked")
+                t0 = time.perf_counter()
+                with trace.span("engine.compute", bucket=bucket, batch=rows,
+                                sequences=len(chunk)):
+                    emb, logits, event = self._dispatch(placed)
+                if pending is not None:
+                    materialize(*pending)
+                pending = (chunk, emb, logits, event, t0)
+        if pending is not None:
+            materialize(*pending)
+        return results  # type: ignore[return-value]
+
+    def _run_with_empties(self, token_lists: Sequence[List[int]],
+                          pack: bool) -> List[Dict[str, Any]]:
+        """Canonical host-side result for EMPTY token lists, identical in
+        both paths: zero embedding, uniform scores, label 0."""
+        sub = [t for t in token_lists if t]
+        it = iter(self.run_tokenized(sub, pack=pack) if sub else [])
+        uniform = [1.0 / self.ecfg.n_labels] * self.ecfg.n_labels
+        out: List[Dict[str, Any]] = []
+        for t in token_lists:
+            out.append(next(it) if t else {
+                "embedding": [0.0] * self.ecfg.hidden,
+                "label": 0, "scores": list(uniform)})
+        return out
+
+    def _run_packed(self, token_lists: Sequence[List[int]]
+                    ) -> List[Dict[str, Any]]:
+        """Packed twin of the dispatch loop: per bucket, first-fit-pack the
+        sequences into shared rows, run the static [batch, bucket] shapes
+        (plus segment ids and positions) through the one-deep pipeline, and
+        fan per-segment results back to input order."""
+        results: List[Optional[Dict[str, Any]]] = [None] * len(token_lists)
+        rows = self._rows
+        n_seg = self.cfg.pack_max_segments
+        pending: Optional[tuple] = None  # (slots, used, emb, logits, event,
+        #                                  t0)
+
+        def materialize(slots, used_rows, emb, logits, event, t0):
+            with trace.span("engine.unpack", segments=len(slots),
+                            rows=used_rows):
+                emb_np, logits_np = self._readback(emb, logits, event)
+                dt = time.perf_counter() - t0
+                self.timeline.record(t0, t0 + dt)
+                self.m_latency.observe(dt)
+                self.m_posts.inc(len(slots))
+                self.m_packed.inc(len(slots))
+                self.m_padding.inc(rows - used_rows)
+                flat = logits_np.reshape(-1, logits_np.shape[-1])
+                scores = _softmax_np(flat).reshape(logits_np.shape)
+                for row, slot, i in slots:
+                    results[i] = self._result(emb_np[row, slot],
+                                              logits_np[row, slot],
+                                              scores[row, slot])
+
+        for bucket, indices in sorted(self._groups(token_lists).items()):
+            self.m_bucket_posts.labels(bucket=str(bucket)).inc(len(indices))
+            with trace.span("engine.pack", bucket=bucket,
+                            sequences=len(indices), packed=True):
+                packed = pack_rows([token_lists[i] for i in indices], bucket,
+                                   max_segments=n_seg, indices=indices)
+            for start in range(0, packed.n_rows, rows):
+                end = min(start + rows, packed.n_rows)
+                used = end - start
+                arrays = [packed.ids[start:end], packed.mask[start:end],
+                          packed.segment_ids[start:end],
+                          packed.positions[start:end]]
+                if used < rows:
+                    # All-pad filler rows (segment id 0) keep the batch
+                    # shape static; no slot maps to them.
+                    arrays = [np.pad(a, ((0, rows - used), (0, 0)))
+                              for a in arrays]
+                slots = [(r - start, s, orig)
+                         for r in range(start, end)
+                         for s, orig in enumerate(packed.assignments[r])]
+                with trace.span("engine.device_put", bucket=bucket,
+                                packed=True):
+                    placed = self._place(arrays)
+                self._program(bucket, "packed")
+                t0 = time.perf_counter()
+                with trace.span("engine.compute", bucket=bucket, batch=rows,
+                                segments=len(slots), packed=True):
+                    emb, logits, event = self._dispatch(
+                        placed, n_segments=n_seg)
+                if pending is not None:
+                    materialize(*pending)
+                pending = (slots, used, emb, logits, event, t0)
+        if pending is not None:
+            materialize(*pending)
+        return results  # type: ignore[return-value]
+
+    def run(self, texts: Sequence[str],
+            pack: bool = False) -> List[Dict[str, Any]]:
+        with trace.span("engine.run", texts=len(texts), pack=bool(pack)):
+            with trace.span("engine.tokenize", texts=len(texts)):
+                toks = self.tokenizer.encode_batch(texts)
+            return self.run_tokenized(toks, pack=pack)
+
+    def embed(self, texts: Sequence[str]) -> np.ndarray:
+        out = self.run(texts)
+        return np.asarray([r["embedding"] for r in out], dtype=np.float32)
+
+    def warmup(self, buckets: Optional[Sequence[int]] = None,
+               pack: Optional[bool] = None) -> None:
+        """Dispatch every (bucket, path) once before serving: the first
+        call of each pays the kernel build and the allocator's growth.
+        ``pack``: True = packed path, False = unpacked, None = both."""
+        modes = (False, True) if pack is None else (bool(pack),)
+        for b in buckets or self.bucket_spec.lengths:
+            toks = ([[1, 2, 3]] * min(2, self.cfg.batch_size)
+                    if b == self.bucket_spec.lengths[0]
+                    else [[1] * (b - 1)])
+            for m in modes:
+                self.run_tokenized(toks, pack=m)
+        self.timeline.reset()
+
+
+def _softmax_np(logits: np.ndarray) -> np.ndarray:
+    z = logits - logits.max(axis=-1, keepdims=True)
+    e = np.exp(z)
+    return e / e.sum(axis=-1, keepdims=True)
