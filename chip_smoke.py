@@ -13,17 +13,21 @@ JSON line each:
    csrc`, with the compiler's register/shared-memory report;
 3. kernel — each kernel against its plain PyTorch version on the card:
    buckets 32-1024, head dims 16/32/64, bf16 and f32, padded, packed,
-   fully masked and unmasked rows;
+   fully masked and unmasked rows, whole key tiles masked, 8 segments per
+   row; each case names the path `choose_path` sends it to (sm90,
+   mma_sync, simt) and checks that path's launch count;
 4. slice — E5-small at full width (batch 256, random weights from
    ``--seed``) served end to end: RecordBatches published on the in-memory
    bus, through `TPUWorker` (packed, coalescing), results collected from
    the results topic and checked; packed against unpacked; a few rows
-   against the same weights in f32 on the CPU; the kernel's launch count
-   against 12 per device dispatch;
-5. times — per bucket at E5-small batch 256: the kernel, its plain
-   version, `scaled_dot_product_attention` (timed only; the port never
-   calls it) and the least time the card could take; the engine's batch
-   time per bucket; the slice's posts/s and p50 batch latency.
+   against the same weights in f32 on the CPU; 12 kernel launches per
+   device dispatch, every one on the sm90 path;
+5. times — per bucket at E5-small batch 256, for the padded shape and the
+   packed shape the slice runs: the sm90 kernel, the mma.sync kernel, its
+   plain version, `scaled_dot_product_attention` (timed only; the port
+   never calls it) and the least time the card could take (bytes, tensor
+   operations or exponentials); f32 through the SIMT kernel; the engine's
+   batch time per bucket; the slice's posts/s and p50 batch latency.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``.  Any failed phase raises and exits
@@ -48,6 +52,10 @@ PACKAGE = "distributed_crawler_tpu_torch"
 # tensor cores.  The card's own power limit is printed beside every time.
 H100_BYTES_PER_S = 3.35e12
 H100_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# Exponentials per second in the special function units of one H100 SXM:
+# the figure the FlashAttention-3 paper gives (Shah et al. 2024, section
+# 3.1: 3.9 TFLOPS of exponential against 989 TFLOPS of bf16 matmul).
+H100_EXP_PER_S = 3.9e12
 
 # Kernel against plain version on the card: f32 sums are taken in another
 # order (online softmax over key tiles, exp2 with a folded log2(e)); bf16
@@ -58,6 +66,9 @@ TOLERANCE = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
 # E5-small's attention shape: 12 heads of 32.
 E5_HEADS, E5_HEAD_DIM, BATCH = 12, 32, 256
 MAIN_BUCKETS = (32, 64, 128, 256, 512)
+# Words per synthetic post, one span per bucket: with CLS and SEP a post
+# of span i lands in MAIN_BUCKETS[i].
+SPANS = ((1, 30), (31, 62), (63, 126), (127, 254), (255, 510))
 
 
 def emit(phase: str, **fields) -> None:
@@ -114,6 +125,24 @@ def _packed_segments(torch, b, l, gen, device):
     return seg.to(device)
 
 
+def _segments(torch, b, l, n_seg, gen, device):
+    """Exactly ``n_seg`` contiguous segments per row at random cuts, then
+    padding (segment id 0)."""
+    seg = torch.zeros((b, l), dtype=torch.int32)
+    for r in range(b):
+        cuts = sorted(torch.randperm(l - 1, generator=gen)[:n_seg] + 1)
+        bounds = [0] + [int(c) for c in cuts]
+        for s in range(n_seg):
+            seg[r, bounds[s]:bounds[s + 1]] = s + 1
+    return seg.to(device)
+
+
+def _expected_path(torch, d, dtype, layout):
+    if dtype == torch.float32:
+        return "simt"
+    return "sm90" if d in (32, 64) and layout == "aligned" else "mma_sync"
+
+
 def phase_kernel(torch, attention, device, gen):
     cases = []
     for l in (32, 64, 128, 256, 512, 1024):
@@ -122,24 +151,41 @@ def phase_kernel(torch, attention, device, gen):
             cases.append((l, d, dtype))
     cases.append((128, 16, torch.float32))
     cases.append((100, 16, torch.bfloat16))  # ragged: L not a tile multiple
-    # K/V rows not 16-byte aligned: the bf16 kernel stages them with plain
-    # loads instead of 16-byte asynchronous copies.
+    # K/V rows not 16-byte aligned: TMA cannot address them, so bf16 goes
+    # to the mma.sync kernel, which stages them with plain loads.
     cases += [(200, 32, torch.bfloat16, "unaligned"),
               (70, 64, torch.float32, "unaligned")]
     results = []
-    worst = 0.0
+    worst = dict.fromkeys(attention.PATHS, 0.0)
     for l, d, dtype, *layout in cases:
+        layout = (layout or ["aligned"])[0]
         b, h = (2, 4) if l >= 1024 else (3, 4)
         q, k, v = _qkv(torch, b, l, h, d, dtype, gen, device,
-                       offset=1 if layout else 0)
+                       offset=1 if layout == "unaligned" else 0)
         mask = _padded_mask(torch, b, l, gen, device, full_rows=(b - 1,))
         seg = _packed_segments(torch, b, l, gen, device)
-        for kind, kw in (("padded", {"kv_mask": mask}),
-                         ("packed", {"kv_mask": seg > 0, "segment_ids": seg}),
-                         ("unmasked", {})):
+        kinds = [("padded", {"kv_mask": mask}),
+                 ("packed", {"kv_mask": seg > 0, "segment_ids": seg}),
+                 ("unmasked", {})]
+        if l == 512 and dtype == torch.bfloat16:
+            # Whole key tiles masked in the middle of every row (not a
+            # prefix mask), and packed rows of exactly 8 segments.
+            holes = mask.clone()
+            holes[:, 64:192] = False
+            seg8 = _segments(torch, b, l, 8, gen, device)
+            kinds += [("tile_holes", {"kv_mask": holes}),
+                      ("packed8", {"kv_mask": seg8 > 0, "segment_ids": seg8})]
+        path = _expected_path(torch, d, dtype, layout)
+        check(attention.choose_path(q, k, v) == path,
+              f"choose_path L={l} d={d} {dtype} {layout}: "
+              f"{attention.choose_path(q, k, v)}, expected {path}")
+        for kind, kw in kinds:
+            before = attention.flash_attention.launches_by_path[path]
             out = attention.flash_attention(q, k, v, **kw)
             ref = attention.attend(q, k, v, **kw)
             torch.cuda.synchronize()
+            check(attention.flash_attention.launches_by_path[path]
+                  == before + 1, f"no {path} launch counted")
             name = str(dtype).replace("torch.", "")
             atol, rtol = TOLERANCE[name]
             err = (out.float() - ref.float()).abs().max().item()
@@ -153,11 +199,11 @@ def phase_kernel(torch, attention, device, gen):
             check(bool(torch.isfinite(out.float()).all().item()),
                   f"non-finite kernel output L={l} d={d} {name} {kind}")
             check(ok, f"kernel disagrees with plain: L={l} d={d} {name} "
-                      f"{kind} max_abs_err={err} tol=({atol}, {rtol})")
+                      f"{kind} {path} max_abs_err={err} tol=({atol}, {rtol})")
             check(zeros_ok, f"fully masked row not zero: L={l} d={d} {name}")
-            worst = max(worst, err)
+            worst[path] = max(worst[path], err)
             results.append({"L": l, "head_dim": d, "dtype": name,
-                            "rows": kind, "layout": (layout or ["aligned"])[0],
+                            "rows": kind, "layout": layout, "path": path,
                             "max_abs_err": err,
                             "atol": atol, "rtol": rtol})
     emit("kernel", name="flash_attention", cases=len(results),
@@ -166,82 +212,150 @@ def phase_kernel(torch, attention, device, gen):
 
 
 # -- phase 5: kernel times --------------------------------------------------
-def cuda_time_ms(torch, fn, min_total_s=0.2, min_iters=5, max_iters=200):
-    """Mean ms per call over many warmed calls, timed with CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    one = max(time.perf_counter() - t0, 1e-6)
-    iters = int(min(max_iters, max(min_iters, min_total_s / one)))
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+def attention_bound_ms(pairs, b, l, h, d, dtype_name, elem_bytes, has_seg):
+    """The least time of one call, by resource, in ms: bytes (q, k, v and
+    out once each, the int32 mask and segment ids) over the memory rate;
+    the score and PV products of the allowed (query, key) pairs over the
+    peak for the type; one exponential per allowed pair over the special
+    function units' rate."""
+    io_bytes = (4 * b * l * h * d * elem_bytes
+                + b * l * 4 * (2 if has_seg else 1))
+    return {"bytes": io_bytes / H100_BYTES_PER_S * 1e3,
+            "operations": 4.0 * h * d * pairs
+            / H100_PEAK_FLOPS[dtype_name] * 1e3,
+            "exponentials": h * pairs / H100_EXP_PER_S * 1e3}
 
 
-def attention_bound_ms(b, l, h, d, valid_keys, dtype_name, elem_bytes):
-    """(bytes ms, operations ms) for one call: each input read once and
-    the output written once over the memory rate; the score and PV
-    products this run's mask needs (each query against its row's valid
-    keys) over the peak for the type.  The bound is the larger."""
-    io_bytes = 4 * b * l * h * d * elem_bytes + b * l * 4  # q,k,v,out,mask
-    flops = 4.0 * h * d * l * valid_keys
-    return (io_bytes / H100_BYTES_PER_S * 1e3,
-            flops / H100_PEAK_FLOPS[dtype_name] * 1e3)
+def bound_of(parts):
+    """(bound ms, the resource that sets it): the largest part."""
+    by = max(parts, key=parts.get)
+    return parts[by], by
 
 
-def bound_of(bytes_ms, ops_ms):
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
-                                   else "operations")
+def _packed_shape(torch, bucket, gen_np, device):
+    """BATCH rows of ``bucket`` tokens packed by the port's own
+    ``pack_rows`` from the slice's length mix (`synthetic_posts`: words
+    uniform in the bucket's span, plus CLS and SEP)."""
+    from distributed_crawler_tpu_torch.ops.padding import pack_rows
+
+    lo, hi = SPANS[MAIN_BUCKETS.index(bucket)]
+    seqs = []
+    while True:
+        seqs += [[5] * (int(n) + 2)
+                 for n in gen_np.integers(lo, hi + 1, size=BATCH)]
+        packed = pack_rows(seqs, bucket)
+        if packed.n_rows >= BATCH:
+            break
+    mask = torch.from_numpy(packed.mask[:BATCH]).to(device)
+    seg = torch.from_numpy(packed.segment_ids[:BATCH]).to(device)
+    return mask, seg
 
 
-def phase_kernel_times(torch, attention, device, gen, smi):
+def _tile_counts(attention, mask, seg):
+    """(warpgroup tiles the sm90 kernel computes, candidate tiles): the
+    first from `key_tile_plan`, the second what it would compute without
+    skipping (every candidate tile, both warpgroups)."""
+    b, l = mask.shape
+    plan = attention.key_tile_plan(mask, seg, b, l)
+    done = sum(bin(bits).count("1") for tiles in plan for _, bits in tiles)
+    cand = 0
+    t = b * l
+    for q0 in range(0, t, attention.SM90_BLOCK_M):
+        q1 = min(q0 + attention.SM90_BLOCK_M, t)
+        keys = ((q1 - 1) // l + 1 - q0 // l) * l
+        n_wg = -(-(q1 - q0) // attention.SM90_WG_ROWS)
+        cand += n_wg * -(-keys // attention.SM90_BLOCK_N)
+    return done, cand
+
+
+def _time_bucket(torch, F, attention, q, k, v, mask, seg, err_tag):
+    """Every path's time, the plain version's and SDPA's, on one input."""
+    from distributed_crawler_tpu_torch.utils import cudatime
+
+    kw = {"kv_mask": mask.to(torch.int32)}
+    if seg is not None:
+        kw["segment_ids"] = seg
+    ref = attention.attend(q, k, v, kv_mask=mask, segment_ids=seg)
+    path = attention.choose_path(q, k, v)
+    paths = [path] + (["mma_sync"] if path == "sm90" else [])
+    times, errs = {}, {}
+    atol, rtol = TOLERANCE[str(q.dtype).replace("torch.", "")]
+    for p in paths:
+        out = attention.flash_attention(q, k, v, path=p, **kw)
+        torch.cuda.synchronize()
+        errs[p] = (out.float() - ref.float()).abs().max().item()
+        check(bool(torch.allclose(out.float(), ref.float(), atol=atol,
+                                  rtol=rtol)),
+              f"{p} kernel disagrees at {err_tag}: {errs[p]}")
+        del out
+    del ref
+    for p in paths:
+        times[p] = cudatime.graph_time_ms(lambda: attention.flash_attention(
+            q, k, v, path=p, **kw))
+    # The same call issued from Python, wrapper included.
+    times["eager"] = cudatime.event_time_ms(lambda: attention.flash_attention(
+        q, k, v, **kw))
+    times["plain"] = cudatime.event_time_ms(lambda: attention.attend(
+        q, k, v, kv_mask=mask, segment_ids=seg), min_iters=3, max_iters=20)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    allow = attention._allowed_mask(mask, seg)
+    times["sdpa"] = cudatime.graph_time_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allow))
+    b, l = mask.shape
+    pairs = int(allow.expand(b, 1, l, l).sum().item())
+    return times, errs, pairs
+
+
+def phase_kernel_times(torch, np, attention, device, gen, seed, smi):
+    """Per bucket at E5-small batch 256: the padded shape (each row's
+    length in the top half of its bucket, as serving sees it) and the
+    packed shape the slice runs; bf16 through the sm90 and the mma.sync
+    kernels, f32 (padded) through the SIMT kernel."""
     import torch.nn.functional as F
 
+    gen_np = np.random.default_rng(seed)
     rows = []
     for l in MAIN_BUCKETS:
         q, k, v = _qkv(torch, BATCH, l, E5_HEADS, E5_HEAD_DIM,
                        torch.bfloat16, gen, device)
-        # Serving-like padding: each row's length lands in this bucket.
         lo = l // 2 + 1 if l > 32 else 1
-        mask = _padded_mask(torch, BATCH, l, gen, device, min_len=lo)
-        mask_i = mask.to(torch.int32)
-        valid = int(mask.sum().item())
-        out = attention.flash_attention(q, k, v, kv_mask=mask_i)
-        ref = attention.attend(q, k, v, kv_mask=mask)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        atol, rtol = TOLERANCE["bfloat16"]
-        check(bool(torch.allclose(out.float(), ref.float(), atol=atol,
-                                  rtol=rtol)),
-              f"kernel disagrees at the serving shape L={l}: {err}")
-        del out, ref
-        ms = cuda_time_ms(torch, lambda: attention.flash_attention(
-            q, k, v, kv_mask=mask_i))
-        plain_ms = cuda_time_ms(torch, lambda: attention.attend(
-            q, k, v, kv_mask=mask), min_iters=3, max_iters=20)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        sdpa_mask = mask[:, None, None, :]
-        library_ms = cuda_time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=sdpa_mask))
-        bytes_ms, ops_ms = attention_bound_ms(
-            BATCH, l, E5_HEADS, E5_HEAD_DIM, valid, "bfloat16", 2)
-        bound_ms, bound_by = bound_of(bytes_ms, ops_ms)
-        row = {"bucket": l, "batch": BATCH, "heads": E5_HEADS,
-               "head_dim": E5_HEAD_DIM, "dtype": "bfloat16",
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "bytes_ms": bytes_ms,
-               "operations_ms": ops_ms, "valid_keys": valid, "card": smi}
+        padded = (_padded_mask(torch, BATCH, l, gen, device, min_len=lo), None)
+        packed = _packed_shape(torch, l, gen_np, device)
+        for shape, (mask, seg) in (("padded", padded), ("packed", packed)):
+            times, errs, pairs = _time_bucket(
+                torch, F, attention, q, k, v, mask, seg, f"{shape} L={l}")
+            parts = attention_bound_ms(pairs, BATCH, l, E5_HEADS, E5_HEAD_DIM,
+                                       "bfloat16", 2, seg is not None)
+            tiles, cand = _tile_counts(attention, mask, seg)
+            row = {"bucket": l, "shape": shape, "batch": BATCH,
+                   "heads": E5_HEADS, "head_dim": E5_HEAD_DIM,
+                   "dtype": "bfloat16", "max_abs_err": errs,
+                   "ms": times["sm90"], "mma_sync_ms": times["mma_sync"],
+                   "eager_ms": times["eager"],
+                   "plain_ms": times["plain"], "library_ms": times["sdpa"],
+                   "bound_ms": bound_of(parts)[0],
+                   "bound_by": bound_of(parts)[1], "bound_parts_ms": parts,
+                   "allowed_pairs": pairs, "sm90_wg_tiles": tiles,
+                   "sm90_wg_tiles_without_skipping": cand, "card": smi}
+            rows.append(row)
+            emit("times.kernel", name="flash_attention", **row)
+        # f32 through the SIMT kernel, padded shape.
+        mask = padded[0]
+        qf, kf, vf = (x.float() for x in (q, k, v))
+        times, errs, pairs = _time_bucket(torch, F, attention, qf, kf, vf,
+                                          mask, None, f"f32 L={l}")
+        parts = attention_bound_ms(pairs, BATCH, l, E5_HEADS, E5_HEAD_DIM,
+                                   "float32", 4, False)
+        row = {"bucket": l, "shape": "padded", "batch": BATCH,
+               "heads": E5_HEADS, "head_dim": E5_HEAD_DIM, "dtype": "float32",
+               "max_abs_err": errs, "ms": times["simt"],
+               "eager_ms": times["eager"],
+               "plain_ms": times["plain"], "library_ms": times["sdpa"],
+               "bound_ms": bound_of(parts)[0], "bound_by": bound_of(parts)[1],
+               "bound_parts_ms": parts, "allowed_pairs": pairs, "card": smi}
         rows.append(row)
         emit("times.kernel", name="flash_attention", **row)
-        del q, k, v, qt, kt, vt
+        del q, k, v, qf, kf, vf
         torch.cuda.empty_cache()
     return rows
 
@@ -253,11 +367,10 @@ _LETTERS = "abcdefghijklmnopqrstuvwxyz"
 def synthetic_posts(np, rng, n, start):
     """Posts whose token counts (words + CLS + SEP) spread over all five
     buckets: each word is 3-8 lowercase letters, so it hashes to one id."""
-    spans = [(1, 30), (31, 62), (63, 126), (127, 254), (255, 510)]
     letters = np.array(list(_LETTERS))
     posts = []
     for i in range(n):
-        lo, hi = spans[int(rng.integers(len(spans)))]
+        lo, hi = SPANS[int(rng.integers(len(SPANS)))]
         n_words = int(rng.integers(lo, hi + 1))
         sizes = rng.integers(3, 9, size=n_words)
         chars = letters[rng.integers(0, 26, size=int(sizes.sum()))]
@@ -291,7 +404,7 @@ def phase_slice(torch, np, seed, smi):
         bucket_for,
         pack_batch,
     )
-    from distributed_crawler_tpu_torch.utils import trace
+    from distributed_crawler_tpu_torch.utils import cudatime, trace
     from distributed_crawler_tpu_torch.utils.costmodel import (
         encoder_forward_flops,
     )
@@ -332,6 +445,9 @@ def phase_slice(torch, np, seed, smi):
 
     # The main path: counts to 0 just before, read just after.
     attention.flash_attention.launches = 0
+    by_path = attention.flash_attention.launches_by_path
+    for p in by_path:
+        by_path[p] = 0
     dispatches0 = engine.m_latency.count
     lat_n0 = len(engine.m_latency.window())
     t_start = time.perf_counter()
@@ -347,6 +463,7 @@ def phase_slice(torch, np, seed, smi):
         worker.stop()
         bus.close()
     launches = attention.flash_attention.launches
+    launches_by_path = dict(by_path)
     dispatches = engine.m_latency.count - dispatches0
     latencies = sorted(engine.m_latency.window()[lat_n0:])
     check(len(got) == n_batches,
@@ -355,6 +472,8 @@ def phase_slice(torch, np, seed, smi):
     check(launches == ecfg.n_layers * dispatches,
           f"{launches} kernel launches for {dispatches} dispatches "
           f"(expected {ecfg.n_layers} per dispatch)")
+    check(launches_by_path == {"sm90": launches, "mma_sync": 0, "simt": 0},
+          f"launches by path {launches_by_path}: every one should be sm90")
     status = worker.get_status()
     check(status["processed_batches"] == n_batches
           and status["error_batches"] == 0, f"worker status {status}")
@@ -439,6 +558,7 @@ def phase_slice(torch, np, seed, smi):
           f"scores {cpu_score_err} (tol {cpu_tol_scores})")
     emit("slice", records=n_posts, batches=n_batches, result_frames=len(got),
          dispatches=dispatches, kernel_launches=launches,
+         kernel_launches_by_path=launches_by_path,
          launches_per_dispatch=launches / dispatches,
          coalesced_groups=worker.m_coalesce.count,
          packed_vs_unpacked={"emb_max_abs_err": emb_err,
@@ -479,14 +599,47 @@ def phase_slice(torch, np, seed, smi):
         ids_d = torch.from_numpy(ids).to(engine.device)
         mask_d = torch.from_numpy(mask).to(engine.device)
         with torch.inference_mode():
-            forward_ms = cuda_time_ms(
-                torch, lambda: engine.model(ids_d, mask_d),
+            forward_ms = cudatime.event_time_ms(
+                lambda: engine.model(ids_d, mask_d),
                 min_iters=3, max_iters=20)
         flops = encoder_forward_flops(ecfg, BATCH, bucket)
         emit("times.engine", bucket=bucket, batch=BATCH, batch_ms=ms,
              forward_ms=forward_ms, host_stage_ms=stages,
              model_tflop_per_s=flops / (ms * 1e-3) / 1e12, card=smi)
-    return {"launches": launches, "dispatches": dispatches}
+    return {"launches": launches_by_path, "dispatches": dispatches}
+
+
+KERNEL_SOURCES = {"sm90": "flash_attention_sm90.cu",
+                  "mma_sync": "flash_attention.cu",
+                  "simt": "flash_attention.cu"}
+
+
+def kernel_entry(path, rows, worst, launches):
+    """One kernel's entry of the ``kernels`` line: its times summed over
+    one call at each bucket of the padded E5-small shape (bf16 for sm90 and
+    mma_sync, f32 for simt), the bound summed part by part."""
+    dtype = "float32" if path == "simt" else "bfloat16"
+    mine = [r for r in rows if r["shape"] == "padded" and r["dtype"] == dtype]
+    key = "mma_sync_ms" if path == "mma_sync" else "ms"
+    parts = {p: sum(r["bound_parts_ms"][p] for r in mine)
+             for p in mine[0]["bound_parts_ms"]}
+    bound_ms, bound_by = bound_of(parts)
+    return {
+        "name": f"flash_attention_{path}",
+        "route": "cuda",
+        "source": f"{PACKAGE}/csrc/{KERNEL_SOURCES[path]}",
+        "replaces": "distributed_crawler_tpu/ops/attention.py:107",
+        "launches": launches[path],
+        "max_abs_err": max([worst[path]] + [r["max_abs_err"][path]
+                                            for r in mine]),
+        "ms": sum(r[key] for r in mine),
+        "plain_ms": sum(r["plain_ms"] for r in mine),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": sum(r["library_ms"] for r in mine),
+        "at": f"E5-small, batch 256, {dtype}, serving padding: one call at "
+              f"each of buckets 32-512, summed",
+    }
 
 
 def main() -> int:
@@ -525,34 +678,18 @@ def main() -> int:
         "library": os.path.relpath(r.path, ROOT),
         "ptxas": [ln.strip() for ln in r.log.splitlines()
                   if "registers" in ln or "spill" in ln or "smem" in ln
-                  or "Compiling entry" in ln]} for r in builds])
+                  or "Compiling entry" in ln or "Performance Loss" in ln]}
+        for r in builds])
 
     device = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(args.seed)
     worst = phase_kernel(torch, attention, device, gen)
     main_path = phase_slice(torch, np, args.seed, smi)
-    rows = phase_kernel_times(torch, attention, device, gen, smi)
-    worst = max([worst] + [r["max_abs_err"] for r in rows])
-
-    total = {key: sum(r[key] for r in rows)
-             for key in ("ms", "plain_ms", "library_ms", "bytes_ms",
-                         "operations_ms")}
-    bound_ms, bound_by = bound_of(total["bytes_ms"], total["operations_ms"])
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": f"{PACKAGE}/csrc/flash_attention.cu",
-        "replaces": "distributed_crawler_tpu/ops/attention.py:107",
-        "launches": main_path["launches"],
-        "max_abs_err": worst,
-        "ms": total["ms"],
-        "plain_ms": total["plain_ms"],
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": total["library_ms"],
-        "at": "E5-small, batch 256, bf16: one call at each of buckets "
-              "32-512, summed",
-    }]}), flush=True)
+    rows = phase_kernel_times(torch, np, attention, device, gen, args.seed,
+                              smi)
+    print(json.dumps({"kernels": [
+        kernel_entry(path, rows, worst, main_path["launches"])
+        for path in attention.PATHS]}), flush=True)
     emit("done", seconds=time.perf_counter() - t_all)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

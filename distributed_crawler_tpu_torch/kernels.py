@@ -29,6 +29,7 @@ DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"  # when nvcc is not on PATH
 # One source file per library; every kernel of the port is listed here.
 SOURCES: Dict[str, str] = {
     "flash_attention": "flash_attention.cu",
+    "flash_attention_sm90": "flash_attention_sm90.cu",
 }
 
 NVCC_FLAGS: Tuple[str, ...] = (

@@ -9,16 +9,23 @@ input dtype.  A fully masked row gives zeros, never a uniform average.
 - :func:`attend` — the plain version (`distributed_crawler_tpu/ops/
   attention.py:44-68` in torch).  The serving path sends it CPU tensors
   only; on the card it is called only to check the kernel against it.
-- :func:`flash_attention` — the wrapper of `csrc/flash_attention.cu`.  For
-  a CUDA tensor it launches the kernel or raises; a CPU tensor takes
-  :func:`attend`.  ``flash_attention.launches`` counts kernel launches.
+- :func:`flash_attention` — the wrapper of the CUDA kernels.  For a CUDA
+  tensor it launches one or raises; a CPU tensor takes :func:`attend`.
+  :func:`choose_path` picks the kernel from the layout, before launch:
+  ``"sm90"`` (`csrc/flash_attention_sm90.cu`: TMA, wgmma, a producer warp)
+  for bf16 at head dims 32/64 with TMA-legal operands; ``"mma_sync"``
+  (`csrc/flash_attention.cu`) for other bf16 layouts; ``"simt"`` (the same
+  source) for f32.  ``flash_attention.launches`` counts launches, and
+  ``flash_attention.launches_by_path`` counts them per path.
+- :func:`key_tile_plan` — the sm90 kernel's tile-skip rule in plain
+  PyTorch: which key tiles each query block computes.
 - :func:`mha` — dispatch by the tensor's device.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -27,8 +34,16 @@ from .. import kernels
 _NEG_INF = -1e30
 
 HEAD_DIMS = (16, 32, 64)
+SM90_HEAD_DIMS = (32, 64)
+PATHS = ("sm90", "mma_sync", "simt")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2 ** 31 - 1
+
+# The sm90 kernel's tiling (csrc/flash_attention_sm90.cu): a block owns
+# SM90_BLOCK_M consecutive query tokens of the flat [B*L] axis, split over
+# consumer warpgroups of SM90_WG_ROWS rows; keys come in tiles of
+# SM90_BLOCK_N tokens.
+SM90_BLOCK_M, SM90_WG_ROWS, SM90_BLOCK_N = 128, 64, 64
 
 _c_void_p, _c_int = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
@@ -39,6 +54,15 @@ SIGNATURES = {
         + [ctypes.c_float, _c_int, _c_void_p],  # scale, dtype, stream
         _c_int),
     "flash_attention_error_string": ([_c_int], ctypes.c_char_p),
+}
+SM90_SIGNATURES = {
+    "flash_attention_sm90_fwd": (
+        [_c_void_p] * 6            # q, k, v, kv_mask, segment_ids, out
+        + [_c_int] * 4             # batch, seq_len, n_heads, head_dim
+        + [_c_int] * 6             # (l, h) strides of q, k, v
+        + [ctypes.c_float, _c_void_p],  # scale, stream
+        _c_int),
+    "flash_attention_sm90_error_string": ([_c_int], ctypes.c_char_p),
 }
 
 
@@ -90,12 +114,80 @@ def _as_int32(x: torch.Tensor, name: str, shape) -> torch.Tensor:
     return x.to(torch.int32).contiguous()
 
 
+def _tma_legal(x: torch.Tensor) -> bool:
+    """A bf16 [B, L, H, D] operand the sm90 kernel's TMA maps can address:
+    16-byte-aligned base, head dim contiguous, token and head strides whole
+    16-byte units, and the batch stride L token strides, so that the
+    tokens form one flat [B*L] axis."""
+    b, l, _, _ = x.shape
+    sb, sl, sh, sd = x.stride()
+    return (sd == 1 and x.data_ptr() % 16 == 0 and sl % 8 == 0
+            and sh % 8 == 0 and (b == 1 or sb == l * sl))
+
+
+def choose_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """Which kernel takes these operands, from dtype and layout alone:
+    ``"simt"`` for f32, ``"sm90"`` for bf16 at head dims 32/64 whose q, k
+    and v are all TMA-legal, ``"mma_sync"`` for any other bf16 input."""
+    if q.dtype == torch.float32:
+        return "simt"
+    b, l, _, d = q.shape
+    if (d in SM90_HEAD_DIMS and b * l <= _INT_MAX
+            and all(_tma_legal(x) for x in (q, k, v))):
+        return "sm90"
+    return "mma_sync"
+
+
+def key_tile_plan(kv_mask: Optional[torch.Tensor],
+                  segment_ids: Optional[torch.Tensor],
+                  batch: int, seq_len: int) -> List[List[Tuple[int, int]]]:
+    """The sm90 kernel's tile-skip rule, in plain PyTorch.
+
+    Tokens are one flat axis of ``batch * seq_len``.  Query block ``i``
+    holds tokens ``[128 i, 128 i + 128)``; its candidate keys are the
+    tokens of the batch rows those queries belong to, cut into tiles of 64
+    from the first of them.  A key is allowed for a query when it is
+    unmasked and has the query's batch row and segment id.  Entry ``i`` of
+    the result lists ``(first key token, bits)`` for every tile the block
+    computes, bit ``w`` set when some key of the tile is allowed for some
+    query of warpgroup ``w`` (rows ``[64 w, 64 w + 64)`` of the block).  A
+    tile that is not listed is never loaded."""
+    t = batch * seq_len
+    valid = (kv_mask.reshape(-1).bool().cpu() if kv_mask is not None
+             else torch.ones(t, dtype=torch.bool))
+    seg = (segment_ids.reshape(-1).to(torch.int64).cpu()
+           if segment_ids is not None else torch.zeros(t, dtype=torch.int64))
+    row = torch.arange(t) // seq_len
+    tag = row * 2 ** 32 + (seg & 0xFFFFFFFF)  # (batch row, segment id)
+    plan = []
+    for q0 in range(0, t, SM90_BLOCK_M):
+        q1 = min(q0 + SM90_BLOCK_M, t)
+        k_begin = (q0 // seq_len) * seq_len
+        k_end = ((q1 - 1) // seq_len + 1) * seq_len
+        n_tiles = -(-(k_end - k_begin) // SM90_BLOCK_N)
+        bits = torch.zeros(n_tiles, dtype=torch.int64)
+        for w, w0 in enumerate(range(q0, q1, SM90_WG_ROWS)):
+            q_tags = tag[w0:min(w0 + SM90_WG_ROWS, q1)]
+            seen = valid[k_begin:k_end] & torch.isin(tag[k_begin:k_end],
+                                                     q_tags)
+            pad = n_tiles * SM90_BLOCK_N - seen.numel()
+            seen = torch.nn.functional.pad(seen, (0, pad))
+            bits |= seen.view(n_tiles, SM90_BLOCK_N).any(dim=1).long() << w
+        plan.append([(k_begin + SM90_BLOCK_N * j, int(b))
+                     for j, b in enumerate(bits.tolist()) if b])
+    return plan
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_mask: Optional[torch.Tensor] = None,
                     scale: Optional[float] = None,
-                    segment_ids: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
-    """The CUDA kernel for a CUDA tensor; :func:`attend` for a CPU one."""
+                    segment_ids: Optional[torch.Tensor] = None,
+                    path: Optional[str] = None) -> torch.Tensor:
+    """A CUDA kernel for a CUDA tensor; :func:`attend` for a CPU one.
+
+    ``path`` names the kernel instead of :func:`choose_path` (the times
+    phase of chip_smoke.py reaches the mma.sync kernel so); it raises when
+    that kernel cannot take the operands."""
     if q.device.type == "cpu":
         return attend(q, k, v, kv_mask, scale, segment_ids=segment_ids)
     if q.device.type != "cuda":
@@ -131,23 +223,45 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, x in (("kv_mask", mask_i), ("segment_ids", seg_i)):
         if x is not None and x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-    lib = kernels.load("flash_attention", SIGNATURES)
+    chosen = choose_path(q, k, v)
+    if path is None:
+        path = chosen
+    elif path not in PATHS:
+        raise ValueError(f"path {path!r} is not one of {PATHS}")
+    elif (path == "simt") != (chosen == "simt") or (
+            path == "sm90" and chosen != "sm90"):
+        raise ValueError(f"the {path} kernel cannot take these operands "
+                         f"({q.dtype}, head dim {d}, strides "
+                         f"{q.stride()}); choose_path gives {chosen}")
     out = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        mask_i.data_ptr() if mask_i is not None else None,
-        seg_i.data_ptr() if seg_i is not None else None,
-        out.data_ptr(), b, l, h, d, *strides, scale, _DTYPE_CODES[q.dtype],
-        stream)
+    mask_p = mask_i.data_ptr() if mask_i is not None else None
+    seg_p = seg_i.data_ptr() if seg_i is not None else None
+    if path == "sm90":
+        lib = kernels.load("flash_attention_sm90", SM90_SIGNATURES)
+        sl_sh = [s for i, s in enumerate(strides) if i % 3]  # drop batch
+        rc = lib.flash_attention_sm90_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_p, seg_p,
+            out.data_ptr(), b, l, h, d, *sl_sh, scale, stream)
+        err = lib.flash_attention_sm90_error_string
+    else:
+        lib = kernels.load("flash_attention", SIGNATURES)
+        rc = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_p, seg_p,
+            out.data_ptr(), b, l, h, d, *strides, scale,
+            _DTYPE_CODES[q.dtype], stream)
+        err = lib.flash_attention_error_string
     if rc != 0:
-        msg = lib.flash_attention_error_string(rc).decode()
-        raise RuntimeError(f"flash_attention launch failed: {msg} ({rc})")
+        raise RuntimeError(f"flash_attention ({path}) launch failed: "
+                           f"{err(rc).decode()} ({rc})")
     flash_attention.launches += 1
+    flash_attention.launches_by_path[path] += 1
     return out
 
 
-flash_attention.launches = 0  # kernel launches, read by chip_smoke.py
+# Kernel launches, in all and per path, read by chip_smoke.py.
+flash_attention.launches = 0
+flash_attention.launches_by_path = dict.fromkeys(PATHS, 0)
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -129,6 +129,39 @@ class TestKernelOnCard:
         with pytest.raises(ValueError):
             flash_attention(q, k, v, kv_mask=mask[:, :8])
 
+    def test_launches_by_path(self, cuda):
+        """Each input moves the count of the path choose_path gives it."""
+        for dtype, d, offset, path in (
+                (torch.bfloat16, 32, 0, "sm90"),
+                (torch.bfloat16, 64, 0, "sm90"),
+                (torch.bfloat16, 32, 1, "mma_sync"),
+                (torch.bfloat16, 16, 0, "mma_sync"),
+                (torch.float32, 32, 0, "simt")):
+            q, k, v, mask, _ = _inputs(2, 96, 2, d, dtype, cuda,
+                                       offset=offset)
+            assert attention.choose_path(q, k, v) == path
+            before = dict(flash_attention.launches_by_path)
+            flash_attention(q, k, v, kv_mask=mask)
+            after = flash_attention.launches_by_path
+            assert {p: after[p] - before[p] for p in after} == {
+                p: int(p == path) for p in after}
+
+    def test_path_argument(self, cuda):
+        q, k, v, mask, _ = _inputs(2, 96, 2, 32, torch.bfloat16, cuda)
+        ref = attend(q, k, v, kv_mask=mask)
+        before = flash_attention.launches_by_path["mma_sync"]
+        out = flash_attention(q, k, v, kv_mask=mask, path="mma_sync")
+        torch.cuda.synchronize()
+        assert flash_attention.launches_by_path["mma_sync"] == before + 1
+        torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                                   rtol=2e-2)
+        qu, ku, vu, _, _ = _inputs(2, 96, 2, 32, torch.bfloat16, cuda,
+                                   offset=1)
+        with pytest.raises(ValueError):
+            flash_attention(qu, ku, vu, path="sm90")
+        with pytest.raises(ValueError):
+            flash_attention(q, k, v, path="simt")
+
     def test_engine_tiny_on_card_matches_cpu(self, cuda):
         """The tiny (f32) engine on the card against the same weights on
         the CPU: same labels, scores within the f32 kernel tolerance."""
@@ -159,3 +192,72 @@ class TestKernelOnCard:
             np.testing.assert_allclose(
                 [r["scores"] for r in a], [r["scores"] for r in b],
                 atol=1e-4, rtol=1e-4)
+
+
+def _holes(mask):
+    """Whole key tiles masked in the middle of every row (not a prefix)."""
+    holes = mask.clone()
+    holes[:, 64:192] = False
+    return holes
+
+
+@pytest.mark.gpu
+class TestSm90OnCard:
+    """The Hopper kernel (`csrc/flash_attention_sm90.cu`), which takes bf16
+    at head dims 32/64 with TMA-legal operands, against the plain version.
+    Tolerance bf16 2e-2 abs/rel, as above."""
+
+    @pytest.mark.parametrize("d", [32, 64])
+    @pytest.mark.parametrize("l", [32, 64, 100, 128, 512, 1024])
+    def test_matches_plain(self, cuda, l, d):
+        b = 2 if l >= 512 else 5
+        q, k, v, mask, seg = _inputs(b, l, 3, d, torch.bfloat16, cuda,
+                                     seed=l * d)
+        assert attention.choose_path(q, k, v) == "sm90"
+        for kw in ({}, {"kv_mask": mask},
+                   {"kv_mask": seg > 0, "segment_ids": seg},
+                   {"kv_mask": _holes(mask)}):
+            before = flash_attention.launches_by_path["sm90"]
+            out = flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            assert flash_attention.launches_by_path["sm90"] == before + 1
+            ref = attend(q, k, v, **kw)
+            assert out.dtype == torch.bfloat16 and out.shape == q.shape
+            torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                                       rtol=2e-2)
+        out = flash_attention(q, k, v, kv_mask=mask)
+        assert torch.equal(out[-1].float(),
+                           torch.zeros_like(out[-1], dtype=torch.float32))
+
+    @pytest.mark.parametrize("segments", [False, True])
+    def test_skipped_tiles_change_nothing(self, cuda, segments):
+        """Overwrite the K/V of every key that no block loads (per
+        `key_tile_plan`): large finite values leave the output bitwise
+        equal, and NaN in V, which any computed tile would carry into its
+        rows (0 * NaN), leaves it equal too, so those tiles were skipped."""
+        b, l = 3, 512
+        q, k, v, _, _ = _inputs(b, l, 4, 32, torch.bfloat16, cuda, seed=7)
+        lens = torch.tensor([100, 300, 200])
+        mask = _holes(torch.arange(l)[None, :] < lens[:, None])
+        seg = None
+        if segments:
+            seg = torch.zeros((b, l), dtype=torch.int32)
+            seg[:, :40], seg[:, 40:300] = 1, 2
+            seg = seg.to(cuda)
+        mask = mask.to(cuda)
+        kw = {"kv_mask": mask, "segment_ids": seg}
+        plan = attention.key_tile_plan(mask, seg, b, l)
+        loaded = torch.zeros(b * l, dtype=torch.bool)
+        for tiles in plan:
+            for k0, _ in tiles:
+                loaded[k0:k0 + attention.SM90_BLOCK_N] = True
+        skipped = (~loaded[:b * l]).view(b, l).to(cuda)
+        assert skipped.any()
+        base = flash_attention(q, k, v, **kw)
+        for k_fill, v_fill in ((3.0e4, -3.0e4), (0.0, float("nan"))):
+            kp, vp = k.clone(), v.clone()
+            kp[skipped] = k_fill
+            vp[skipped] = v_fill
+            out = flash_attention(q, kp, vp, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(out, base)
