@@ -27,7 +27,19 @@ JSON line each:
    plain version, `scaled_dot_product_attention` (timed only; the port
    never calls it) and the least time the card could take (bytes, tensor
    operations or exponentials); f32 through the SIMT kernel; the engine's
-   batch time per bucket; the slice's posts/s and p50 batch latency.
+   batch time per bucket; the slice's posts/s and p50 batch latency;
+6. slice.xlmr — a synthetic XLM-R-base classification checkpoint at the
+   published widths (HF key names, ``model.safetensors`` in F32, values
+   from ``--seed``) written to a temporary directory and served int8
+   (``pretrained_dir``, ``quantize="int8"``) through `TPUWorker` as in
+   phase 4, the tokenizer falling back to `HashingTokenizer` with its
+   warning: 12 sm90 launches per dispatch at head dim 64; int8 and
+   ``int8_static`` (calibrated on the card) against bf16 on the same
+   weights by minimum cosine (> 0.98, > 0.97); layer 0's four int8
+   products against an int32 matmul on the CPU, exactly; the engine and
+   forward times per bucket for bf16, int8 and int8_static, the int8
+   projections' parts (quantize, int8 product, dequantize) beside the bf16
+   products they replace, and the sm90 kernel at XLM-R-base's shape.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``.  Any failed phase raises and exits
@@ -38,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -381,59 +394,23 @@ def synthetic_posts(np, rng, n, start):
     return posts
 
 
-def phase_slice(torch, np, seed, smi):
+def serve_batches(np, engine, batches):
+    """The main path: RecordBatches published on the in-memory bus, served
+    by `TPUWorker` (packed, coalescing 4), results collected from the
+    results topic.  The kernel counts are set to 0 just before and read
+    just after."""
     from distributed_crawler_tpu_torch.bus import (
         TOPIC_INFERENCE_BATCHES,
         TOPIC_INFERENCE_RESULTS,
         InMemoryBus,
-        RecordBatch,
-    )
-    from distributed_crawler_tpu_torch.inference.engine import (
-        EngineConfig,
-        InferenceEngine,
     )
     from distributed_crawler_tpu_torch.inference.worker import (
         TPUWorker,
         TPUWorkerConfig,
     )
-    from distributed_crawler_tpu_torch.models.encoder import (
-        EmbedderClassifier,
-    )
     from distributed_crawler_tpu_torch.ops import attention
-    from distributed_crawler_tpu_torch.ops.padding import (
-        bucket_for,
-        pack_batch,
-    )
-    from distributed_crawler_tpu_torch.utils import cudatime, trace
-    from distributed_crawler_tpu_torch.utils.costmodel import (
-        encoder_forward_flops,
-    )
     from distributed_crawler_tpu_torch.utils.metrics import MetricsRegistry
 
-    t0 = time.perf_counter()
-    cfg = EngineConfig(model="e5_small", batch_size=BATCH, seed=seed)
-    engine = InferenceEngine(cfg, registry=MetricsRegistry())
-    ecfg = engine.ecfg
-    check(engine.device.type == "cuda", f"engine on {engine.device}")
-    check((ecfg.vocab_size, ecfg.hidden, ecfg.n_layers, ecfg.n_heads,
-           ecfg.mlp_dim, ecfg.n_labels) == (250037, 384, 12, 12, 1536, 8),
-          f"not E5-small's full width: {ecfg}")
-    check(engine.bucket_spec.lengths == MAIN_BUCKETS,
-          f"buckets {engine.bucket_spec.lengths}")
-    build_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    engine.warmup()  # both paths, every bucket
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    emit("slice.setup", model=cfg.model, batch=BATCH,
-         buckets=list(MAIN_BUCKETS), engine_init_s=build_s,
-         warmup_s=warm_s, programs=engine.compile_cache_stats())
-
-    rng = np.random.default_rng(seed)
-    n_batches, per_batch = 8, BATCH
-    batches = [RecordBatch.from_records(
-        synthetic_posts(np, rng, per_batch, i * per_batch), crawl_id="smoke")
-        for i in range(n_batches)]
     bus = InMemoryBus(sync=False)
     got = []
     bus.subscribe(TOPIC_INFERENCE_RESULTS, got.append)
@@ -443,7 +420,6 @@ def phase_slice(torch, np, seed, smi):
     worker.start()
     bus.start()
 
-    # The main path: counts to 0 just before, read just after.
     attention.flash_attention.launches = 0
     by_path = attention.flash_attention.launches_by_path
     for p in by_path:
@@ -455,7 +431,7 @@ def phase_slice(torch, np, seed, smi):
         for b in batches:
             bus.publish(TOPIC_INFERENCE_BATCHES, b.to_dict())
         deadline = time.monotonic() + 600
-        while len(got) < n_batches and time.monotonic() < deadline:
+        while len(got) < len(batches) and time.monotonic() < deadline:
             time.sleep(0.005)
         t_end = time.perf_counter()
         check(worker.drain(timeout_s=60.0), "worker did not drain")
@@ -466,24 +442,41 @@ def phase_slice(torch, np, seed, smi):
     launches_by_path = dict(by_path)
     dispatches = engine.m_latency.count - dispatches0
     latencies = sorted(engine.m_latency.window()[lat_n0:])
-    check(len(got) == n_batches,
-          f"{len(got)} result frames for {n_batches} batches")
+    n_layers = engine.ecfg.n_layers
+    check(len(got) == len(batches),
+          f"{len(got)} result frames for {len(batches)} batches")
     check(dispatches > 0, "no device dispatch on the main path")
-    check(launches == ecfg.n_layers * dispatches,
+    check(launches == n_layers * dispatches,
           f"{launches} kernel launches for {dispatches} dispatches "
-          f"(expected {ecfg.n_layers} per dispatch)")
+          f"(expected {n_layers} per dispatch)")
     check(launches_by_path == {"sm90": launches, "mma_sync": 0, "simt": 0},
           f"launches by path {launches_by_path}: every one should be sm90")
     status = worker.get_status()
-    check(status["processed_batches"] == n_batches
+    check(status["processed_batches"] == len(batches)
           and status["error_batches"] == 0, f"worker status {status}")
+    emb, scores, labels = check_results(np, engine.ecfg, batches, got)
+    return {"emb": emb, "scores": scores, "labels": labels,
+            "launches": launches, "launches_by_path": launches_by_path,
+            "dispatches": dispatches, "seconds": t_end - t_start,
+            "posts_per_s": emb.shape[0] / (t_end - t_start),
+            "p50_ms": (latencies[len(latencies) // 2] * 1e3
+                       if latencies else None),
+            "latencies": len(latencies),
+            "coalesced_groups": worker.m_coalesce.count,
+            "result_frames": len(got)}
+
+
+def check_results(np, ecfg, batches, got):
+    """Every batch's results present, in order: unit-norm embeddings,
+    scores summing to 1, each label the top score."""
+    from distributed_crawler_tpu_torch.bus import RecordBatch
 
     by_id = {}
     for frame in got:
         rb = RecordBatch.from_dict(frame)
         check(rb.batch_id not in by_id, f"duplicate frame {rb.batch_id}")
         by_id[rb.batch_id] = rb
-    packed_emb, packed_scores, packed_labels = [], [], []
+    emb, scores, labels = [], [], []
     for b in batches:
         rb = by_id.get(b.batch_id)
         check(rb is not None, f"no result frame for batch {b.batch_id}")
@@ -492,12 +485,12 @@ def phase_slice(torch, np, seed, smi):
         check([r["post_uid"] for r in rb.records]
               == [r["post_uid"] for r in b.records], "records reordered")
         for r in rb.results:
-            packed_emb.append(r["embedding"])
-            packed_scores.append(r["scores"])
-            packed_labels.append(r["label"])
-    emb = np.asarray(packed_emb, dtype=np.float64)
-    scores = np.asarray(packed_scores, dtype=np.float64)
-    labels = np.asarray(packed_labels)
+            emb.append(r["embedding"])
+            scores.append(r["scores"])
+            labels.append(r["label"])
+    emb = np.asarray(emb, dtype=np.float64)
+    scores = np.asarray(scores, dtype=np.float64)
+    labels = np.asarray(labels)
     n_posts = emb.shape[0]
     check(emb.shape == (n_posts, ecfg.hidden), f"embeddings {emb.shape}")
     check(bool(np.isfinite(emb).all()), "non-finite embeddings")
@@ -511,10 +504,14 @@ def phase_slice(torch, np, seed, smi):
           "labels out of range")
     check(bool((labels == scores.argmax(axis=1)).all()),
           "label is not the top score")
-    posts_per_s = n_posts / (t_end - t_start)
-    p50_ms = latencies[len(latencies) // 2] * 1e3 if latencies else None
+    return emb, scores, labels
 
-    # Packed equals unpacked (same token lists, same weights).
+
+def check_packed_vs_unpacked(np, engine, batches, served):
+    """The same token lists unpacked, against the packed results: within
+    2e-2, and equal labels where the top score is clear."""
+    from distributed_crawler_tpu_torch.ops.padding import bucket_for
+
     texts = [t for b in batches for t in b.texts()]
     toks = engine.tokenizer.encode_batch(texts)
     check({bucket_for(len(t), engine.bucket_spec) for t in toks}
@@ -522,8 +519,8 @@ def phase_slice(torch, np, seed, smi):
     unpacked = engine.run_tokenized(toks, pack=False)
     u_emb = np.asarray([r["embedding"] for r in unpacked])
     u_scores = np.asarray([r["scores"] for r in unpacked])
-    emb_err = float(np.abs(u_emb - emb).max())
-    score_err = float(np.abs(u_scores - scores).max())
+    emb_err = float(np.abs(u_emb - served["emb"]).max())
+    score_err = float(np.abs(u_scores - served["scores"]).max())
     # bf16 activations through 12 layers: packing changes the key tiles
     # and the GEMM row blocks each sequence meets, so sums round in another
     # order; the embedding is unit-norm with entries ~0.05.
@@ -533,50 +530,24 @@ def phase_slice(torch, np, seed, smi):
           f"tol {pack_tol}")
     top2 = np.sort(u_scores, axis=1)[:, -2:]
     clear = (top2[:, 1] - top2[:, 0]) > 2 * pack_tol
-    check(bool((labels[clear] == u_scores.argmax(axis=1)[clear]).all()),
+    check(bool((served["labels"][clear]
+                == u_scores.argmax(axis=1)[clear]).all()),
           "packed and unpacked labels differ where the top score is clear")
+    return toks, u_emb, {"emb_max_abs_err": emb_err,
+                         "scores_max_abs_err": score_err, "tol": pack_tol}
 
-    # A few rows against the same weights in f32 on the CPU (plain
-    # attention): the card's bf16 path against an f32 reference.
-    pick = [int(i) for i in rng.choice(n_posts, size=8, replace=False)]
-    cpu_model = EmbedderClassifier(replace(ecfg, dtype="float32"))
-    state = {k: v.float().cpu() for k, v in engine.model.state_dict().items()}
-    cpu_model.load_state_dict(state)
-    cpu_model.eval()
-    ids, mask = pack_batch([toks[i] for i in pick],
-                           engine.bucket_spec)
-    with torch.inference_mode():
-        c_emb, c_logits = cpu_model(torch.from_numpy(ids),
-                                    torch.from_numpy(mask))
-    c_scores = torch.softmax(c_logits.double(), dim=-1).numpy()
-    cpu_emb_err = float(np.abs(c_emb.double().numpy() - emb[pick]).max())
-    cpu_score_err = float(np.abs(c_scores - scores[pick]).max())
-    cos = float(np.min(np.sum(c_emb.double().numpy() * emb[pick], axis=1)))
-    cpu_tol_emb, cpu_tol_scores = 2e-2, 5e-2
-    check(cpu_emb_err <= cpu_tol_emb and cpu_score_err <= cpu_tol_scores,
-          f"card bf16 vs CPU f32: emb {cpu_emb_err} (tol {cpu_tol_emb}), "
-          f"scores {cpu_score_err} (tol {cpu_tol_scores})")
-    emit("slice", records=n_posts, batches=n_batches, result_frames=len(got),
-         dispatches=dispatches, kernel_launches=launches,
-         kernel_launches_by_path=launches_by_path,
-         launches_per_dispatch=launches / dispatches,
-         coalesced_groups=worker.m_coalesce.count,
-         packed_vs_unpacked={"emb_max_abs_err": emb_err,
-                             "scores_max_abs_err": score_err,
-                             "tol": pack_tol},
-         card_bf16_vs_cpu_f32={"rows": len(pick),
-                               "emb_max_abs_err": cpu_emb_err,
-                               "scores_max_abs_err": cpu_score_err,
-                               "min_cosine": cos,
-                               "tol_emb": cpu_tol_emb,
-                               "tol_scores": cpu_tol_scores})
-    emit("times.slice", posts=n_posts, seconds=t_end - t_start,
-         posts_per_s=posts_per_s, p50_batch_latency_ms=p50_ms,
-         dispatch_latencies=len(latencies), card=smi)
 
-    # Engine batch time per bucket, unpacked, a full batch of one bucket:
-    # the host clock around run_tokenized, its stage spans (host time of
-    # each stage), and the model's forward alone timed with CUDA events.
+def time_engine(torch, engine, smi, **tags):
+    """Engine batch time per bucket, unpacked, a full batch of one bucket:
+    the host clock around run_tokenized, its stage spans (host time of
+    each stage), and the model's forward alone timed with CUDA events."""
+    from distributed_crawler_tpu_torch.ops.padding import pack_batch
+    from distributed_crawler_tpu_torch.utils import cudatime, trace
+    from distributed_crawler_tpu_torch.utils.costmodel import (
+        encoder_forward_flops,
+    )
+
+    rows = []
     for bucket in MAIN_BUCKETS:
         n_tok = bucket - 1
         batch_toks = [[5 + (j % 1000)] * n_tok for j in range(BATCH)]
@@ -602,11 +573,420 @@ def phase_slice(torch, np, seed, smi):
             forward_ms = cudatime.event_time_ms(
                 lambda: engine.model(ids_d, mask_d),
                 min_iters=3, max_iters=20)
-        flops = encoder_forward_flops(ecfg, BATCH, bucket)
-        emit("times.engine", bucket=bucket, batch=BATCH, batch_ms=ms,
-             forward_ms=forward_ms, host_stage_ms=stages,
-             model_tflop_per_s=flops / (ms * 1e-3) / 1e12, card=smi)
-    return {"launches": launches_by_path, "dispatches": dispatches}
+        flops = encoder_forward_flops(engine.ecfg, BATCH, bucket)
+        row = {**tags, "bucket": bucket, "batch": BATCH, "batch_ms": ms,
+               "forward_ms": forward_ms, "host_stage_ms": stages,
+               "model_tflop_per_s": flops / (ms * 1e-3) / 1e12, "card": smi}
+        rows.append(row)
+        emit("times.engine", **row)
+    return rows
+
+
+def phase_slice(torch, np, seed, smi):
+    from distributed_crawler_tpu_torch.bus import RecordBatch
+    from distributed_crawler_tpu_torch.inference.engine import (
+        EngineConfig,
+        InferenceEngine,
+    )
+    from distributed_crawler_tpu_torch.models.encoder import (
+        EmbedderClassifier,
+    )
+    from distributed_crawler_tpu_torch.ops.padding import pack_batch
+    from distributed_crawler_tpu_torch.utils.metrics import MetricsRegistry
+
+    t0 = time.perf_counter()
+    cfg = EngineConfig(model="e5_small", batch_size=BATCH, seed=seed)
+    engine = InferenceEngine(cfg, registry=MetricsRegistry())
+    ecfg = engine.ecfg
+    check(engine.device.type == "cuda", f"engine on {engine.device}")
+    check((ecfg.vocab_size, ecfg.hidden, ecfg.n_layers, ecfg.n_heads,
+           ecfg.mlp_dim, ecfg.n_labels) == (250037, 384, 12, 12, 1536, 8),
+          f"not E5-small's full width: {ecfg}")
+    check(engine.bucket_spec.lengths == MAIN_BUCKETS,
+          f"buckets {engine.bucket_spec.lengths}")
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine.warmup()  # both paths, every bucket
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    emit("slice.setup", model=cfg.model, batch=BATCH,
+         buckets=list(MAIN_BUCKETS), engine_init_s=build_s,
+         warmup_s=warm_s, programs=engine.compile_cache_stats())
+
+    rng = np.random.default_rng(seed)
+    n_batches = 8
+    batches = [RecordBatch.from_records(
+        synthetic_posts(np, rng, BATCH, i * BATCH), crawl_id="smoke")
+        for i in range(n_batches)]
+    served = serve_batches(np, engine, batches)
+    emb, scores = served["emb"], served["scores"]
+    n_posts = emb.shape[0]
+    toks, _, pack_err = check_packed_vs_unpacked(np, engine, batches, served)
+
+    # A few rows against the same weights in f32 on the CPU (plain
+    # attention): the card's bf16 path against an f32 reference.
+    pick = [int(i) for i in rng.choice(n_posts, size=8, replace=False)]
+    cpu_model = EmbedderClassifier(replace(ecfg, dtype="float32"))
+    state = {k: v.float().cpu() for k, v in engine.model.state_dict().items()}
+    cpu_model.load_state_dict(state)
+    cpu_model.eval()
+    ids, mask = pack_batch([toks[i] for i in pick],
+                           engine.bucket_spec)
+    with torch.inference_mode():
+        c_emb, c_logits = cpu_model(torch.from_numpy(ids),
+                                    torch.from_numpy(mask))
+    c_scores = torch.softmax(c_logits.double(), dim=-1).numpy()
+    cpu_emb_err = float(np.abs(c_emb.double().numpy() - emb[pick]).max())
+    cpu_score_err = float(np.abs(c_scores - scores[pick]).max())
+    cos = float(np.min(np.sum(c_emb.double().numpy() * emb[pick], axis=1)))
+    cpu_tol_emb, cpu_tol_scores = 2e-2, 5e-2
+    check(cpu_emb_err <= cpu_tol_emb and cpu_score_err <= cpu_tol_scores,
+          f"card bf16 vs CPU f32: emb {cpu_emb_err} (tol {cpu_tol_emb}), "
+          f"scores {cpu_score_err} (tol {cpu_tol_scores})")
+    emit("slice", records=n_posts, batches=n_batches,
+         result_frames=served["result_frames"],
+         dispatches=served["dispatches"], kernel_launches=served["launches"],
+         kernel_launches_by_path=served["launches_by_path"],
+         launches_per_dispatch=served["launches"] / served["dispatches"],
+         coalesced_groups=served["coalesced_groups"],
+         packed_vs_unpacked=pack_err,
+         card_bf16_vs_cpu_f32={"rows": len(pick),
+                               "emb_max_abs_err": cpu_emb_err,
+                               "scores_max_abs_err": cpu_score_err,
+                               "min_cosine": cos,
+                               "tol_emb": cpu_tol_emb,
+                               "tol_scores": cpu_tol_scores})
+    emit("times.slice", model=cfg.model, posts=n_posts,
+         seconds=served["seconds"], posts_per_s=served["posts_per_s"],
+         p50_batch_latency_ms=served["p50_ms"],
+         dispatch_latencies=served["latencies"], card=smi)
+    time_engine(torch, engine, smi, model=cfg.model)
+    return {"launches": served["launches_by_path"],
+            "dispatches": served["dispatches"]}
+
+
+# -- phase 6: XLM-R-base from a local HF checkpoint, int8 -------------------
+# BASELINE config #3's published widths (xlm-roberta-base's config.json),
+# with a 4-way classification head.
+XLMR_HF_CONFIG = {
+    "architectures": ["XLMRobertaForSequenceClassification"],
+    "model_type": "xlm-roberta", "vocab_size": 250002, "hidden_size": 768,
+    "num_hidden_layers": 12, "num_attention_heads": 12,
+    "intermediate_size": 3072, "max_position_embeddings": 514,
+    "type_vocab_size": 1, "layer_norm_eps": 1e-5, "hidden_act": "gelu",
+    "pad_token_id": 1, "bos_token_id": 0, "eos_token_id": 2,
+    "id2label": {str(i): f"LABEL_{i}" for i in range(4)},
+}
+XLMR_HEADS, XLMR_HEAD_DIM, XLMR_LABELS = 12, 64, 4
+
+
+def write_safetensors(path, tensors):
+    """A ``.safetensors`` file of F32 tensors: the u64 header length, the
+    JSON header (padded to 8 bytes, as the format's writer pads it), then
+    each tensor's bytes in order."""
+    header, off = {}, 0
+    for name, a in tensors:
+        header[name] = {"dtype": "F32", "shape": list(a.shape),
+                        "data_offsets": [off, off + a.nbytes]}
+        off += a.nbytes
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for _, a in tensors:
+            f.write(a.astype("<f4", copy=False).tobytes())
+
+
+def xlmr_state(np, seed):
+    """HF ``XLMRobertaForSequenceClassification`` key names and shapes,
+    values from ``default_rng(seed)`` at std 0.02 (LayerNorm scales
+    around 1)."""
+    rng = np.random.default_rng(seed)
+    c = XLMR_HF_CONFIG
+    h, ff = c["hidden_size"], c["intermediate_size"]
+
+    def w(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+
+    def ln(prefix):
+        return [(f"{prefix}.weight", 1 + w(h)), (f"{prefix}.bias", w(h))]
+
+    e = "roberta.embeddings"
+    out = [(f"{e}.word_embeddings.weight", w(c["vocab_size"], h)),
+           (f"{e}.position_embeddings.weight",
+            w(c["max_position_embeddings"], h)),
+           (f"{e}.token_type_embeddings.weight", w(c["type_vocab_size"], h))]
+    out += ln(f"{e}.LayerNorm")
+    for i in range(c["num_hidden_layers"]):
+        b = f"roberta.encoder.layer.{i}"
+        for proj in ("query", "key", "value"):
+            out += [(f"{b}.attention.self.{proj}.weight", w(h, h)),
+                    (f"{b}.attention.self.{proj}.bias", w(h))]
+        out += [(f"{b}.attention.output.dense.weight", w(h, h)),
+                (f"{b}.attention.output.dense.bias", w(h))]
+        out += ln(f"{b}.attention.output.LayerNorm")
+        out += [(f"{b}.intermediate.dense.weight", w(ff, h)),
+                (f"{b}.intermediate.dense.bias", w(ff)),
+                (f"{b}.output.dense.weight", w(h, ff)),
+                (f"{b}.output.dense.bias", w(h))]
+        out += ln(f"{b}.output.LayerNorm")
+    out += [("classifier.dense.weight", w(h, h)),
+            ("classifier.dense.bias", w(h)),
+            ("classifier.out_proj.weight", w(XLMR_LABELS, h)),
+            ("classifier.out_proj.bias", w(XLMR_LABELS))]
+    return out
+
+
+class _Records(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def _min_cosine(np, a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    cos = np.sum(a * b, axis=1) / (np.linalg.norm(a, axis=1)
+                                   * np.linalg.norm(b, axis=1))
+    return float(cos.min())
+
+
+def check_int8_products(torch, engine, gen):
+    """Layer 0's four int8 products on the card against an int32 matmul
+    on the CPU, on 64 rows of quantized activations: exactly equal."""
+    from distributed_crawler_tpu_torch.ops.quant import (
+        int8_matmul,
+        quantize_activations,
+    )
+
+    layer = engine.model.encoder.layers[0]
+    out = {}
+    for name, mod in (("qkv", layer.attn.qkv),
+                      ("attn_out", layer.attn.attn_out),
+                      ("mlp_up", layer.mlp.mlp_up),
+                      ("mlp_down", layer.mlp.mlp_down)):
+        w_q = mod.kernel_q
+        x = torch.randn((64, w_q.shape[1]), generator=gen).to(
+            device=engine.device, dtype=torch.bfloat16)
+        x_q, _ = quantize_activations(x)
+        acc = int8_matmul(x_q, w_q)
+        torch.cuda.synchronize()
+        want = x_q.cpu().to(torch.int32) @ w_q.cpu().to(torch.int32).t()
+        check(acc.dtype == torch.int32 and torch.equal(acc.cpu(), want),
+              f"int8 product {name}: card and CPU int32 matmul differ")
+        out[name] = {"m": 64, "k": int(w_q.shape[1]), "n": int(w_q.shape[0]),
+                     "equal": True}
+    return out
+
+
+def time_int8_parts(torch, engine, smi):
+    """The int8 projections' parts at each bucket, summed over one layer's
+    four projections (layer 0's weights) and times 12 layers: the dynamic
+    per-token quantization, the int8 products, the dequantization, and
+    the bf16 products (with their bias adds) they replace."""
+    import torch.nn.functional as F
+
+    from distributed_crawler_tpu_torch.ops.quant import (
+        dequantize,
+        int8_matmul,
+        quantize_activations,
+    )
+    from distributed_crawler_tpu_torch.utils import cudatime
+
+    layer = engine.model.encoder.layers[0]
+    mods = (layer.attn.qkv, layer.attn.attn_out, layer.mlp.mlp_up,
+            layer.mlp.mlp_down)
+    n_layers = engine.ecfg.n_layers
+    rows = []
+    for bucket in MAIN_BUCKETS:
+        m = BATCH * bucket
+        xs = [torch.randn((m, mod.kernel_q.shape[1]), device=engine.device,
+                          dtype=torch.bfloat16) for mod in mods]
+        quant = [quantize_activations(x) for x in xs]
+        accs = [int8_matmul(xq, mod.kernel_q)
+                for (xq, _), mod in zip(quant, mods)]
+        w16 = [mod.kernel_q.to(torch.bfloat16) for mod in mods]
+        b16 = [mod.bias.reshape(-1).to(torch.bfloat16) for mod in mods]
+        parts = {
+            "quantize": lambda: [quantize_activations(x) for x in xs],
+            "int8_matmul": lambda: [int8_matmul(xq, mod.kernel_q)
+                                    for (xq, _), mod in zip(quant, mods)],
+            "dequantize": lambda: [
+                dequantize(acc, a, mod.scale.reshape(-1),
+                           mod.bias.reshape(-1), torch.bfloat16)
+                for acc, (_, a), mod in zip(accs, quant, mods)],
+            "bf16_dense": lambda: [F.linear(x, w) + b
+                                   for x, w, b in zip(xs, w16, b16)],
+        }
+        row = {"bucket": bucket, "card": smi}
+        for name, fn in parts.items():
+            row[f"{name}_ms_per_forward"] = cudatime.event_time_ms(
+                fn, min_iters=3, max_iters=20) * n_layers
+        rows.append(row)
+        del xs, quant, accs, w16, b16, parts
+        torch.cuda.empty_cache()
+    emit("times.int8_parts", model="xlmr_base", rows=rows)
+    return rows
+
+
+def phase_xlmr(torch, np, attention, device, gen, seed, smi):
+    """XLM-R-base served int8 from a local HF checkpoint through
+    `TPUWorker`; int8 and int8_static against bf16 on the same weights;
+    the int8 products against the CPU; times."""
+    import tempfile
+
+    from distributed_crawler_tpu_torch.bus import RecordBatch
+    from distributed_crawler_tpu_torch.inference import engine as engine_mod
+    from distributed_crawler_tpu_torch.inference.tokenizer import (
+        HashingTokenizer,
+    )
+    from distributed_crawler_tpu_torch.utils.metrics import MetricsRegistry
+
+    EngineConfig = engine_mod.EngineConfig
+    InferenceEngine = engine_mod.InferenceEngine
+    with tempfile.TemporaryDirectory(prefix="xlmr_ckpt_") as ckpt:
+        t0 = time.perf_counter()
+        with open(os.path.join(ckpt, "config.json"), "w") as f:
+            json.dump(XLMR_HF_CONFIG, f)
+        write_safetensors(os.path.join(ckpt, "model.safetensors"),
+                          xlmr_state(np, seed))
+        write_s = time.perf_counter() - t0
+        ckpt_bytes = os.path.getsize(os.path.join(ckpt, "model.safetensors"))
+
+        def make(**kw):
+            t = time.perf_counter()
+            eng = InferenceEngine(EngineConfig(
+                model="xlmr_base", pretrained_dir=ckpt, batch_size=BATCH,
+                seed=seed, **kw), registry=MetricsRegistry())
+            return eng, time.perf_counter() - t
+
+        records = _Records()
+        logger = logging.getLogger(engine_mod.__name__)
+        logger.addHandler(records)
+        try:
+            engine, init_s = make(quantize="int8")
+        finally:
+            logger.removeHandler(records)
+        ecfg = engine.ecfg
+        check(engine.device.type == "cuda", f"engine on {engine.device}")
+        check((ecfg.vocab_size, ecfg.hidden, ecfg.n_layers, ecfg.n_heads,
+               ecfg.mlp_dim) == (250002, 768, 12, 12, 3072)
+              and ecfg.n_labels == XLMR_LABELS,
+              f"not XLM-R-base's full width with 4 labels: {ecfg}")
+        check(ecfg.head_dim == XLMR_HEAD_DIM, f"head dim {ecfg.head_dim}")
+        check(ecfg.quant == "int8", f"ecfg.quant {ecfg.quant!r}")
+        check(isinstance(engine.tokenizer, HashingTokenizer)
+              and any("falling back to HashingTokenizer" in m
+                      for m in records.messages),
+              f"tokenizer {type(engine.tokenizer).__name__}, warnings "
+              f"{records.messages}")
+        check(engine.bucket_spec.lengths == MAIN_BUCKETS,
+              f"buckets {engine.bucket_spec.lengths}")
+        t0 = time.perf_counter()
+        engine.warmup()
+        torch.cuda.synchronize()
+        emit("slice.xlmr.setup", checkpoint_bytes=ckpt_bytes,
+             checkpoint_write_s=write_s, engine_init_s=init_s,
+             warmup_s=time.perf_counter() - t0, quant=ecfg.quant,
+             tokenizer=type(engine.tokenizer).__name__,
+             tokenizer_warning=records.messages[-1][:200])
+
+        rng = np.random.default_rng(seed + 1)
+        batches = [RecordBatch.from_records(
+            synthetic_posts(np, rng, BATCH, i * BATCH), crawl_id="smoke-xlmr")
+            for i in range(8)]
+        served = serve_batches(np, engine, batches)
+        toks, u_emb, pack_err = check_packed_vs_unpacked(np, engine, batches,
+                                                         served)
+        products = check_int8_products(torch, engine, gen)
+
+        bf16, bf16_init_s = make()
+        check(bf16.ecfg.quant == "none", f"bf16 engine {bf16.ecfg.quant}")
+        f_emb = np.asarray([r["embedding"]
+                            for r in bf16.run_tokenized(toks)])
+        cos_int8 = _min_cosine(np, u_emb, f_emb)
+        check(cos_int8 > 0.98, f"int8 vs bf16 minimum cosine {cos_int8}")
+
+        static, static_init_s = make(quantize="int8_static")
+        check(static.ecfg.quant == "int8_static",
+              f"static engine {static.ecfg.quant}")
+        s_emb = np.asarray([r["embedding"]
+                            for r in static.run_tokenized(toks[:BATCH])])
+        cos_static = _min_cosine(np, s_emb, f_emb[:BATCH])
+        check(cos_static > 0.97,
+              f"int8_static vs bf16 minimum cosine {cos_static}")
+    n_posts = served["emb"].shape[0]
+    emit("slice.xlmr", records=n_posts, batches=len(batches),
+         result_frames=served["result_frames"],
+         dispatches=served["dispatches"], kernel_launches=served["launches"],
+         kernel_launches_by_path=served["launches_by_path"],
+         launches_per_dispatch=served["launches"] / served["dispatches"],
+         head_dim=ecfg.head_dim, coalesced_groups=served["coalesced_groups"],
+         packed_vs_unpacked=pack_err, int8_products=products,
+         int8_vs_bf16={"posts": len(toks), "min_cosine": cos_int8,
+                       "bound": 0.98},
+         int8_static_vs_bf16={"posts": BATCH, "min_cosine": cos_static,
+                              "bound": 0.97},
+         engine_init_s={"int8": init_s, "bf16": bf16_init_s,
+                        "int8_static": static_init_s})
+    emit("times.slice", model="xlmr_base", quant="int8", posts=n_posts,
+         seconds=served["seconds"], posts_per_s=served["posts_per_s"],
+         p50_batch_latency_ms=served["p50_ms"],
+         dispatch_latencies=served["latencies"], card=smi)
+    for eng, quant in ((bf16, "none"), (engine, "int8"),
+                       (static, "int8_static")):
+        time_engine(torch, eng, smi, model="xlmr_base", quant=quant)
+    time_int8_parts(torch, engine, smi)
+    del engine, bf16, static
+    torch.cuda.empty_cache()
+    rows = xlmr_kernel_times(torch, attention, device, gen, smi)
+    emit("times.kernel.sum", name="flash_attention", model="xlmr_base",
+         at="batch 256, 12 heads of 64, bf16, serving padding: one call at "
+            "each of buckets 32-512, summed",
+         ms=sum(r["ms"] for r in rows),
+         mma_sync_ms=sum(r["mma_sync_ms"] for r in rows),
+         plain_ms=sum(r["plain_ms"] for r in rows),
+         library_ms=sum(r["library_ms"] for r in rows),
+         bound_parts_ms={p: sum(r["bound_parts_ms"][p] for r in rows)
+                         for p in rows[0]["bound_parts_ms"]}, card=smi)
+    return {"launches": served["launches_by_path"],
+            "dispatches": served["dispatches"], "kernel_rows": rows}
+
+
+def xlmr_kernel_times(torch, attention, device, gen, smi):
+    """The sm90 kernel at XLM-R-base's shape (batch 256, 12 heads of 64,
+    bf16, serving padding) per bucket, beside its bound, the plain version
+    and SDPA."""
+    import torch.nn.functional as F
+
+    rows = []
+    for l in MAIN_BUCKETS:
+        q, k, v = _qkv(torch, BATCH, l, XLMR_HEADS, XLMR_HEAD_DIM,
+                       torch.bfloat16, gen, device)
+        check(attention.choose_path(q, k, v) == "sm90",
+              f"XLM-R shape L={l} goes to {attention.choose_path(q, k, v)}")
+        lo = l // 2 + 1 if l > 32 else 1
+        mask = _padded_mask(torch, BATCH, l, gen, device, min_len=lo)
+        times, errs, pairs = _time_bucket(torch, F, attention, q, k, v, mask,
+                                          None, f"xlmr padded L={l}")
+        parts = attention_bound_ms(pairs, BATCH, l, XLMR_HEADS,
+                                   XLMR_HEAD_DIM, "bfloat16", 2, False)
+        row = {"model": "xlmr_base", "bucket": l, "shape": "padded",
+               "batch": BATCH, "heads": XLMR_HEADS,
+               "head_dim": XLMR_HEAD_DIM, "dtype": "bfloat16",
+               "max_abs_err": errs, "ms": times["sm90"],
+               "mma_sync_ms": times["mma_sync"], "eager_ms": times["eager"],
+               "plain_ms": times["plain"], "library_ms": times["sdpa"],
+               "bound_ms": bound_of(parts)[0], "bound_by": bound_of(parts)[1],
+               "bound_parts_ms": parts, "allowed_pairs": pairs, "card": smi}
+        rows.append(row)
+        emit("times.kernel", name="flash_attention", **row)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
 
 
 KERNEL_SOURCES = {"sm90": "flash_attention_sm90.cu",
@@ -684,11 +1064,14 @@ def main() -> int:
     device = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(args.seed)
     worst = phase_kernel(torch, attention, device, gen)
-    main_path = phase_slice(torch, np, args.seed, smi)
+    e5 = phase_slice(torch, np, args.seed, smi)
     rows = phase_kernel_times(torch, np, attention, device, gen, args.seed,
                               smi)
+    xlmr = phase_xlmr(torch, np, attention, device, gen, args.seed, smi)
+    launches = {p: e5["launches"][p] + xlmr["launches"][p]
+                for p in attention.PATHS}
     print(json.dumps({"kernels": [
-        kernel_entry(path, rows, worst, main_path["launches"])
+        kernel_entry(path, rows, worst, launches)
         for path in attention.PATHS]}), flush=True)
     emit("done", seconds=time.perf_counter() - t_all)
     print(nvidia_smi_line(), flush=True)

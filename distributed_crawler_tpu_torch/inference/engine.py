@@ -10,10 +10,19 @@ the outputs come back into fresh pinned buffers without blocking, and a
 recorded `torch.cuda.Event` marks when they have landed; the readback waits
 on that event only.  The engine runs on ``cuda`` unless the caller passes
 ``device="cpu"``.
+
+The weights start as the reference's flax-layout tree of f32 numpy arrays —
+from a local HF checkpoint (``pretrained_dir``), from the caller
+(``params``), or drawn from a seeded ``torch.Generator`` — then go through
+``param_dtype`` and ``quantize`` as the reference's do, and are loaded
+last.  Two draws cannot follow JAX's PRNG; each is a module-level function
+a test can replace: `init_head` (the head of an encoder-only checkpoint)
+and `calibration_probe` (the ids ``int8_static`` calibrates on).
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from dataclasses import dataclass, replace
 from typing import Any, Dict, List, Optional, Sequence, Set, Union
@@ -21,17 +30,24 @@ from typing import Any, Dict, List, Optional, Sequence, Set, Union
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import DTYPES, resolve_device
 from ..models.encoder import (
     E5_BASE,
     E5_LARGE,
     E5_SMALL,
+    ClassificationHead,
     EmbedderClassifier,
     EncoderConfig,
     TINY_TEST,
     XLMR_BASE,
+    init_weights_,
 )
-from ..models.from_jax import load_flax_params
+from ..models.from_jax import flax_tree, load_flax_params
+from ..models.hf_convert import load_hf_encoder
+from ..models.quant import (
+    calibrate_activation_scales,
+    quantize_encoder_params,
+)
 from ..ops.padding import (
     DEFAULT_MAX_SEGMENTS_PER_ROW,
     BucketSpec,
@@ -42,7 +58,7 @@ from ..ops.padding import (
 from ..utils import trace
 from ..utils.metrics import REGISTRY, MetricsRegistry
 from ..utils.occupancy import DeviceTimeline
-from .tokenizer import HashingTokenizer, Tokenizer
+from .tokenizer import HashingTokenizer, Tokenizer, from_pretrained_dir
 
 MODEL_REGISTRY: Dict[str, EncoderConfig] = {
     "e5_small": E5_SMALL,
@@ -53,9 +69,10 @@ MODEL_REGISTRY: Dict[str, EncoderConfig] = {
 }
 
 # EngineConfig fields of features that are not ported yet: setting one
-# raises instead of being silently ignored.
-_WAITING_FIELDS = ("pretrained_dir", "checkpoint_dir", "param_dtype",
-                   "quantize", "moe_dispatch")
+# raises instead of being silently ignored.  ``checkpoint_dir`` waits for
+# the training slice, which defines the port's checkpoints (the
+# reference's are orbax OCDBT stores, which need orbax and JAX to read).
+_WAITING_FIELDS = ("checkpoint_dir", "moe_dispatch")
 
 
 @dataclass(frozen=True)
@@ -90,8 +107,9 @@ class EngineConfig:
 class InferenceEngine:
     """Tokenize -> bucket -> fused embed+classify on the device -> host
     results.  ``params`` is the reference's flax param tree as numpy arrays
-    (`models/from_jax.py`); without it the weights are drawn from a
-    ``torch.Generator`` seeded with ``cfg.seed``."""
+    (`models/from_jax.py`); without it the weights come from
+    ``cfg.pretrained_dir`` or are drawn from a ``torch.Generator`` seeded
+    with ``cfg.seed``."""
 
     def __init__(self, cfg: EngineConfig,
                  mesh=None,
@@ -112,7 +130,11 @@ class InferenceEngine:
         if cfg.attention == "xla" and self.device.type == "cuda":
             raise ValueError("attention='xla' selects the plain version, "
                              "which never runs on the card")
-        self.ecfg = cfg.encoder_config()
+        if cfg.pretrained_dir:
+            self.ecfg, params, tokenizer = _load_pretrained(
+                cfg, params, tokenizer)
+        else:
+            self.ecfg = cfg.encoder_config()
         if cfg.attention:
             self.ecfg = replace(self.ecfg, attention=cfg.attention)
         self._rows = cfg.batch_size
@@ -142,14 +164,61 @@ class InferenceEngine:
             "tpu_engine_compile_cache_misses_total",
             "first dispatches by bucket and path")
         self.timeline = DeviceTimeline(registry=registry, path="text")
+        self.model = self._build_model(params)
 
-        model = EmbedderClassifier(self.ecfg)
-        if params is None:
-            gen = torch.Generator().manual_seed(cfg.seed)
-            model.init_weights(gen)
-        else:
-            load_flax_params(model, params)
-        self.model = model.to(self.device).eval()
+    # -- weights -----------------------------------------------------------
+    def _build_model(self, params: Optional[Any]) -> EmbedderClassifier:
+        """f32 tree -> ``param_dtype`` -> ``quantize`` -> the loaded model,
+        in the reference's order (`distributed_crawler_tpu/inference/
+        engine.py` ``InferenceEngine.__init__``)."""
+        cfg = self.cfg
+        tree = params if params is not None else random_tree(self.ecfg,
+                                                             cfg.seed)
+        embed_dtype = torch.float32
+        if cfg.param_dtype:
+            # TypeError for a name outside DTYPES, as the reference's
+            # ``jnp.dtype(name)`` raises for a name it does not know.
+            try:
+                embed_dtype = DTYPES[cfg.param_dtype]
+            except KeyError:
+                raise TypeError(
+                    f"param_dtype {cfg.param_dtype!r} not understood; one "
+                    f"of {sorted(DTYPES)}") from None
+            # The reference casts every f32 leaf; the port rounds each
+            # through the dtype and keeps the embedding tables in it (the
+            # projections already hold the activation dtype).
+            tree = _round_floats(tree, embed_dtype)
+        if cfg.quantize:
+            if cfg.quantize not in ("int8", "int8_static"):
+                raise ValueError(f"unknown quantize mode {cfg.quantize!r}")
+            act_scales = None
+            if cfg.quantize == "int8_static":
+                act_scales = self._calibrate(tree, embed_dtype)
+            tree = quantize_encoder_params(tree, act_scales=act_scales)
+            self.ecfg = replace(self.ecfg, quant=cfg.quantize)
+            self.ecfg.validate()
+        return self._load(self.ecfg, tree, embed_dtype)
+
+    def _load(self, ecfg: EncoderConfig, tree: Any,
+              embed_dtype: torch.dtype) -> EmbedderClassifier:
+        model = EmbedderClassifier(ecfg, embed_dtype)
+        load_flax_params(model, tree)
+        return model.to(self.device).eval()
+
+    def _calibrate(self, tree: Any, embed_dtype: torch.dtype):
+        """Per-projection activation abs-max from one float forward, on
+        this engine's device, over `calibration_probe`'s ids at the longest
+        bucket with every token real."""
+        model = self._load(replace(self.ecfg, calibrate=True), tree,
+                           embed_dtype)
+        ids = calibration_probe(self.ecfg.vocab_size,
+                                min(self.cfg.batch_size, 64),
+                                self.bucket_spec.lengths[-1],
+                                self.cfg.seed + 1)
+        ids_t = torch.from_numpy(np.array(ids)).to(self.device)
+        with torch.inference_mode():
+            return calibrate_activation_scales(
+                model, ids_t, torch.ones_like(ids_t, dtype=torch.bool))
 
     # -- device step -------------------------------------------------------
     def _program(self, bucket: int, path: str) -> None:
@@ -390,6 +459,81 @@ class InferenceEngine:
             for m in modes:
                 self.run_tokenized(toks, pack=m)
         self.timeline.reset()
+
+
+def random_tree(ecfg: EncoderConfig, seed: int) -> Dict[str, Any]:
+    """Seeded random weights as an f32 flax-layout tree: the reference's
+    distributions (`EmbedderClassifier.init_weights`), drawn from
+    ``torch.Generator(seed)``, not from JAX's PRNG."""
+    model = EmbedderClassifier(replace(ecfg, dtype="float32", quant="none",
+                                       calibrate=False))
+    model.init_weights(torch.Generator().manual_seed(seed))
+    return flax_tree(model)
+
+
+def init_head(ecfg: EncoderConfig, seed: int) -> Dict[str, Any]:
+    """A fresh ``cls_head`` subtree for an encoder-only checkpoint (E5).
+    The reference draws it from ``jax.random.PRNGKey(seed)``; the port
+    from ``torch.Generator(seed)``, with the same distributions."""
+    head = ClassificationHead(ecfg)
+    init_weights_(head, torch.Generator().manual_seed(seed))
+    return {name: {"kernel": np.ascontiguousarray(d.weight.detach().T.numpy()),
+                   "bias": d.bias.detach().numpy().copy()}
+            for name, d in (("pooler", head.pooler), ("head", head.head))}
+
+
+def calibration_probe(vocab_size: int, rows: int, length: int,
+                      seed: int) -> np.ndarray:
+    """The token ids ``int8_static`` calibrates on: uniform in
+    [0, vocab_size).  The reference draws them with
+    ``jax.random.randint(PRNGKey(seed), ...)``; the port from
+    ``torch.Generator(seed)``."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, vocab_size, (rows, length), generator=gen,
+                         dtype=torch.int32).numpy()
+
+
+def _round_floats(tree: Any, dtype: torch.dtype) -> Any:
+    """Every f32 leaf rounded through ``dtype`` (kept as f32 numpy)."""
+    if isinstance(tree, dict):
+        return {k: _round_floats(v, dtype) for k, v in tree.items()}
+    a = np.asarray(tree)
+    if a.dtype != np.float32:
+        return tree
+    return torch.from_numpy(np.array(a)).to(dtype).float().numpy()
+
+
+def _load_pretrained(cfg: EngineConfig, params: Optional[Any],
+                     tokenizer: Optional[Tokenizer]):
+    """(ecfg, params, tokenizer) from a local HF checkpoint dir.
+
+    A classification checkpoint loads whole, its head's width setting
+    ``n_labels``; an encoder-only one (E5) gets a fresh head from
+    `init_head`.  Caller-given params and tokenizer win.  Without a usable
+    tokenizer in the dir the engine falls back to `HashingTokenizer` and
+    says so."""
+    path = cfg.pretrained_dir
+    try:
+        ecfg, loaded = load_hf_encoder(path, arch="embedder_classifier",
+                                       n_labels=None)
+    except ValueError:
+        ecfg, loaded = load_hf_encoder(path, arch="embedder",
+                                       n_labels=cfg.n_labels)
+        loaded = {"params": {**loaded["params"],
+                             "cls_head": init_head(ecfg, cfg.seed)}}
+    if params is None:
+        params = loaded
+    if tokenizer is None:
+        try:
+            tokenizer = from_pretrained_dir(path)
+        except Exception as e:
+            # Serving real weights over hashed ids silently would be
+            # garbage: make the downgrade visible.
+            logging.getLogger(__name__).warning(
+                "no usable tokenizer in %s (%s); falling back to "
+                "HashingTokenizer", path, e)
+            tokenizer = None
+    return ecfg, params, tokenizer
 
 
 def _softmax_np(logits: np.ndarray) -> np.ndarray:

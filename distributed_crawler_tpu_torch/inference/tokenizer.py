@@ -3,12 +3,15 @@
 A copy of the reference's `HashingTokenizer`
 (`distributed_crawler_tpu/inference/tokenizer.py`): dependency-free and
 deterministic (FNV-1a over NFKC-lowercased word pieces).  Its ids must equal
-the reference's for every text — the parity tests check that.  Loading a
-real vocabulary (`from_pretrained_dir`) waits for a later slice.
+the reference's for every text — the parity tests check that.
+`from_pretrained_dir` loads a checkpoint's real vocabulary, as the
+reference's does: ``tokenizer.json`` through the `tokenizers` runtime,
+otherwise `transformers.AutoTokenizer`, both imported only when called.
 """
 
 from __future__ import annotations
 
+import os
 import re
 import unicodedata
 from itertools import chain
@@ -21,6 +24,13 @@ UNK_ID = 3
 _RESERVED = 4
 
 _WORD_RE = re.compile(r"\w+|[^\w\s]", re.UNICODE)
+
+# Files an HF tokenizer is built from, besides ``tokenizer.json``.  Without
+# one, newer `transformers` releases build an EMPTY tokenizer from
+# ``config.json``'s model type instead of raising.
+_TOKENIZER_FILES = ("tokenizer_config.json", "vocab.txt", "vocab.json",
+                    "sentencepiece.bpe.model", "spiece.model",
+                    "tokenizer.model")
 
 
 class Tokenizer(Protocol):
@@ -98,3 +108,60 @@ class HashingTokenizer:
 
     def encode_batch(self, texts: Sequence[str]) -> List[List[int]]:
         return [self.encode(t) for t in texts]
+
+
+def from_pretrained_dir(path: str):
+    """Load a real tokenizer from a local directory (no network).
+
+    Prefers a bare ``tokenizer.json`` via the `tokenizers` runtime (XLM-R/E5
+    fast tokenizers, no sentencepiece); falls back to
+    `transformers.AutoTokenizer`, which needs one of the tokenizer's own
+    files in the directory (unlike the reference, which also asks it for
+    a directory that has none).  Callers fall back to
+    :class:`HashingTokenizer` when both raise."""
+    tj = os.path.join(path, "tokenizer.json")
+    if os.path.exists(tj):
+        from tokenizers import Tokenizer as RustTokenizer
+
+        tok = RustTokenizer.from_file(tj)
+
+        class _FastWrapper:
+            vocab_size = int(tok.get_vocab_size())
+
+            @staticmethod
+            def encode(text: str) -> List[int]:
+                return tok.encode(text).ids
+
+            @staticmethod
+            def encode_batch(texts: Sequence[str]) -> List[List[int]]:
+                return [e.ids for e in tok.encode_batch(list(texts))]
+
+            @staticmethod
+            def decode(ids: Sequence[int]) -> str:
+                return tok.decode(list(ids))
+
+        return _FastWrapper()
+
+    if not any(os.path.exists(os.path.join(path, f))
+               for f in _TOKENIZER_FILES):
+        raise FileNotFoundError(f"no tokenizer files in {path}")
+    from transformers import AutoTokenizer
+
+    hf_tok = AutoTokenizer.from_pretrained(path, local_files_only=True)
+
+    class _HFWrapper:
+        vocab_size = int(hf_tok.vocab_size)
+
+        @staticmethod
+        def encode(text: str) -> List[int]:
+            return hf_tok.encode(text, truncation=False)
+
+        @staticmethod
+        def encode_batch(texts: Sequence[str]) -> List[List[int]]:
+            return [hf_tok.encode(t, truncation=False) for t in texts]
+
+        @staticmethod
+        def decode(ids: Sequence[int]) -> str:
+            return hf_tok.decode(list(ids), skip_special_tokens=True)
+
+    return _HFWrapper()

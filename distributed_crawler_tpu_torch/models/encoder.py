@@ -7,15 +7,22 @@ same config fields, published presets, module names and numerics:
   their weights in the activation dtype (bf16 for the E5/XLM-R presets) and
   add their bias in that dtype — the reference keeps f32 params and casts
   them to bf16 on every call, which gives the same numbers;
-- embeddings, LayerNorms and the classifier head stay f32;
+- with ``quant="int8"`` / ``"int8_static"`` they are `QuantDense` (and the
+  int8 fused QKV): int8 ``[out, in]`` weights, per-channel f32 scales, an
+  f32 bias added before the cast (`ops/quant.py`);
+- embeddings, LayerNorms and the classifier head stay f32 (the embedding
+  tables may be held in a narrower ``embed_dtype``, as the reference's
+  ``param_dtype`` casts them);
 - post-LN like BERT, with residual adds in f32;
 - attention through `ops.mha`: the hand-written CUDA kernel for a CUDA
   tensor, the plain version for a CPU tensor;
 - no dynamic shapes: padding masks, and for packed rows ``segment_ids`` and
   within-segment ``positions``.
 
-Switch-MoE (``n_experts > 0``), int8 (``quant != "none"``) and calibration
-wait for later slices and raise ``NotImplementedError``.  ``remat`` is a
+With ``calibrate=True`` each projection records its input's abs-max (f32)
+in its module's ``absmax`` dict, which `models/quant.
+calibrate_activation_scales` reads.  Switch-MoE (``n_experts > 0``) waits
+for a later slice and raises ``NotImplementedError``.  ``remat`` is a
 training flag; inference accepts and ignores it.
 """
 
@@ -23,7 +30,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +38,7 @@ from torch import nn
 
 from ..device import torch_dtype
 from ..ops.attention import mha
+from ..ops.quant import int8_dense, int8_qkv
 
 
 @dataclass(frozen=True)
@@ -69,14 +77,22 @@ class EncoderConfig:
             raise ValueError(f"unknown quant mode {self.quant!r}")
         if self.moe_dispatch not in ("dense", "capacity"):
             raise ValueError(f"unknown moe_dispatch {self.moe_dispatch!r}")
+        if self.moe_dispatch == "capacity" and self.quant != "none":
+            raise ValueError(
+                "moe_dispatch='capacity' requires quant='none' — the "
+                "int8 expert GEMMs' per-expert quantized layout can't "
+                "host the pack/unpack matmuls; use dense dispatch")
+        if self.calibrate and self.quant != "none":
+            raise ValueError("calibrate requires the float path "
+                             "(quant='none')")
         if self.attention not in ("auto", "xla", "flash"):
             raise ValueError(f"unknown attention mode {self.attention!r}")
         if self.n_experts:
             raise NotImplementedError("Switch-MoE is not ported yet")
-        if self.quant != "none":
-            raise NotImplementedError("int8 serving is not ported yet")
-        if self.calibrate:
-            raise NotImplementedError("calibration is not ported yet")
+
+    @property
+    def quantized(self) -> bool:
+        return self.quant in ("int8", "int8_static")
 
 
 # Published configs (sizes match the HF checkpoints these mirror).
@@ -101,36 +117,108 @@ class Dense(nn.Linear):
         return F.linear(x, self.weight) + self.bias
 
 
-class SelfAttention(nn.Module):
+class QuantDense(nn.Module):
+    """Int8 twin of `Dense` (serving only): buffers ``kernel_q`` int8
+    ``[out, in]``, ``scale`` f32 ``[out]``, ``bias`` f32 ``[out]`` and, under
+    ``int8_static``, the calibrated scalar ``a_scale``.  Filled from a
+    quantized tree (`models/quant.quantize_encoder_params`), never
+    trained; the zeros and ones here only give the shapes."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 cfg: EncoderConfig, out_shape: Optional[tuple] = None):
+        super().__init__()
+        self.cfg = cfg
+        out_shape = out_shape or (out_features,)
+        self.register_buffer("kernel_q", torch.zeros(
+            out_features, in_features, dtype=torch.int8))
+        self.register_buffer("scale", torch.ones(out_shape))
+        self.register_buffer("bias", torch.zeros(out_shape))
+        self.register_buffer("a_scale", torch.ones(())
+                             if cfg.quant == "int8_static" else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return int8_dense(x, self.kernel_q, self.scale, self.bias,
+                          out_dtype=self.cfg.adtype, a_scale=self.a_scale)
+
+
+class QuantQKV(QuantDense):
+    """The int8 fused QKV: ``kernel_q`` ``[3h, h]`` (q/k/v major), ``scale``
+    and ``bias`` ``[3, h]``; the output is a fresh contiguous
+    ``[b, l, 3, h]`` whose q/k/v views the attention kernel takes as the
+    float path's."""
+
+    def __init__(self, cfg: EncoderConfig):
+        h = cfg.hidden
+        super().__init__(h, 3 * h, cfg, out_shape=(3, h))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return int8_qkv(x, self.kernel_q, self.scale, self.bias,
+                        out_dtype=self.cfg.adtype, a_scale=self.a_scale)
+
+
+def _proj(cfg: EncoderConfig, in_features: int,
+          out_features: int) -> nn.Module:
+    """A projection: `Dense` in the activation dtype, or its int8 twin."""
+    if cfg.quantized:
+        return QuantDense(in_features, out_features, cfg)
+    return Dense(in_features, out_features, dtype=cfg.adtype)
+
+
+class _Calibrated(nn.Module):
+    """Holder of the calibration hook: with ``cfg.calibrate`` each
+    projection's input abs-max (f32, max over calls) lands in
+    ``self.absmax["<projection>_in"]``."""
+
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
         self.cfg = cfg
+        self.absmax: Dict[str, torch.Tensor] = {}
+
+    def _record(self, name: str, x: torch.Tensor) -> None:
+        if not self.cfg.calibrate:
+            return
+        key = f"{name}_in"
+        cur = torch.amax(torch.abs(x)).to(torch.float32)
+        prev = self.absmax.get(key)
+        self.absmax[key] = cur if prev is None else torch.maximum(prev, cur)
+
+
+class SelfAttention(_Calibrated):
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__(cfg)
         h = cfg.hidden
         # Fused QKV: one [h, 3h] product.  Output columns are q/k/v major
         # (the reference's [h, 3, h] kernel reshaped), so the result views
         # as [b, l, 3, heads, head_dim] and q/k/v are strided views of it.
-        self.qkv = Dense(h, 3 * h, dtype=cfg.adtype)
-        self.attn_out = Dense(h, h, dtype=cfg.adtype)
+        self.qkv = (QuantQKV(cfg) if cfg.quantized
+                    else Dense(h, 3 * h, dtype=cfg.adtype))
+        self.attn_out = _proj(cfg, h, h)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         b, l, _ = x.shape
+        self._record("qkv", x)
         proj = self.qkv(x).view(b, l, 3, cfg.n_heads, cfg.head_dim)
         o = mha(proj[:, :, 0], proj[:, :, 1], proj[:, :, 2], kv_mask=mask,
                 segment_ids=segment_ids)
-        return self.attn_out(o.reshape(b, l, cfg.hidden))
+        o = o.reshape(b, l, cfg.hidden)
+        self._record("attn_out", o)
+        return self.attn_out(o)
 
 
-class DenseMLP(nn.Module):
+class DenseMLP(_Calibrated):
     def __init__(self, cfg: EncoderConfig):
-        super().__init__()
-        self.mlp_up = Dense(cfg.hidden, cfg.mlp_dim, dtype=cfg.adtype)
-        self.mlp_down = Dense(cfg.mlp_dim, cfg.hidden, dtype=cfg.adtype)
+        super().__init__(cfg)
+        self.mlp_up = _proj(cfg, cfg.hidden, cfg.mlp_dim)
+        self.mlp_down = _proj(cfg, cfg.mlp_dim, cfg.hidden)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        self._record("mlp_up", x)
         # Exact (erf) GELU, as the reference's dense MLP.
-        return self.mlp_down(F.gelu(self.mlp_up(x), approximate="none"))
+        h = F.gelu(self.mlp_up(x), approximate="none")
+        self._record("mlp_down", h)
+        return self.mlp_down(h)
 
 
 def _layer_norm(cfg: EncoderConfig) -> nn.LayerNorm:
@@ -160,16 +248,20 @@ class Encoder(nn.Module):
     """ids [B, L] int, mask [B, L] bool/int -> hidden [B, L, H] (cfg dtype).
 
     Packed rows also pass ``segment_ids`` [B, L] int32 (attention confined
-    per segment) and ``positions`` [B, L] int32 (within-segment offsets)."""
+    per segment) and ``positions`` [B, L] int32 (within-segment offsets).
+    ``embed_dtype`` is the dtype of the two embedding tables, whose sum is
+    taken in it (the reference adds bf16 tables in bf16 under
+    ``param_dtype="bfloat16"``); LayerNorm then runs in f32."""
 
-    def __init__(self, cfg: EncoderConfig):
+    def __init__(self, cfg: EncoderConfig,
+                 embed_dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg.validate()
         self.cfg = cfg
         self.embed_tokens = nn.Parameter(
-            torch.empty(cfg.vocab_size, cfg.hidden, dtype=torch.float32))
+            torch.empty(cfg.vocab_size, cfg.hidden, dtype=embed_dtype))
         self.embed_positions = nn.Parameter(
-            torch.empty(cfg.max_len, cfg.hidden, dtype=torch.float32))
+            torch.empty(cfg.max_len, cfg.hidden, dtype=embed_dtype))
         self.ln_embed = _layer_norm(cfg)
         self.layers = nn.ModuleList(
             EncoderLayer(cfg) for _ in range(cfg.n_layers))
@@ -183,7 +275,7 @@ class Encoder(nn.Module):
         else:
             pos = self.embed_positions[:l][None, :, :]
         x = F.embedding(ids, self.embed_tokens) + pos
-        x = self.ln_embed(x).to(self.cfg.adtype)
+        x = self.ln_embed(x.float()).to(self.cfg.adtype)
         # The kernel takes per-token int32 vectors: convert once, not per
         # layer.
         mask = mask.to(torch.int32)
@@ -258,10 +350,11 @@ class EmbedderClassifier(nn.Module):
     [B, S, n_labels], each segment pooled over its own tokens and
     classified from its own first token.  One set of weights serves both."""
 
-    def __init__(self, cfg: EncoderConfig):
+    def __init__(self, cfg: EncoderConfig,
+                 embed_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
-        self.encoder = Encoder(cfg)
+        self.encoder = Encoder(cfg, embed_dtype)
         self.cls_head = ClassificationHead(cfg)
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor,
@@ -287,24 +380,32 @@ class EmbedderClassifier(nn.Module):
         every dense kernel (flax's ``lecun_normal`` and the qkv
         ``variance_scaling``), zero biases, unit LayerNorm scales.  Draws
         are f32 on the generator's device, then cast."""
-        def fill(param: torch.Tensor, draw) -> None:
-            tmp = torch.empty(param.shape, dtype=torch.float32,
-                              device=generator.device)
-            draw(tmp)
-            param.copy_(tmp)
-
         enc = self.encoder
         for p in (enc.embed_tokens, enc.embed_positions):
-            fill(p, lambda t: t.normal_(0.0, 0.02, generator=generator))
-        for module in self.modules():
-            if isinstance(module, nn.LayerNorm):
-                module.weight.fill_(1.0)
-                module.bias.zero_()
-            elif isinstance(module, Dense):
-                # fan_in truncated normal on [-2σ, 2σ], σ corrected for
-                # the truncation (jax's variance_scaling constant).
-                std = math.sqrt(1.0 / module.in_features) \
-                    / 0.87962566103423978
-                fill(module.weight, lambda t: nn.init.trunc_normal_(
-                    t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator))
-                module.bias.zero_()
+            _fill(p, generator,
+                  lambda t: t.normal_(0.0, 0.02, generator=generator))
+        init_weights_(self, generator)
+
+
+def _fill(param: torch.Tensor, generator: torch.Generator, draw) -> None:
+    tmp = torch.empty(param.shape, dtype=torch.float32,
+                      device=generator.device)
+    draw(tmp)
+    param.copy_(tmp)
+
+
+@torch.no_grad()
+def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
+    """The LayerNorms and `Dense` layers under ``module``, in module order:
+    unit scales and zero biases; fan-in truncated normal kernels on
+    [-2σ, 2σ], σ corrected for the truncation (jax's variance_scaling
+    constant), zero biases."""
+    for m in module.modules():
+        if isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, Dense):
+            std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
+            _fill(m.weight, generator, lambda t: nn.init.trunc_normal_(
+                t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator))
+            m.bias.zero_()

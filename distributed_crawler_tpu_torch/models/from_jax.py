@@ -1,66 +1,83 @@
-"""Load the reference's flax param tree into the port's modules.
+"""Move the reference's flax param tree into and out of the port's modules.
 
 The tree is plain numpy (``jax.tree.map(np.asarray, params)`` on the
-reference side), so this module imports no JAX.  Every leaf is mapped by
-name; a missing leaf, an unknown leaf or a shape mismatch raises — no leaf is
-ever skipped.  Flax kernels are ``[in, out]`` and are transposed into
-``nn.Linear``'s ``[out, in]``; the fused ``qkv/kernel`` ``[h, 3, h]`` is
-reshaped to ``[h, 3h]`` (q/k/v major) first.
+reference side, or `models/hf_convert` / `models/quant` here), so this
+module imports no JAX.  Every leaf is mapped by name; a missing leaf, an
+unknown leaf, a shape mismatch or a float leaf where int8 is expected
+raises — no leaf is ever skipped.  Flax kernels are ``[in, out]`` and are
+transposed into ``nn.Linear``'s ``[out, in]``; the fused ``qkv`` kernel
+``[h, 3, h]`` is reshaped to ``[h, 3h]`` (q/k/v major) first.  The int8
+layout (``quant="int8"``/``"int8_static"``) has ``kernel_q`` int8 in place
+of ``kernel``, plus ``scale``, an f32 ``bias`` and, static, ``a_scale``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
-from .encoder import Dense, EmbedderClassifier
+from .encoder import EmbedderClassifier, QuantDense
 
-# flax path -> (torch tensor, expected flax shape, numpy transform)
-_Leaf = Tuple[torch.Tensor, Tuple[int, ...],
-              Callable[[np.ndarray], np.ndarray]]
-
-
-def _same(a: np.ndarray) -> np.ndarray:
-    return a
+# flax path -> (torch tensor, flax shape, transposed): a transposed leaf is
+# the flax array reshaped to [shape[0], -1] and transposed; any other leaf
+# is the flax array reshaped to the tensor's shape.
+_Leaf = Tuple[torch.Tensor, Tuple[int, ...], bool]
 
 
-def _transpose(a: np.ndarray) -> np.ndarray:
-    return a.T
+def _kernel(t: torch.Tensor, flax_shape: Tuple[int, ...]) -> _Leaf:
+    return (t, flax_shape, True)
 
 
-def _dense(prefix: str, module: Dense) -> Dict[str, _Leaf]:
-    out_f, in_f = module.weight.shape
-    return {f"{prefix}/kernel": (module.weight, (in_f, out_f), _transpose),
-            f"{prefix}/bias": (module.bias, (out_f,), _same)}
+def _plain(t: torch.Tensor, flax_shape: Tuple[int, ...]) -> _Leaf:
+    return (t, flax_shape, False)
 
 
-def _layer_norm(prefix: str, module: torch.nn.LayerNorm) -> Dict[str, _Leaf]:
+def _proj(prefix: str, module: nn.Module,
+          flax_kernel_shape: Tuple[int, ...]) -> Dict[str, _Leaf]:
+    """A projection's leaves: `Dense` (``kernel``, ``bias``) or `QuantDense`
+    (``kernel_q``, ``scale``, ``bias`` [, ``a_scale``])."""
+    if isinstance(module, QuantDense):
+        out_shape = tuple(module.scale.shape)
+        leaves = {
+            f"{prefix}kernel_q": _kernel(module.kernel_q, flax_kernel_shape),
+            f"{prefix}scale": _plain(module.scale, out_shape),
+            f"{prefix}bias": _plain(module.bias, out_shape)}
+        if module.a_scale is not None:
+            leaves[f"{prefix}a_scale"] = _plain(module.a_scale, ())
+        return leaves
+    return {f"{prefix}kernel": _kernel(module.weight, flax_kernel_shape),
+            f"{prefix}bias": _plain(module.bias, flax_kernel_shape[1:])}
+
+
+def _dense(prefix: str, module: nn.Module) -> Dict[str, _Leaf]:
+    w = module.kernel_q if isinstance(module, QuantDense) else module.weight
+    out_f, in_f = w.shape
+    return _proj(prefix + "/", module, (in_f, out_f))
+
+
+def _layer_norm(prefix: str, module: nn.LayerNorm) -> Dict[str, _Leaf]:
     n = module.weight.shape[0]
-    return {f"{prefix}/scale": (module.weight, (n,), _same),
-            f"{prefix}/bias": (module.bias, (n,), _same)}
+    return {f"{prefix}/scale": _plain(module.weight, (n,)),
+            f"{prefix}/bias": _plain(module.bias, (n,))}
 
 
 def flax_leaves(model: EmbedderClassifier) -> Dict[str, _Leaf]:
     """Every flax leaf path the model expects, with its target."""
-    cfg = model.cfg
-    h = cfg.hidden
+    h = model.cfg.hidden
     enc = model.encoder
     leaves: Dict[str, _Leaf] = {
-        "encoder/embed_tokens": (enc.embed_tokens,
-                                 tuple(enc.embed_tokens.shape), _same),
-        "encoder/embed_positions": (enc.embed_positions,
-                                    tuple(enc.embed_positions.shape), _same),
+        "encoder/embed_tokens": _plain(enc.embed_tokens,
+                                       tuple(enc.embed_tokens.shape)),
+        "encoder/embed_positions": _plain(enc.embed_positions,
+                                          tuple(enc.embed_positions.shape)),
     }
     leaves.update(_layer_norm("encoder/ln_embed", enc.ln_embed))
     for i, layer in enumerate(enc.layers):
         p = f"encoder/layers_{i}"
-        leaves[f"{p}/attn/qkv/kernel"] = (
-            layer.attn.qkv.weight, (h, 3, h),
-            lambda a: a.reshape(a.shape[0], -1).T)
-        leaves[f"{p}/attn/qkv/bias"] = (
-            layer.attn.qkv.bias, (3, h), lambda a: a.reshape(-1))
+        leaves.update(_proj(f"{p}/attn/qkv/", layer.attn.qkv, (h, 3, h)))
         leaves.update(_dense(f"{p}/attn/attn_out", layer.attn.attn_out))
         leaves.update(_layer_norm(f"{p}/ln_attn", layer.ln_attn))
         leaves.update(_dense(f"{p}/mlp/mlp_up", layer.mlp.mlp_up))
@@ -85,7 +102,9 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
 def load_flax_params(model: EmbedderClassifier,
                      tree: Mapping[str, Any]) -> EmbedderClassifier:
     """Copy a flax ``EmbedderClassifier`` param tree (numpy leaves, with or
-    without the top-level ``params`` key) into ``model``, in place."""
+    without the top-level ``params`` key) into ``model``, in place.  Float
+    leaves are cast to each target's dtype; int8 targets take int8 leaves
+    only."""
     if set(tree) == {"params"}:
         tree = tree["params"]
     given = _flatten(tree)
@@ -96,15 +115,50 @@ def load_flax_params(model: EmbedderClassifier,
         raise ValueError(f"flax param tree does not match the model: "
                          f"missing {missing}, unknown {unknown}")
     arrays = {}
-    for path, (_, shape, _) in expected.items():
+    for path, (target, shape, _) in expected.items():
         arr = np.asarray(given[path])
         if tuple(arr.shape) != shape:
             raise ValueError(f"{path}: shape {tuple(arr.shape)}, "
                              f"expected {shape}")
+        want_int8 = target.dtype == torch.int8
+        if want_int8 != (arr.dtype == np.int8):
+            raise ValueError(f"{path}: dtype {arr.dtype}, expected "
+                             f"{'int8' if want_int8 else 'a float'}")
         arrays[path] = arr
     with torch.no_grad():
-        for path, (target, _, transform) in expected.items():
-            src = np.array(transform(arrays[path]), dtype=np.float32,
-                           order="C")  # a writable copy
+        for path, (target, _, transposed) in expected.items():
+            arr = arrays[path]
+            if transposed:
+                arr = arr.reshape(arr.shape[0], -1).T
+            src = np.array(arr.reshape(target.shape), order="C",
+                           dtype=np.int8 if arr.dtype == np.int8
+                           else np.float32)  # a writable copy
             target.copy_(torch.from_numpy(src))
     return model
+
+
+def flax_tree(model: EmbedderClassifier) -> Dict[str, Any]:
+    """The model's weights as a flax ``{"params": ...}`` tree of numpy
+    arrays (f32, or int8 for ``kernel_q``): `load_flax_params`'s
+    inverse."""
+    out: Dict[str, Any] = {}
+    for path, (t, shape, transposed) in flax_leaves(model).items():
+        a = t.detach().cpu()
+        a = a if a.dtype == torch.int8 else a.float()
+        if transposed:
+            a = a.T
+        *parents, leaf = _split(path)
+        node = out
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = a.reshape(shape).numpy().copy()
+    return {"params": out}
+
+
+def _split(path: str):
+    """A flax path into tree keys: ``qkv/kernel`` and its siblings are one
+    key of the attention subtree, as the reference names them."""
+    parts = path.split("/")
+    if len(parts) >= 2 and parts[-2] == "qkv":
+        return parts[:-2] + [f"qkv/{parts[-1]}"]
+    return parts

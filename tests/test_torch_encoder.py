@@ -204,13 +204,18 @@ class TestLoader:
 
 @pytest.mark.parametrize("change, err", [
     ({"n_experts": 4}, NotImplementedError),
-    ({"quant": "int8"}, NotImplementedError),
-    ({"calibrate": True}, NotImplementedError),
+    ({"quant": "int8", "calibrate": True}, ValueError),
+    ({"quant": "int8_static", "calibrate": True}, ValueError),
     ({"quant": "int4"}, ValueError),
 ])
 def test_waiting_features_raise(change, err):
+    """Switch-MoE still waits; the int8 and calibration configs are held
+    to the reference's ``validate()``: the same configs raise there."""
     with pytest.raises(err):
         tenc.EmbedderClassifier(dataclasses.replace(tenc.TINY_TEST, **change))
+    if err is ValueError:
+        with pytest.raises(ValueError):
+            dataclasses.replace(jenc.TINY_TEST, **change).validate()
 
 
 def test_remat_is_accepted_and_ignored():

@@ -219,13 +219,25 @@ class TestConfig:
 
     @pytest.mark.parametrize("field, value", [
         ("pretrained_dir", "/nonexistent"), ("checkpoint_dir", "/x"),
-        ("param_dtype", "bfloat16"), ("quantize", "int8"),
+        ("param_dtype", "no_such_dtype"), ("quantize", "int4"),
         ("moe_dispatch", "capacity")])
     def test_waiting_fields_raise(self, field, value):
-        cfg = teng.EngineConfig(**{**CFG, field: value})
-        with pytest.raises(NotImplementedError):
-            teng.InferenceEngine(cfg, registry=MetricsRegistry(),
-                                 device="cpu")
+        """``checkpoint_dir`` and ``moe_dispatch`` still wait; a ported
+        field set wrong raises the exception type the reference's engine
+        raises for the same config."""
+        cfg = {**CFG, field: value}
+        if field in ("checkpoint_dir", "moe_dispatch"):
+            expected = NotImplementedError
+        else:
+            with pytest.raises(Exception) as ref:
+                jeng.InferenceEngine(jeng.EngineConfig(**cfg),
+                                     registry=JaxRegistry())
+            expected = type(ref.value)
+            assert expected is not NotImplementedError
+        with pytest.raises(Exception) as got:
+            teng.InferenceEngine(teng.EngineConfig(**cfg),
+                                 registry=MetricsRegistry(), device="cpu")
+        assert type(got.value) is expected
 
     def test_mesh_raises(self):
         with pytest.raises(NotImplementedError):
@@ -257,3 +269,142 @@ class TestConfig:
         assert not sa["encoder.layers.0.attn.qkv.bias"].any()
         assert torch.equal(sa["encoder.ln_embed.weight"],
                            torch.ones(64))
+
+
+# -- pretrained checkpoints, param_dtype, int8 -------------------------------
+# Tolerances as `tests/test_torch_quant.py` states them for the int8 model:
+# embeddings within 1e-2 absolute, labels equal wherever the top score
+# leads by more than 2e-2.  The same bound holds the bf16 checkpoints
+# (XLA and PyTorch round bf16 products at other places).
+MODE_EMB_ATOL = 1e-2
+MODE_LABEL_MARGIN = 2e-2
+MODE_CFG = dict(batch_size=4, buckets=(16, 32, 64))
+
+
+def _assert_mode_results_match(a, b):
+    assert len(a) == len(b)
+    np.testing.assert_allclose([r["embedding"] for r in a],
+                               [r["embedding"] for r in b],
+                               atol=MODE_EMB_ATOL, rtol=0)
+    scores = np.asarray([r["scores"] for r in b])
+    top2 = np.sort(scores, axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > MODE_LABEL_MARGIN
+    assert clear.any()
+    assert ([r["label"] for r, c in zip(a, clear) if c]
+            == [r["label"] for r, c in zip(b, clear) if c])
+
+
+@pytest.fixture(scope="module")
+def checkpoints(tmp_path_factory):
+    from tests.test_hf_convert import make_roberta_state, write_checkpoint
+
+    return {
+        "head": write_checkpoint(tmp_path_factory.mktemp("head"),
+                                 make_roberta_state(True, "roberta.")),
+        "encoder_only": write_checkpoint(
+            tmp_path_factory.mktemp("enc"), make_roberta_state(False),
+            fmt="bin"),
+    }
+
+
+def _ref_probe(jcfg, je):
+    """The reference engine's calibration ids, as numpy."""
+    return np.asarray(jax.random.randint(
+        jax.random.PRNGKey(jcfg.seed + 1),
+        (min(jcfg.batch_size, 64), je.bucket_spec.lengths[-1]), 0,
+        je.ecfg.vocab_size))
+
+
+@pytest.mark.parametrize("name, extra", [
+    ("pretrained", dict(pretrained_dir="head")),
+    ("pretrained_encoder_only", dict(pretrained_dir="encoder_only")),
+    ("pretrained_int8", dict(pretrained_dir="head", quantize="int8")),
+    ("pretrained_bf16_int8_static",
+     dict(pretrained_dir="encoder_only", param_dtype="bfloat16",
+          quantize="int8_static")),
+    ("param_dtype", dict(model="tiny", param_dtype="bfloat16")),
+    ("int8", dict(model="tiny", quantize="int8")),
+    ("int8_static", dict(model="tiny", quantize="int8_static")),
+])
+def test_serving_modes_match(checkpoints, monkeypatch, caplog, name, extra):
+    """Port engine against reference engine on the same weights and texts.
+    Random weights: the port is given the reference's f32 tree.  The two
+    draws that follow JAX's PRNG (an encoder-only checkpoint's head, the
+    int8_static probe) are fed from the reference."""
+    cfg = {**MODE_CFG, **extra}
+    if "pretrained_dir" in cfg:
+        cfg["pretrained_dir"] = checkpoints[cfg["pretrained_dir"]]
+    jcfg = jeng.EngineConfig(**cfg)
+    je = jeng.InferenceEngine(jcfg, registry=JaxRegistry())
+    params = None
+    if "pretrained_dir" not in cfg:
+        float_cfg = {k: v for k, v in cfg.items()
+                     if k not in ("quantize", "param_dtype")}
+        params = jax.tree.map(np.asarray, jeng.InferenceEngine(
+            jeng.EngineConfig(**float_cfg), registry=JaxRegistry()).params)
+    else:
+        ref_float = jeng.InferenceEngine(
+            jeng.EngineConfig(**{**cfg, "quantize": None,
+                                 "param_dtype": None}),
+            registry=JaxRegistry())
+        head = jax.tree.map(np.asarray,
+                            ref_float.params["params"]["cls_head"])
+        monkeypatch.setattr(teng, "init_head", lambda ecfg, seed: head)
+    monkeypatch.setattr(teng, "calibration_probe",
+                        lambda *a, **k: _ref_probe(jcfg, je))
+    with caplog.at_level("WARNING", logger=teng.__name__):
+        te = teng.InferenceEngine(teng.EngineConfig(**cfg), params=params,
+                                  registry=MetricsRegistry(), device="cpu")
+    if "pretrained_dir" in cfg:
+        assert isinstance(te.tokenizer, ttok.HashingTokenizer)
+        assert "falling back to HashingTokenizer" in caplog.text
+    import dataclasses
+
+    assert dataclasses.asdict(te.ecfg) == dataclasses.asdict(je.ecfg)
+    if cfg.get("quantize") == "int8_static":
+        # Calibrated in f32 (tiny): 1e-5 relative.  In bf16 (the HF
+        # checkpoints' activations) an abs-max may land one bf16 ulp away,
+        # 2^-7 relative at most.
+        rtol = 1e-5 if te.ecfg.dtype == "float32" else 2.0 ** -7
+        for layer in ("layers_0", "layers_1"):
+            ta = te.model.encoder.layers[int(layer[-1])].mlp.mlp_down.a_scale
+            ja = je.params["params"]["encoder"][layer]["mlp"]["mlp_down"][
+                "a_scale"]
+            np.testing.assert_allclose(float(ta), float(ja), rtol=rtol)
+    texts = _texts(8, n=11)
+    for pack in (False, True):
+        _assert_mode_results_match(te.run(texts, pack=pack),
+                                   je.run(texts, pack=pack))
+
+
+def test_param_dtype_keeps_embeddings_narrow():
+    te = teng.InferenceEngine(teng.EngineConfig(**CFG, param_dtype="bfloat16"),
+                              registry=MetricsRegistry(), device="cpu")
+    enc = te.model.encoder
+    assert enc.embed_tokens.dtype == torch.bfloat16
+    ln = enc.ln_embed.weight
+    assert ln.dtype == torch.float32
+    assert torch.equal(ln, ln.to(torch.bfloat16).float())
+
+
+def test_int8_engine_quantizes_the_f32_source():
+    """A seeded random int8 engine quantizes the f32 tree `random_tree`
+    draws, not weights rounded to the activation dtype first."""
+    cfg = dict(CFG, model="xlmr_base")
+    ecfg = teng.EngineConfig(**cfg).encoder_config()
+    small = dict(vocab_size=64, hidden=32, n_layers=1, n_heads=2,
+                 mlp_dim=64, max_len=64)
+    import dataclasses
+
+    ecfg = dataclasses.replace(ecfg, **small)
+    tree = teng.random_tree(ecfg, 0)
+    from distributed_crawler_tpu_torch.models.quant import (
+        quantize_encoder_params,
+    )
+
+    q = quantize_encoder_params(tree)
+    model = teng.EmbedderClassifier(dataclasses.replace(ecfg, quant="int8"))
+    teng.load_flax_params(model, q)
+    want = q["params"]["encoder"]["layers_0"]["mlp"]["mlp_up"]["kernel_q"]
+    assert torch.equal(model.encoder.layers[0].mlp.mlp_up.kernel_q,
+                       torch.from_numpy(want.T.copy()))

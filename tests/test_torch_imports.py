@@ -13,7 +13,9 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "distributed_crawler_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
+# ``safetensors`` too: the card's machine has no such package, so the
+# port reads the format itself (`models/hf_convert.read_safetensors`).
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "safetensors",
              "distributed_crawler_tpu")
 
 

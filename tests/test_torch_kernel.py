@@ -229,6 +229,24 @@ class TestSm90OnCard:
         assert torch.equal(out[-1].float(),
                            torch.zeros_like(out[-1], dtype=torch.float32))
 
+    @pytest.mark.parametrize("l", [32, 64, 128, 256, 512])
+    def test_xlmr_base_shape(self, cuda, l):
+        """XLM-R-base's attention: 12 heads of 64 in the fused-QKV layout,
+        padded and packed rows, at the serving buckets."""
+        b = 8
+        q, k, v, mask, seg = _inputs(b, l, 12, 64, torch.bfloat16, cuda,
+                                     seed=l + 64)
+        assert attention.choose_path(q, k, v) == "sm90"
+        for kw in ({"kv_mask": mask},
+                   {"kv_mask": seg > 0, "segment_ids": seg}):
+            before = flash_attention.launches_by_path["sm90"]
+            out = flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            assert flash_attention.launches_by_path["sm90"] == before + 1
+            torch.testing.assert_close(out.float(),
+                                       attend(q, k, v, **kw).float(),
+                                       atol=2e-2, rtol=2e-2)
+
     @pytest.mark.parametrize("segments", [False, True])
     def test_skipped_tiles_change_nothing(self, cuda, segments):
         """Overwrite the K/V of every key that no block loads (per
