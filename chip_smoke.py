@@ -40,6 +40,22 @@ JSON line each:
    forward times per bucket for bf16, int8 and int8_static, the int8
    projections' parts (quantize, int8 product, dequantize) beside the bf16
    products they replace, and the sm90 kernel at XLM-R-base's shape.
+7. slice.asr — a synthetic Whisper-small checkpoint at the published
+   widths (HF key names, ``model.safetensors`` in F32, values from
+   ``--seed``) served bf16 through ``ASRPipeline.from_pretrained`` (window
+   buckets 1/2/4/8, each warmed up) and `ASRWorker` (coalescing 2): 12
+   generated WAV files of 2-75 s (one 48 kHz stereo) and one file that is
+   not a WAV, in 4 AudioBatchMessages on the in-memory bus.  Checks: one
+   transcript per file with ceil(duration / 30 s) windows, the non-WAV
+   file an error transcript; the tokens equal to `transcribe_files` on the
+   same dispatch groups and the writeback rows equal to the published
+   messages; 12 sm90 launches per encoder dispatch; the f32 model on the
+   card (SIMT kernel) against the CPU on one window; the bf16 greedy tokens
+   against the argmax of a plain-attention run's teacher-forced logits,
+   near-ties counted.  Times per window bucket (log-mel, encoder,
+   cross-K/V, decode in all and per step, achieved TFLOP/s), the sm90
+   kernel at [B, 1500, 12, 64] beside its plain version, SDPA and its
+   bound, and windows/s and audio-seconds per second through the worker.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``.  Any failed phase raises and exits
@@ -225,14 +241,15 @@ def phase_kernel(torch, attention, device, gen):
 
 
 # -- phase 5: kernel times --------------------------------------------------
-def attention_bound_ms(pairs, b, l, h, d, dtype_name, elem_bytes, has_seg):
+def attention_bound_ms(pairs, b, l, h, d, dtype_name, elem_bytes, has_seg,
+                       has_mask=True):
     """The least time of one call, by resource, in ms: bytes (q, k, v and
-    out once each, the int32 mask and segment ids) over the memory rate;
-    the score and PV products of the allowed (query, key) pairs over the
-    peak for the type; one exponential per allowed pair over the special
-    function units' rate."""
+    out once each, the int32 mask and segment ids where given) over the
+    memory rate; the score and PV products of the allowed (query, key)
+    pairs over the peak for the type; one exponential per allowed pair
+    over the special function units' rate."""
     io_bytes = (4 * b * l * h * d * elem_bytes
-                + b * l * 4 * (2 if has_seg else 1))
+                + b * l * 4 * (int(has_mask) + int(has_seg)))
     return {"bytes": io_bytes / H100_BYTES_PER_S * 1e3,
             "operations": 4.0 * h * d * pairs
             / H100_PEAK_FLOPS[dtype_name] * 1e3,
@@ -282,10 +299,11 @@ def _tile_counts(attention, mask, seg):
 
 
 def _time_bucket(torch, F, attention, q, k, v, mask, seg, err_tag):
-    """Every path's time, the plain version's and SDPA's, on one input."""
+    """Every path's time, the plain version's and SDPA's, on one input
+    (``mask`` None: no mask, every pair allowed)."""
     from distributed_crawler_tpu_torch.utils import cudatime
 
-    kw = {"kv_mask": mask.to(torch.int32)}
+    kw = {"kv_mask": mask.to(torch.int32)} if mask is not None else {}
     if seg is not None:
         kw["segment_ids"] = seg
     ref = attention.attend(q, k, v, kv_mask=mask, segment_ids=seg)
@@ -314,8 +332,9 @@ def _time_bucket(torch, F, attention, q, k, v, mask, seg, err_tag):
     allow = attention._allowed_mask(mask, seg)
     times["sdpa"] = cudatime.graph_time_ms(
         lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allow))
-    b, l = mask.shape
-    pairs = int(allow.expand(b, 1, l, l).sum().item())
+    b, l = q.shape[:2]
+    pairs = (int(allow.expand(b, 1, l, l).sum().item()) if allow is not None
+             else b * l * l)
     return times, errs, pairs
 
 
@@ -989,6 +1008,583 @@ def xlmr_kernel_times(torch, attention, device, gen, smi):
     return rows
 
 
+# -- phase 7: Whisper-small ASR from a local HF checkpoint ------------------
+# openai/whisper-small's published config.json: the fields the converter
+# reads, and the special tokens of the multilingual vocabulary.
+WHISPER_HF_CONFIG = {
+    "architectures": ["WhisperForConditionalGeneration"],
+    "model_type": "whisper", "vocab_size": 51865, "num_mel_bins": 80,
+    "d_model": 768, "encoder_layers": 12, "encoder_attention_heads": 12,
+    "encoder_ffn_dim": 3072, "decoder_layers": 12,
+    "decoder_attention_heads": 12, "decoder_ffn_dim": 3072,
+    "max_source_positions": 1500, "max_target_positions": 448,
+    "activation_function": "gelu", "scale_embedding": False,
+    "bos_token_id": 50257, "eos_token_id": 50257, "pad_token_id": 50257,
+    "decoder_start_token_id": 50258,
+}
+ASR_BUCKETS = (1, 2, 4, 8)
+# WAV files sent through the worker: one decode step costs about 10 ms of
+# host time on the card's machine, so every dispatch takes 4-5 s whatever
+# its bucket; 8 files (about 15 windows) keep the phase near a minute.
+ASR_FILES = 8
+WHISPER_HEADS, WHISPER_HEAD_DIM, WHISPER_CTX = 12, 64, 1500
+# Card f32 (cuBLAS without TF32, the SIMT attention kernel) against the CPU
+# in f32, through 12 layers: sums in another order.
+ASR_F32_TOL = 2e-3
+# A greedy token of the kernel run may differ from the argmax of the plain
+# run's teacher-forced logits only where that run's top-2 margin is below
+# this: the two runs' bf16 encoder outputs differ by bf16 roundings, which
+# move the f32 logits by a few hundredths at most.
+ASR_NEAR_TIE = 0.1
+
+
+def whisper_state(np, seed):
+    """HF ``WhisperForConditionalGeneration`` key names and shapes (the
+    ``model.`` prefix; the output projection is tied, so not stored),
+    values from ``default_rng(seed)`` at std 0.02, LayerNorm scales around
+    1."""
+    rng = np.random.default_rng(seed)
+    c = WHISPER_HF_CONFIG
+    d, ff, mels = c["d_model"], c["encoder_ffn_dim"], c["num_mel_bins"]
+
+    def w(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+
+    def ln(prefix):
+        return [(f"{prefix}.weight", 1 + w(d)), (f"{prefix}.bias", w(d))]
+
+    def attn(prefix):
+        out = [(f"{prefix}.k_proj.weight", w(d, d))]
+        for proj in ("v_proj", "q_proj", "out_proj"):
+            out += [(f"{prefix}.{proj}.weight", w(d, d)),
+                    (f"{prefix}.{proj}.bias", w(d))]
+        return out
+
+    def mlp(prefix):
+        return [(f"{prefix}.fc1.weight", w(ff, d)),
+                (f"{prefix}.fc1.bias", w(ff)),
+                (f"{prefix}.fc2.weight", w(d, ff)),
+                (f"{prefix}.fc2.bias", w(d))]
+
+    e = "model.encoder"
+    out = [(f"{e}.conv1.weight", w(d, mels, 3)), (f"{e}.conv1.bias", w(d)),
+           (f"{e}.conv2.weight", w(d, d, 3)), (f"{e}.conv2.bias", w(d)),
+           (f"{e}.embed_positions.weight",
+            w(c["max_source_positions"], d))]
+    for i in range(c["encoder_layers"]):
+        b = f"{e}.layers.{i}"
+        out += attn(f"{b}.self_attn") + ln(f"{b}.self_attn_layer_norm")
+        out += mlp(b) + ln(f"{b}.final_layer_norm")
+    out += ln(f"{e}.layer_norm")
+    dd = "model.decoder"
+    out += [(f"{dd}.embed_tokens.weight", w(c["vocab_size"], d)),
+            (f"{dd}.embed_positions.weight",
+             w(c["max_target_positions"], d))]
+    for i in range(c["decoder_layers"]):
+        b = f"{dd}.layers.{i}"
+        out += attn(f"{b}.self_attn") + ln(f"{b}.self_attn_layer_norm")
+        out += attn(f"{b}.encoder_attn") + ln(f"{b}.encoder_attn_layer_norm")
+        out += mlp(b) + ln(f"{b}.final_layer_norm")
+    out += ln(f"{dd}.layer_norm")
+    return out
+
+
+def write_audio_traffic(np, root, seed):
+    """ASR_FILES PCM16 WAV files from ``seed`` (a modulated tone and
+    noise), durations spread over 2-75 s, one of them 48 kHz stereo; and
+    one file that is not a WAV.  Returns [(path, seconds at 16 kHz, or
+    None)]."""
+    import wave
+
+    rng = np.random.default_rng(seed)
+    files = []
+    for i in range(ASR_FILES):
+        seconds = 2.0 + 73.0 * (i + rng.random()) / ASR_FILES
+        rate, channels = (48_000, 2) if i == 5 else (16_000, 1)
+        n = int(seconds * rate)
+        t = np.arange(n) / rate
+        f0 = 120.0 + 200.0 * rng.random()
+        sig = (0.2 * np.sin(2 * np.pi * f0 * t)
+               * (1 + 0.5 * np.sin(2 * np.pi * 3.0 * t))
+               + 0.03 * rng.standard_normal(n))
+        pcm = (np.clip(sig, -1, 1) * 32767).astype(np.int16)
+        if channels == 2:
+            pcm = np.stack([pcm, pcm // 2], axis=1)
+        path = os.path.join(root, f"voice_{i:02d}.wav")
+        with wave.open(path, "wb") as wf:
+            wf.setnchannels(channels)
+            wf.setsampwidth(2)
+            wf.setframerate(rate)
+            wf.writeframes(pcm.tobytes())
+        files.append((path, round(n * 16_000 / rate) / 16_000))
+    bad = os.path.join(root, "video_04.mp4")
+    with open(bad, "wb") as f:
+        f.write(b"\x00\x00\x00\x18ftypmp42" + bytes(rng.integers(
+            0, 256, 4096, dtype=np.uint8)))
+    files.insert(4, (bad, None))
+    return files
+
+
+class DictProvider:
+    """``put_text`` / ``get_text`` / ``list_dir`` over a dict: the
+    writeback target of the ASR slice."""
+
+    def __init__(self):
+        self.files = {}
+
+    def put_text(self, rel, text):
+        self.files[rel] = text
+
+    def get_text(self, rel):
+        return self.files.get(rel)
+
+    def list_dir(self, rel):
+        prefix = rel.rstrip("/") + "/"
+        return sorted(k[len(prefix):] for k in self.files
+                      if k.startswith(prefix))
+
+
+def serve_audio(pipeline, msgs):
+    """The ASR main path: AudioBatchMessages published on the in-memory
+    bus, served by `ASRWorker` (coalescing 2), transcripts collected from
+    the transcripts topic.  The kernel counts are set to 0 just before
+    and read just after."""
+    from distributed_crawler_tpu_torch.bus import (
+        TOPIC_MEDIA_BATCHES,
+        TOPIC_TRANSCRIPTS,
+        InMemoryBus,
+    )
+    from distributed_crawler_tpu_torch.media.worker import (
+        ASRWorker,
+        ASRWorkerConfig,
+    )
+    from distributed_crawler_tpu_torch.ops import attention
+    from distributed_crawler_tpu_torch.utils import trace
+    from distributed_crawler_tpu_torch.utils.metrics import MetricsRegistry
+
+    bus = InMemoryBus(sync=False)
+    got = []
+    bus.subscribe(TOPIC_TRANSCRIPTS, got.append)
+    provider = DictProvider()
+    worker = ASRWorker(bus, pipeline, provider=provider,
+                       cfg=ASRWorkerConfig(worker_id="chip-smoke-asr",
+                                           coalesce_batches=2),
+                       registry=MetricsRegistry())
+    n_refs = sum(len(m.refs) for m in msgs)
+    pipeline.timeline.reset()
+    trace.TRACER.reset()
+    worker.start()
+    bus.start()
+    attention.flash_attention.launches = 0
+    by_path = attention.flash_attention.launches_by_path
+    for p in by_path:
+        by_path[p] = 0
+    t_start = time.perf_counter()
+    try:
+        for m in msgs:
+            bus.publish(TOPIC_MEDIA_BATCHES, m.to_dict())
+        deadline = time.monotonic() + 600
+        while len(got) < n_refs and time.monotonic() < deadline:
+            time.sleep(0.005)
+        t_end = time.perf_counter()
+        check(worker.drain(timeout_s=60.0), "asr worker did not drain")
+    finally:
+        worker.stop()
+        bus.close()
+    launches = dict(by_path)
+    dispatches = pipeline.timeline.snapshot()["batches_total"]
+    # The dispatch groups, in order, from the worker's spans.
+    groups = []
+    for s in trace.TRACER.spans():
+        if s.name == "asr_worker.coalesce":
+            groups.append(list(s.attrs["batch_ids"]))
+        elif s.name == "asr_worker.process":
+            groups.append([s.attrs["batch"]])
+    status = worker.get_status()
+    check(status["processed_batches"] == len(msgs)
+          and status["error_batches"] == 0, f"asr worker status {status}")
+    return {"transcripts": got, "provider": provider, "launches": launches,
+            "dispatches": dispatches, "groups": groups,
+            "seconds": t_end - t_start,
+            "coalesced_groups": worker.m_coalesce.count}
+
+
+def check_transcripts(np, pipeline, msgs, files, served):
+    """Coverage (one transcript per file, ceil(duration / 30 s) windows,
+    the non-WAV file an explicit error) and consistency (the tokens
+    `transcribe_files` gives for each dispatch group's files; the
+    writeback rows equal to the published messages)."""
+    from distributed_crawler_tpu_torch.bus import TranscriptMessage
+    from distributed_crawler_tpu_torch.media.worker import iter_transcripts
+
+    seconds = dict(files)
+    by_media = {}
+    for d in served["transcripts"]:
+        t = TranscriptMessage.from_dict(d)
+        check(t.media_id not in by_media, f"duplicate transcript {t.media_id}")
+        by_media[t.media_id] = t
+    refs = [r for m in msgs for r in m.refs]
+    check(set(by_media) == {r.media_id for r in refs},
+          f"{len(by_media)} transcripts for {len(refs)} files")
+    windows = 0
+    for r in refs:
+        t, dur = by_media[r.media_id], seconds[r.path]
+        if dur is None:
+            check(bool(t.error) and t.windows == 0 and not t.tokens,
+                  f"{r.path}: no error transcript ({t.error!r})")
+            continue
+        want = int(np.ceil(dur * 16_000 / pipeline.window_samples))
+        check(not t.error and t.windows == want,
+              f"{r.path}: {t.windows} windows for {dur} s (want {want}), "
+              f"error {t.error!r}")
+        check(len(t.tokens) > 0 and all(
+            0 <= x < pipeline.model.cfg.n_vocab for x in t.tokens),
+            f"{r.path}: tokens out of range")
+        windows += t.windows
+    # The same files through `transcribe_files`, one call per dispatch
+    # group, so every window meets the same batch as when served.
+    by_id = {m.batch_id: m for m in msgs}
+    check(sorted(b for g in served["groups"] for b in g) == sorted(by_id),
+          f"dispatch groups {served['groups']}")
+    for group in served["groups"]:
+        g_refs = [r for b in group for r in by_id[b].refs]
+        again = pipeline.transcribe_files([r.path for r in g_refs])
+        for r, res in zip(g_refs, again):
+            t = by_media[r.media_id]
+            check(res.tokens == t.tokens and res.windows == t.windows
+                  and bool(res.error) == bool(t.error),
+                  f"{r.path}: served tokens differ from transcribe_files")
+    rows = {}
+    for m in msgs:
+        for row in iter_transcripts(served["provider"], m.crawl_id):
+            rows[row["media_id"]] = row
+    check(set(rows) == set(by_media), "writeback rows missing")
+    for media, t in by_media.items():
+        row = rows[media]
+        check(row["tokens"] == t.tokens and row["windows"] == t.windows
+              and row["error"] == t.error and row["batch_id"] == t.batch_id
+              and row["trace_id"] == t.trace_id,
+              f"{media}: writeback row differs from the published message")
+    return windows
+
+
+def check_asr_against_cpu(torch, wh, cfg, tree, mel, device):
+    """The f32 model on the card (cuBLAS without TF32, the SIMT attention
+    kernel) against the port on the CPU in f32, on one window: the encoder
+    output and the teacher-forced logits."""
+    from distributed_crawler_tpu_torch.models.from_jax import (
+        load_whisper_params,
+    )
+    from distributed_crawler_tpu_torch.ops import attention
+
+    cfg = replace(cfg, dtype="float32")
+    cpu = load_whisper_params(wh.Whisper(cfg), tree).eval()
+    card = load_whisper_params(wh.Whisper(cfg), tree).to(device).eval()
+    tokens = torch.tensor([[cfg.sot_token, cfg.transcribe_token,
+                            cfg.no_timestamps_token, 440, 1000, 220, 50]])
+    before = attention.flash_attention.launches_by_path["simt"]
+    with torch.inference_mode():
+        xa_cpu = cpu.encode(mel)
+        logits_cpu = cpu.decode_teacher(tokens, xa_cpu)
+        xa = card.encode(mel.to(device))
+        logits = card.decode_teacher(tokens.to(device), xa)
+    torch.cuda.synchronize()
+    simt = attention.flash_attention.launches_by_path["simt"] - before
+    enc_err = (xa.cpu() - xa_cpu).abs().max().item()
+    logit_err = (logits.cpu() - logits_cpu).abs().max().item()
+    check(simt == cfg.n_audio_layer, f"{simt} simt launches in the f32 "
+          f"encoder (expected {cfg.n_audio_layer})")
+    check(enc_err <= ASR_F32_TOL and logit_err <= ASR_F32_TOL,
+          f"card f32 vs CPU f32: encoder {enc_err}, logits {logit_err}, "
+          f"tol {ASR_F32_TOL}")
+    del card
+    torch.cuda.empty_cache()
+    return {"encoder_max_abs_err": enc_err, "logits_max_abs_err": logit_err,
+            "tol": ASR_F32_TOL, "simt_launches": simt,
+            "tokens": int(tokens.shape[1])}
+
+
+def check_kernel_vs_plain_tokens(torch, wh, model, mel):
+    """Greedy tokens of the bf16 model (encoder attention on the sm90
+    kernel) against the same model with the encoder's attention in plain
+    PyTorch (the reference's formula, `_attend`): every decoded token must
+    be the argmax of the plain run's teacher-forced logits, except where
+    their top-2 margin is below ASR_NEAR_TIE (counted)."""
+    cfg = model.cfg
+    tokens = wh.greedy_decode(model, mel)
+    layers = model.encoder.layers
+    with torch.inference_mode():
+        kernel_logits = model.decode_teacher(tokens, model.encode(mel))
+        for layer in layers:
+            layer.attn.kernel = False
+        try:
+            plain_logits = model.decode_teacher(tokens, model.encode(mel))
+        finally:
+            for layer in layers:
+                layer.attn.kernel = True
+    toks = tokens.long().cpu()
+    plain = plain_logits[:, :-1].float().cpu()
+    top2 = plain.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    nxt = toks[:, 1:]
+    # Steps the argmax decided: not the forced prompt, not after EOT.
+    decoded = torch.ones_like(nxt, dtype=torch.bool)
+    decoded[:, :2] = False
+    ended = torch.cumsum((nxt == cfg.eot_token).int(), dim=1) > 0
+    decoded[:, 1:] &= ~ended[:, :-1]
+    differ = decoded & (nxt != plain.argmax(dim=-1))
+    near = decoded & (margin < ASR_NEAR_TIE)
+    check(not bool((differ & ~near).any()),
+          f"kernel tokens differ from the plain run's argmax at "
+          f"{int((differ & ~near).sum())} steps with margin >= "
+          f"{ASR_NEAR_TIE}")
+    return {"rows": int(toks.shape[0]), "decoded_steps": int(decoded.sum()),
+            "differing_steps": int(differ.sum()), "near_ties": int(near.sum()),
+            "near_tie_threshold": ASR_NEAR_TIE,
+            "teacher_logits_max_abs_diff": (
+                kernel_logits.float() - plain_logits.float()).abs().max()
+            .item()}
+
+
+def dispatch_ms_by_bucket():
+    """Host ms of every ASR dispatch since the tracer was reset (the
+    ``asr.transcribe`` spans: audio to the card, `transcribe_features`,
+    tokens back), by bucket."""
+    from distributed_crawler_tpu_torch.utils import trace
+
+    out = {}
+    for s in trace.TRACER.spans():
+        if s.name == "asr.transcribe":
+            out.setdefault(int(s.attrs["bucket"]), []).append(
+                s.duration_s * 1e3)
+    return out
+
+
+def profile_decode(torch, model, mel, steps=32):
+    """Decode steps at one bucket, under `torch.profiler`: the kernels the
+    card ran per step and their summed device time, against the same steps'
+    wall time without the profiler (the device's busy share of a decode
+    step).  None where the profiler recorded no device work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, b = model.cfg, mel.shape[0]
+    with torch.inference_mode():
+        cache, cross = model.decode_init(b, model.encode(mel))
+        tok = torch.full((b, 1), cfg.sot_token, device=mel.device)
+
+        def run():
+            for pos in range(steps):
+                model.decode_step(tok, pos, cache, cross)
+            torch.cuda.synchronize()
+
+        run()
+        t0 = time.perf_counter()
+        run()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not device:
+        return None
+    device_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    return {"steps": steps, "bucket": b, "wall_ms_per_step": wall_ms / steps,
+            "device_ms_per_step": device_ms / steps,
+            "device_ops_per_step": len(device) / steps,
+            "device_busy_share": device_ms / wall_ms}
+
+
+def time_asr(torch, wh, attention, pipeline, smi, served_ms):
+    """Per window bucket: log-mel, encoder and cross-K/V by CUDA events;
+    one whole dispatch by the host clock — the median of the served
+    dispatches of that bucket (``served_ms``), or one `transcribe_features`
+    call where none was served — and its decode share (the dispatch less
+    those three) in all and per step; the achieved TFLOP/s by
+    `whisper_forward_flops`; the sm90 kernel at [B, 1500, 12, 64] beside
+    its plain version, SDPA and its bound."""
+    import torch.nn.functional as F
+
+    from distributed_crawler_tpu_torch.utils import cudatime
+    from distributed_crawler_tpu_torch.utils.costmodel import (
+        whisper_forward_flops,
+    )
+
+    model, cfg, dev = pipeline.model, pipeline.model.cfg, pipeline.device
+    rows, kernel_rows = [], []
+    gen = torch.Generator().manual_seed(7)
+    for b in ASR_BUCKETS:
+        audio = (torch.randn((b, pipeline.window_samples), generator=gen)
+                 * 0.1).to(dev)
+        with torch.inference_mode():
+            mel = wh.log_mel_spectrogram(audio, n_mels=cfg.n_mels)
+            xa = model.encode(mel)
+            mel_ms = cudatime.event_time_ms(
+                lambda: wh.log_mel_spectrogram(audio, n_mels=cfg.n_mels),
+                min_iters=3, max_iters=20)
+            enc_ms = cudatime.event_time_ms(lambda: model.encode(mel),
+                                            min_iters=3, max_iters=10)
+            kv_ms = cudatime.event_time_ms(
+                lambda: model.decoder.cross_kv(xa), min_iters=3,
+                max_iters=20)
+            served = sorted(served_ms.get(b, []))
+            if served:
+                total_ms = served[len(served) // 2]
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = wh.transcribe_features(model, audio,
+                                             max_len=pipeline.max_len)
+                torch.cuda.synchronize()
+                total_ms = (time.perf_counter() - t0) * 1e3
+                check(tuple(out.shape) == (b, pipeline.max_len),
+                      f"tokens {tuple(out.shape)}")
+        profile = profile_decode(torch, model, mel) if b == max(
+            ASR_BUCKETS) else None
+        steps = pipeline.max_len - 1
+        decode_ms = total_ms - mel_ms - enc_ms - kv_ms
+        flops = whisper_forward_flops(cfg, b, pipeline.max_len)
+        row = {"bucket": b, "log_mel_ms": mel_ms, "encoder_ms": enc_ms,
+               "cross_kv_ms": kv_ms, "dispatch_ms": total_ms,
+               "served_dispatches": len(served),
+               "decode_ms": decode_ms, "decode_steps": steps,
+               "decode_ms_per_step": decode_ms / steps,
+               "model_tflop": flops / 1e12,
+               "achieved_tflop_per_s": flops / (total_ms * 1e-3) / 1e12,
+               "decode_profile": profile, "card": smi}
+        rows.append(row)
+        emit("times.asr", **row)
+        # The encoder's attention alone, at its shape.
+        q, k, v = (torch.randn((b, WHISPER_CTX, WHISPER_HEADS,
+                                WHISPER_HEAD_DIM), generator=gen).to(
+            device=dev, dtype=torch.bfloat16) for _ in range(3))
+        check(attention.choose_path(q, k, v) == "sm90",
+              f"Whisper shape B={b} goes to {attention.choose_path(q, k, v)}")
+        times, errs, pairs = _time_bucket(torch, F, attention, q, k, v, None,
+                                          None, f"whisper B={b}")
+        parts = attention_bound_ms(pairs, b, WHISPER_CTX, WHISPER_HEADS,
+                                   WHISPER_HEAD_DIM, "bfloat16", 2, False,
+                                   has_mask=False)
+        krow = {"model": "whisper_small", "batch": b, "seq": WHISPER_CTX,
+                "heads": WHISPER_HEADS, "head_dim": WHISPER_HEAD_DIM,
+                "dtype": "bfloat16", "mask": None, "max_abs_err": errs,
+                "ms": times["sm90"], "mma_sync_ms": times["mma_sync"],
+                "eager_ms": times["eager"], "plain_ms": times["plain"],
+                "library_ms": times["sdpa"], "bound_ms": bound_of(parts)[0],
+                "bound_by": bound_of(parts)[1], "bound_parts_ms": parts,
+                "allowed_pairs": pairs, "card": smi}
+        kernel_rows.append(krow)
+        emit("times.kernel", name="flash_attention", **krow)
+        del q, k, v, audio, mel, xa
+        torch.cuda.empty_cache()
+    return rows, kernel_rows
+
+
+def phase_asr(torch, np, attention, device, seed, smi):
+    """Whisper-small from a synthetic HF checkpoint at the published widths,
+    served bf16 through `ASRPipeline.from_pretrained` and `ASRWorker`."""
+    import tempfile
+
+    from distributed_crawler_tpu_torch.bus import AudioBatchMessage, AudioRef
+    from distributed_crawler_tpu_torch.inference.asr import ASRPipeline
+    from distributed_crawler_tpu_torch.models import whisper as wh
+    from distributed_crawler_tpu_torch.models.hf_convert import (
+        load_hf_whisper,
+    )
+    from distributed_crawler_tpu_torch.utils.metrics import MetricsRegistry
+
+    with tempfile.TemporaryDirectory(prefix="whisper_ckpt_") as root:
+        ckpt = os.path.join(root, "ckpt")
+        os.makedirs(ckpt)
+        t0 = time.perf_counter()
+        with open(os.path.join(ckpt, "config.json"), "w") as f:
+            json.dump(WHISPER_HF_CONFIG, f)
+        write_safetensors(os.path.join(ckpt, "model.safetensors"),
+                          whisper_state(np, seed))
+        write_s = time.perf_counter() - t0
+        ckpt_bytes = os.path.getsize(os.path.join(ckpt, "model.safetensors"))
+        media = os.path.join(root, "media")
+        os.makedirs(media)
+        files = write_audio_traffic(np, media, seed)
+
+        t0 = time.perf_counter()
+        pipeline = ASRPipeline.from_pretrained(ckpt, batch_size=8,
+                                               registry=MetricsRegistry())
+        init_s = time.perf_counter() - t0
+        cfg = pipeline.model.cfg
+        check(pipeline.device.type == "cuda",
+              f"pipeline on {pipeline.device}")
+        check(cfg == wh.WHISPER_SMALL, f"not whisper-small's widths: {cfg}")
+        check(pipeline.window_buckets == ASR_BUCKETS,
+              f"window buckets {pipeline.window_buckets}")
+        check(pipeline.max_len == cfg.n_text_ctx == 448,
+              f"decode length {pipeline.max_len}")
+        check(pipeline.detokenize is None, "a detokenizer without files")
+        t0 = time.perf_counter()
+        pipeline.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        emit("slice.asr.setup", checkpoint_bytes=ckpt_bytes,
+             checkpoint_write_s=write_s, pipeline_init_s=init_s,
+             warmup_s=warm_s, programs=pipeline.compile_cache_stats(),
+             files=[[os.path.basename(p), s] for p, s in files])
+
+        paths = [p for p, _ in files]
+        cuts = (0, 2, 5, 7, len(paths))  # 4 batches of 2-3 files
+        msgs = [AudioBatchMessage.new(
+            [AudioRef(media_id=f"m{i:02d}", path=paths[i],
+                      channel_name="smoke") for i in range(lo, hi)],
+            crawl_id="smoke-asr") for lo, hi in zip(cuts, cuts[1:])]
+        served = serve_audio(pipeline, msgs)
+        launches, dispatches = served["launches"], served["dispatches"]
+        check(dispatches > 0, "no encoder dispatch on the ASR path")
+        check(launches == {"sm90": cfg.n_audio_layer * dispatches,
+                           "mma_sync": 0, "simt": 0},
+              f"launches by path {launches} for {dispatches} dispatches: "
+              f"expected {cfg.n_audio_layer} sm90 per dispatch")
+        windows = check_transcripts(np, pipeline, msgs, files, served)
+        audio_s = sum(s for _, s in files if s is not None)
+        window0 = pipeline.chunker.chunk_files([paths[0]]).windows[:1]
+        two = pipeline.chunker.chunk_files(paths[-1:]).windows[:2]
+        served_ms = dispatch_ms_by_bucket()
+        _, tree = load_hf_whisper(ckpt)
+    mel0 = wh.log_mel_spectrogram(torch.from_numpy(window0),
+                                  n_mels=cfg.n_mels)
+    vs_cpu = check_asr_against_cpu(torch, wh, cfg, tree, mel0, device)
+    del tree
+    mel2 = wh.log_mel_spectrogram(torch.from_numpy(two).to(device),
+                                  n_mels=cfg.n_mels)
+    vs_plain = check_kernel_vs_plain_tokens(torch, wh, pipeline.model, mel2)
+    emit("slice.asr", files=len(files), batches=len(msgs),
+         transcripts=len(served["transcripts"]), windows=windows,
+         dispatches=dispatches, dispatch_groups=served["groups"],
+         coalesced_groups=served["coalesced_groups"],
+         kernel_launches_by_path=launches,
+         launches_per_dispatch=launches["sm90"] / dispatches,
+         card_f32_vs_cpu_f32=vs_cpu, kernel_vs_plain_tokens=vs_plain)
+    emit("times.slice", model="whisper_small", windows=windows,
+         audio_seconds=audio_s, seconds=served["seconds"],
+         windows_per_s=windows / served["seconds"],
+         audio_s_per_wall_s=audio_s / served["seconds"], card=smi)
+    _, kernel_rows = time_asr(torch, wh, attention, pipeline, smi,
+                              served_ms)
+    emit("times.kernel.sum", name="flash_attention", model="whisper_small",
+         at="12 heads of 64 over 1500 tokens, bf16, no mask: one call at "
+            "each of batch 1, 2, 4, 8, summed",
+         ms=sum(r["ms"] for r in kernel_rows),
+         mma_sync_ms=sum(r["mma_sync_ms"] for r in kernel_rows),
+         plain_ms=sum(r["plain_ms"] for r in kernel_rows),
+         library_ms=sum(r["library_ms"] for r in kernel_rows),
+         bound_parts_ms={p: sum(r["bound_parts_ms"][p] for r in kernel_rows)
+                         for p in kernel_rows[0]["bound_parts_ms"]},
+         max_abs_err=max(r["max_abs_err"]["sm90"] for r in kernel_rows),
+         card=smi)
+    del pipeline
+    torch.cuda.empty_cache()
+    return {"launches": launches, "dispatches": dispatches,
+            "kernel_rows": kernel_rows}
+
+
 KERNEL_SOURCES = {"sm90": "flash_attention_sm90.cu",
                   "mma_sync": "flash_attention.cu",
                   "simt": "flash_attention.cu"}
@@ -1068,8 +1664,9 @@ def main() -> int:
     rows = phase_kernel_times(torch, np, attention, device, gen, args.seed,
                               smi)
     xlmr = phase_xlmr(torch, np, attention, device, gen, args.seed, smi)
+    asr = phase_asr(torch, np, attention, device, args.seed, smi)
     launches = {p: e5["launches"][p] + xlmr["launches"][p]
-                for p in attention.PATHS}
+                + asr["launches"][p] for p in attention.PATHS}
     print(json.dumps({"kernels": [
         kernel_entry(path, rows, worst, launches)
         for path in attention.PATHS]}), flush=True)

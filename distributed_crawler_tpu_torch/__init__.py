@@ -9,7 +9,10 @@ so each module has an obvious counterpart:
   `kernels.py`);
 - `models/encoder.py` — the E5/XLM-R `EmbedderClassifier`, dense path;
   `models/from_jax.py` loads the reference's param tree into it;
-- `inference/` — tokenizer, `InferenceEngine`, `TPUWorker`;
+- `models/whisper.py` — Whisper ASR (log-mel, audio encoder, KV-cached
+  greedy decode);
+- `inference/` — tokenizer, `InferenceEngine`, `TPUWorker`, `ASRPipeline`;
+- `media/` — the audio chunker and `ASRWorker`;
 - `bus/` — `RecordBatch` and the in-memory bus the worker serves from;
 - `utils/` — metrics registry, span tracing, device timeline, FLOP count.
 

@@ -1,4 +1,5 @@
-"""Bus layer of the port: `RecordBatch`, topics, the in-memory bus."""
+"""Bus layer of the port: `RecordBatch`, the media envelopes, topics, the
+in-memory bus."""
 
 from .codec import RecordBatch
 from .inmemory import InMemoryBus
@@ -6,12 +7,18 @@ from .messages import (
     DEFAULT_TENANT,
     TOPIC_INFERENCE_BATCHES,
     TOPIC_INFERENCE_RESULTS,
+    TOPIC_MEDIA_BATCHES,
+    TOPIC_TRANSCRIPTS,
+    AudioBatchMessage,
+    AudioRef,
+    TranscriptMessage,
     new_trace_id,
     normalize_tenant,
 )
 
 __all__ = [
-    "DEFAULT_TENANT", "InMemoryBus", "RecordBatch",
-    "TOPIC_INFERENCE_BATCHES", "TOPIC_INFERENCE_RESULTS", "new_trace_id",
-    "normalize_tenant",
+    "AudioBatchMessage", "AudioRef", "DEFAULT_TENANT", "InMemoryBus",
+    "RecordBatch", "TOPIC_INFERENCE_BATCHES", "TOPIC_INFERENCE_RESULTS",
+    "TOPIC_MEDIA_BATCHES", "TOPIC_TRANSCRIPTS", "TranscriptMessage",
+    "new_trace_id", "normalize_tenant",
 ]

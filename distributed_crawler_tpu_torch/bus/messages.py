@@ -1,16 +1,29 @@
-"""Bus constants the serving slice needs, copied from the reference's
-`distributed_crawler_tpu/bus/messages.py`.  The topic strings are a wire
-contract and must stay identical."""
+"""Bus constants and the media envelopes the serving slices need, copied
+from the reference's `distributed_crawler_tpu/bus/messages.py`.  The
+message types, topic strings and dict field names are a wire contract and
+must stay identical: a frame published by either package decodes in the
+other."""
 
 from __future__ import annotations
 
 import secrets
 import string
+from dataclasses import dataclass, field
 from datetime import datetime, timezone
-from typing import Any
+from typing import Any, Dict, List, Optional
+
+# The time and id helpers live in `codec`, which imports this module: bind
+# the module here and read its functions at call time.
+from . import codec
+
+MSG_AUDIO_BATCH = "audio_batch"
+MSG_TRANSCRIPT = "transcript"
 
 TOPIC_INFERENCE_BATCHES = "tpu-inference-batches"
 TOPIC_INFERENCE_RESULTS = "tpu-inference-results"
+# Audio refs bound for the ASR worker, and the transcripts it sends back.
+TOPIC_MEDIA_BATCHES = "tpu-media-batches"
+TOPIC_TRANSCRIPTS = "tpu-transcripts"
 
 # Frames without a tenant label decode to this documented default.
 DEFAULT_TENANT = "default"
@@ -31,3 +44,185 @@ def new_trace_id() -> str:
     stamp = datetime.now(timezone.utc).strftime("%Y%m%d%H%M%S")
     return "trace_" + stamp + "_" + "".join(
         secrets.choice(_ALPHANUM) for _ in range(8))
+
+
+def _opt_time(value: Optional[datetime]) -> Optional[str]:
+    return codec.format_time(value) if value is not None else None
+
+
+# -- media / ASR serving -----------------------------------------------------
+@dataclass
+class AudioRef:
+    """One crawled media file bound for transcription: ``media_id`` is the
+    platform's stable media id, ``path`` the decoded audio (a PCM wav)."""
+
+    media_id: str = ""
+    path: str = ""
+    channel_name: str = ""
+    post_uid: str = ""          # originating post, when known
+    duration_s: float = 0.0     # 0 = unknown (the chunker measures)
+
+    def validate(self) -> None:
+        if not self.media_id:
+            raise ValueError("audio ref media_id cannot be empty")
+        if not self.path:
+            raise ValueError("audio ref path cannot be empty")
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"media_id": self.media_id, "path": self.path,
+                "channel_name": self.channel_name,
+                "post_uid": self.post_uid,
+                "duration_s": self.duration_s}
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "AudioRef":
+        return cls(
+            media_id=d.get("media_id", "") or "",
+            path=d.get("path", "") or "",
+            channel_name=d.get("channel_name", "") or "",
+            post_uid=d.get("post_uid", "") or "",
+            duration_s=float(d.get("duration_s") or 0.0),
+        )
+
+
+@dataclass
+class AudioBatchMessage:
+    """A batch of audio refs on ``TOPIC_MEDIA_BATCHES``, minted with a
+    trace id at birth."""
+
+    message_type: str = MSG_AUDIO_BATCH
+    batch_id: str = ""
+    crawl_id: str = ""
+    refs: List[AudioRef] = field(default_factory=list)
+    created_at: Optional[datetime] = None
+    trace_id: str = ""
+    tenant: str = DEFAULT_TENANT
+
+    @classmethod
+    def new(cls, refs: List[AudioRef], crawl_id: str = "",
+            trace_id: str = "",
+            tenant: str = DEFAULT_TENANT) -> "AudioBatchMessage":
+        return cls(batch_id=codec.new_id(), crawl_id=crawl_id,
+                   refs=list(refs), created_at=codec.utcnow(),
+                   trace_id=trace_id or new_trace_id(),
+                   tenant=normalize_tenant(tenant))
+
+    def validate(self) -> None:
+        if self.message_type != MSG_AUDIO_BATCH:
+            raise ValueError(
+                f"invalid audio batch message type: {self.message_type}")
+        if not self.batch_id:
+            raise ValueError("audio batch ID cannot be empty")
+        if not self.refs:
+            raise ValueError("audio batch carries no refs")
+        for ref in self.refs:
+            ref.validate()
+
+    def __len__(self) -> int:
+        return len(self.refs)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "message_type": self.message_type,
+            "batch_id": self.batch_id,
+            "crawl_id": self.crawl_id,
+            "refs": [r.to_dict() for r in self.refs],
+            "created_at": _opt_time(self.created_at),
+            "trace_id": self.trace_id,
+            "tenant": self.tenant,
+        }
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "AudioBatchMessage":
+        return cls(
+            message_type=d.get("message_type", MSG_AUDIO_BATCH),
+            batch_id=d.get("batch_id", "") or "",
+            crawl_id=d.get("crawl_id", "") or "",
+            refs=[AudioRef.from_dict(r) for r in (d.get("refs") or [])
+                  if isinstance(r, dict)],
+            created_at=codec.parse_time(d.get("created_at")),
+            trace_id=d.get("trace_id", "") or "",
+            tenant=normalize_tenant(d.get("tenant")),
+        )
+
+
+@dataclass
+class TranscriptMessage:
+    """One media file's transcript on ``TOPIC_TRANSCRIPTS``.  ``post_uid``
+    is ``media:<media_id>``, so a redelivery dedupes downstream; ``error``
+    is non-empty for a file that failed to decode."""
+
+    message_type: str = MSG_TRANSCRIPT
+    media_id: str = ""
+    post_uid: str = ""
+    path: str = ""
+    channel_name: str = ""
+    crawl_id: str = ""
+    batch_id: str = ""          # the AudioBatchMessage that carried it
+    worker_id: str = ""
+    text: str = ""
+    tokens: List[int] = field(default_factory=list)
+    windows: int = 0            # 30 s windows transcribed
+    duration_s: float = 0.0
+    error: str = ""
+    timestamp: Optional[datetime] = None
+    trace_id: str = ""
+    tenant: str = DEFAULT_TENANT
+
+    @classmethod
+    def new(cls, media_id: str, crawl_id: str = "", batch_id: str = "",
+            worker_id: str = "", trace_id: str = "",
+            tenant: str = DEFAULT_TENANT, **kw: Any) -> "TranscriptMessage":
+        return cls(media_id=media_id, post_uid=f"media:{media_id}",
+                   crawl_id=crawl_id, batch_id=batch_id,
+                   worker_id=worker_id, timestamp=codec.utcnow(),
+                   trace_id=trace_id or new_trace_id(),
+                   tenant=normalize_tenant(tenant), **kw)
+
+    def validate(self) -> None:
+        if self.message_type != MSG_TRANSCRIPT:
+            raise ValueError(
+                f"invalid transcript message type: {self.message_type}")
+        if not self.media_id:
+            raise ValueError("transcript media_id cannot be empty")
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "message_type": self.message_type,
+            "media_id": self.media_id,
+            "post_uid": self.post_uid,
+            "path": self.path,
+            "channel_name": self.channel_name,
+            "crawl_id": self.crawl_id,
+            "batch_id": self.batch_id,
+            "worker_id": self.worker_id,
+            "text": self.text,
+            "tokens": list(self.tokens),
+            "windows": self.windows,
+            "duration_s": self.duration_s,
+            "error": self.error,
+            "timestamp": _opt_time(self.timestamp),
+            "trace_id": self.trace_id,
+            "tenant": self.tenant,
+        }
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "TranscriptMessage":
+        return cls(
+            message_type=d.get("message_type", MSG_TRANSCRIPT),
+            media_id=d.get("media_id", "") or "",
+            post_uid=d.get("post_uid", "") or "",
+            path=d.get("path", "") or "",
+            channel_name=d.get("channel_name", "") or "",
+            crawl_id=d.get("crawl_id", "") or "",
+            batch_id=d.get("batch_id", "") or "",
+            worker_id=d.get("worker_id", "") or "",
+            text=d.get("text", "") or "",
+            tokens=[int(t) for t in (d.get("tokens") or [])],
+            windows=int(d.get("windows") or 0),
+            duration_s=float(d.get("duration_s") or 0.0),
+            error=d.get("error", "") or "",
+            timestamp=codec.parse_time(d.get("timestamp")),
+            trace_id=d.get("trace_id", "") or "",
+            tenant=normalize_tenant(d.get("tenant")),
+        )

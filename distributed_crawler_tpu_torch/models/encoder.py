@@ -111,10 +111,11 @@ TINY_TEST = EncoderConfig(vocab_size=1024, hidden=64, n_layers=2, n_heads=4,
 
 class Dense(nn.Linear):
     """flax ``nn.Dense`` twin: ``x @ W.T`` in the weight's dtype, then the
-    bias added in that dtype (not fused into the product)."""
+    bias (if any) added in that dtype (not fused into the product)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight) + self.bias
+        y = F.linear(x, self.weight)
+        return y if self.bias is None else y + self.bias
 
 
 class QuantDense(nn.Module):

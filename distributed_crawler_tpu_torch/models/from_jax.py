@@ -1,4 +1,6 @@
-"""Move the reference's flax param tree into and out of the port's modules.
+"""Move the reference's flax param trees into and out of the port's modules:
+the text `EmbedderClassifier` (`load_flax_params`, `flax_tree`) and
+`Whisper` (`load_whisper_params`, `whisper_flax_tree`).
 
 The tree is plain numpy (``jax.tree.map(np.asarray, params)`` on the
 reference side, or `models/hf_convert` / `models/quant` here), so this
@@ -6,9 +8,12 @@ module imports no JAX.  Every leaf is mapped by name; a missing leaf, an
 unknown leaf, a shape mismatch or a float leaf where int8 is expected
 raises — no leaf is ever skipped.  Flax kernels are ``[in, out]`` and are
 transposed into ``nn.Linear``'s ``[out, in]``; the fused ``qkv`` kernel
-``[h, 3, h]`` is reshaped to ``[h, 3h]`` (q/k/v major) first.  The int8
-layout (``quant="int8"``/``"int8_static"``) has ``kernel_q`` int8 in place
-of ``kernel``, plus ``scale``, an f32 ``bias`` and, static, ``a_scale``.
+``[h, 3, h]`` is reshaped to ``[h, 3h]`` (q/k/v major) first.  Flax conv
+kernels ``[k, in, out]`` become ``nn.Conv1d``'s ``[out, in, k]``.  Float
+leaves take the target's dtype (bf16 for Whisper's Dense and conv
+weights, as flax casts them at use).  The int8 layout
+(``quant="int8"``/``"int8_static"``) has ``kernel_q`` int8 in place of
+``kernel``, plus ``scale``, an f32 ``bias`` and, static, ``a_scale``.
 """
 
 from __future__ import annotations
@@ -20,19 +25,21 @@ import torch
 from torch import nn
 
 from .encoder import EmbedderClassifier, QuantDense
+from .whisper import MHA, MLP, Whisper
 
-# flax path -> (torch tensor, flax shape, transposed): a transposed leaf is
-# the flax array reshaped to [shape[0], -1] and transposed; any other leaf
-# is the flax array reshaped to the tensor's shape.
-_Leaf = Tuple[torch.Tensor, Tuple[int, ...], bool]
+# flax path -> (torch tensor, flax shape, kind): a "kernel" leaf is the
+# flax array reshaped to [shape[0], -1] and transposed; a "conv" leaf is
+# the flax array with its axes reversed; a "plain" leaf is the flax array
+# reshaped to the tensor's shape.
+_Leaf = Tuple[torch.Tensor, Tuple[int, ...], str]
 
 
 def _kernel(t: torch.Tensor, flax_shape: Tuple[int, ...]) -> _Leaf:
-    return (t, flax_shape, True)
+    return (t, flax_shape, "kernel")
 
 
 def _plain(t: torch.Tensor, flax_shape: Tuple[int, ...]) -> _Leaf:
-    return (t, flax_shape, False)
+    return (t, flax_shape, "plain")
 
 
 def _proj(prefix: str, module: nn.Module,
@@ -48,8 +55,10 @@ def _proj(prefix: str, module: nn.Module,
         if module.a_scale is not None:
             leaves[f"{prefix}a_scale"] = _plain(module.a_scale, ())
         return leaves
-    return {f"{prefix}kernel": _kernel(module.weight, flax_kernel_shape),
-            f"{prefix}bias": _plain(module.bias, flax_kernel_shape[1:])}
+    leaves = {f"{prefix}kernel": _kernel(module.weight, flax_kernel_shape)}
+    if module.bias is not None:
+        leaves[f"{prefix}bias"] = _plain(module.bias, flax_kernel_shape[1:])
+    return leaves
 
 
 def _dense(prefix: str, module: nn.Module) -> Dict[str, _Leaf]:
@@ -99,16 +108,13 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     return flat
 
 
-def load_flax_params(model: EmbedderClassifier,
-                     tree: Mapping[str, Any]) -> EmbedderClassifier:
-    """Copy a flax ``EmbedderClassifier`` param tree (numpy leaves, with or
-    without the top-level ``params`` key) into ``model``, in place.  Float
-    leaves are cast to each target's dtype; int8 targets take int8 leaves
-    only."""
+def _load(model: nn.Module, tree: Mapping[str, Any],
+          expected: Dict[str, _Leaf]) -> nn.Module:
+    """Copy the tree's leaves into ``expected``'s targets, all checked
+    before any is written."""
     if set(tree) == {"params"}:
         tree = tree["params"]
     given = _flatten(tree)
-    expected = flax_leaves(model)
     missing = sorted(set(expected) - set(given))
     unknown = sorted(set(given) - set(expected))
     if missing or unknown:
@@ -126,10 +132,12 @@ def load_flax_params(model: EmbedderClassifier,
                              f"{'int8' if want_int8 else 'a float'}")
         arrays[path] = arr
     with torch.no_grad():
-        for path, (target, _, transposed) in expected.items():
+        for path, (target, _, kind) in expected.items():
             arr = arrays[path]
-            if transposed:
+            if kind == "kernel":
                 arr = arr.reshape(arr.shape[0], -1).T
+            elif kind == "conv":
+                arr = arr.transpose(2, 1, 0)
             src = np.array(arr.reshape(target.shape), order="C",
                            dtype=np.int8 if arr.dtype == np.int8
                            else np.float32)  # a writable copy
@@ -137,22 +145,97 @@ def load_flax_params(model: EmbedderClassifier,
     return model
 
 
-def flax_tree(model: EmbedderClassifier) -> Dict[str, Any]:
-    """The model's weights as a flax ``{"params": ...}`` tree of numpy
-    arrays (f32, or int8 for ``kernel_q``): `load_flax_params`'s
-    inverse."""
+def _to_tree(expected: Dict[str, _Leaf]) -> Dict[str, Any]:
     out: Dict[str, Any] = {}
-    for path, (t, shape, transposed) in flax_leaves(model).items():
+    for path, (t, shape, kind) in expected.items():
         a = t.detach().cpu()
         a = a if a.dtype == torch.int8 else a.float()
-        if transposed:
+        if kind == "kernel":
             a = a.T
+        elif kind == "conv":
+            a = a.permute(2, 1, 0)
         *parents, leaf = _split(path)
         node = out
         for key in parents:
             node = node.setdefault(key, {})
         node[leaf] = a.reshape(shape).numpy().copy()
     return {"params": out}
+
+
+def load_flax_params(model: EmbedderClassifier,
+                     tree: Mapping[str, Any]) -> EmbedderClassifier:
+    """Copy a flax ``EmbedderClassifier`` param tree (numpy leaves, with or
+    without the top-level ``params`` key) into ``model``, in place.  Float
+    leaves are cast to each target's dtype; int8 targets take int8 leaves
+    only."""
+    return _load(model, tree, flax_leaves(model))
+
+
+def flax_tree(model: EmbedderClassifier) -> Dict[str, Any]:
+    """The model's weights as a flax ``{"params": ...}`` tree of numpy
+    arrays (f32, or int8 for ``kernel_q``): `load_flax_params`'s
+    inverse."""
+    return _to_tree(flax_leaves(model))
+
+
+def _mha(prefix: str, mha: MHA) -> Dict[str, _Leaf]:
+    leaves: Dict[str, _Leaf] = {}
+    for name in ("q", "k", "v", "attn_out"):
+        leaves.update(_dense(f"{prefix}/{name}", getattr(mha, name)))
+    return leaves
+
+
+def _mlp(prefix: str, mlp: MLP) -> Dict[str, _Leaf]:
+    return {**_dense(f"{prefix}/mlp_up", mlp.mlp_up),
+            **_dense(f"{prefix}/mlp_down", mlp.mlp_down)}
+
+
+def _conv(prefix: str, conv: nn.Conv1d) -> Dict[str, _Leaf]:
+    out_c, in_c, k = conv.weight.shape
+    return {f"{prefix}/kernel": (conv.weight, (k, in_c, out_c), "conv"),
+            f"{prefix}/bias": _plain(conv.bias, (out_c,))}
+
+
+def whisper_leaves(model: Whisper) -> Dict[str, _Leaf]:
+    """Every flax leaf path of the reference's ``Whisper``, with its
+    target."""
+    enc, dec = model.encoder, model.decoder
+    leaves: Dict[str, _Leaf] = {}
+    leaves.update(_conv("encoder/conv1", enc.conv1))
+    leaves.update(_conv("encoder/conv2", enc.conv2))
+    for i, layer in enumerate(enc.layers):
+        p = f"encoder/layers_{i}"
+        leaves.update(_mha(f"{p}/attn", layer.attn))
+        leaves.update(_mlp(f"{p}/mlp", layer.mlp))
+        leaves.update(_layer_norm(f"{p}/ln_attn", layer.ln_attn))
+        leaves.update(_layer_norm(f"{p}/ln_mlp", layer.ln_mlp))
+    leaves.update(_layer_norm("encoder/ln_post", enc.ln_post))
+    for name in ("embed_tokens", "embed_positions"):
+        t = getattr(dec, name)
+        leaves[f"decoder/{name}"] = _plain(t, tuple(t.shape))
+    for i, layer in enumerate(dec.layers):
+        p = f"decoder/layers_{i}"
+        leaves.update(_mha(f"{p}/attn", layer.attn))
+        leaves.update(_mha(f"{p}/cross_attn", layer.cross_attn))
+        leaves.update(_mlp(f"{p}/mlp", layer.mlp))
+        for ln in ("ln_attn", "ln_cross", "ln_mlp"):
+            leaves.update(_layer_norm(f"{p}/{ln}", getattr(layer, ln)))
+    leaves.update(_layer_norm("decoder/ln_post", dec.ln_post))
+    return leaves
+
+
+def load_whisper_params(model: Whisper, tree: Mapping[str, Any]) -> Whisper:
+    """Copy a flax ``Whisper`` param tree (numpy leaves, with or without
+    the top-level ``params`` key) into ``model``, in place: Dense and conv
+    weights in the model's activation dtype, LayerNorms and the decoder's
+    embedding tables in f32."""
+    return _load(model, tree, whisper_leaves(model))
+
+
+def whisper_flax_tree(model: Whisper) -> Dict[str, Any]:
+    """The model's weights as a flax ``{"params": ...}`` tree of f32 numpy
+    arrays: `load_whisper_params`'s inverse."""
+    return _to_tree(whisper_leaves(model))
 
 
 def _split(path: str):

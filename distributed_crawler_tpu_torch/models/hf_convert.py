@@ -1,9 +1,10 @@
-"""HuggingFace RoBERTa/XLM-R/E5 checkpoints -> the flax-layout param tree.
+"""HuggingFace RoBERTa/XLM-R/E5 and Whisper checkpoints -> the flax-layout
+param trees.
 
-The counterpart of the RoBERTa half of `distributed_crawler_tpu/models/
-hf_convert.py` (the Whisper half waits for ASR).  It produces the same tree
-of numpy arrays the reference produces, which `models/from_jax.
-load_flax_params` loads into the port's modules.  Local files only:
+The counterpart of `distributed_crawler_tpu/models/hf_convert.py`.  It
+produces the same trees of numpy arrays the reference produces, which
+`models/from_jax.load_flax_params` / `load_whisper_params` load into the
+port's modules.  Local files only:
 
 - ``model.safetensors``, read by :func:`read_safetensors` (a plain reader
   of the format: no ``safetensors`` package needed);
@@ -17,18 +18,26 @@ Layout notes (RoBERTa family; E5 is an XLM-R encoder):
   HF position table are dead for right-padded input -> slice them off;
 - token-type embeddings have one row for these models and every token adds
   row 0 once -> fold it into the position table.
+
+Whisper: ``k_proj`` has no bias; conv weights [out, in, k] become flax's
+[k, in, out]; the ``model.`` and ``proj_out.`` prefixes are stripped; the
+decoder's tables are f32 and the position table is cut to
+``max_target_positions``.  HF's stored ``encoder.embed_positions`` is not
+read: the encoder's positions are the fixed sinusoids.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import struct
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 
 from .encoder import EncoderConfig
+from .whisper import WhisperConfig
 
 _POS_OFFSET = 2  # RoBERTa: padding_idx (1) + 1
 
@@ -213,4 +222,86 @@ def load_hf_encoder(path: str, arch: str = "embedder_classifier",
                 f"checkpoint at {path} has no classification head; "
                 f"load with arch='embedder' or fine-tune a head")
         params = {"encoder": encoder, "cls_head": head}
+    return cfg, {"params": params}
+
+
+# -- Whisper -> models.whisper ------------------------------------------------
+def _whisper_attn(state: Mapping[str, np.ndarray],
+                  base: str) -> Dict[str, Any]:
+    """HF WhisperAttention: ``k_proj`` has no bias."""
+    return {
+        "q": _dense(state, f"{base}.q_proj"),
+        "k": {"kernel": np.ascontiguousarray(
+            state[f"{base}.k_proj.weight"].T)},
+        "v": _dense(state, f"{base}.v_proj"),
+        "attn_out": _dense(state, f"{base}.out_proj"),
+    }
+
+
+def whisper_config_from_hf(hf_cfg: Mapping[str, Any]) -> WhisperConfig:
+    """WhisperConfig matching an HF Whisper config.json."""
+    return WhisperConfig(
+        n_mels=int(hf_cfg["num_mel_bins"]),
+        n_vocab=int(hf_cfg["vocab_size"]),
+        n_audio_ctx=int(hf_cfg["max_source_positions"]),
+        n_audio_state=int(hf_cfg["d_model"]),
+        n_audio_head=int(hf_cfg["encoder_attention_heads"]),
+        n_audio_layer=int(hf_cfg["encoder_layers"]),
+        n_text_ctx=int(hf_cfg["max_target_positions"]),
+        n_text_state=int(hf_cfg["d_model"]),
+        n_text_head=int(hf_cfg["decoder_attention_heads"]),
+        n_text_layer=int(hf_cfg["decoder_layers"]),
+    )
+
+
+def _conv(state: Mapping[str, np.ndarray], key: str) -> Dict[str, np.ndarray]:
+    """torch Conv1d weight [out, in, k] -> flax Conv kernel [k, in, out]."""
+    return {"kernel": np.ascontiguousarray(
+                state[f"{key}.weight"].transpose(2, 1, 0)),
+            "bias": state[f"{key}.bias"]}
+
+
+def convert_whisper(state: Mapping[str, np.ndarray],
+                    cfg: WhisperConfig) -> Dict[str, Any]:
+    """HF WhisperModel/WhisperForConditionalGeneration state dict -> the
+    `Whisper` param tree (the value of ``params["params"]``)."""
+    s = {re.sub(r"^(model\.|proj_out\.)", "", k): v
+         for k, v in state.items()}
+
+    def block(base: str, cross: bool) -> Dict[str, Any]:
+        out = {
+            "attn": _whisper_attn(s, f"{base}.self_attn"),
+            "ln_attn": _ln(s, f"{base}.self_attn_layer_norm"),
+            "mlp": {"mlp_up": _dense(s, f"{base}.fc1"),
+                    "mlp_down": _dense(s, f"{base}.fc2")},
+            "ln_mlp": _ln(s, f"{base}.final_layer_norm"),
+        }
+        if cross:
+            out["cross_attn"] = _whisper_attn(s, f"{base}.encoder_attn")
+            out["ln_cross"] = _ln(s, f"{base}.encoder_attn_layer_norm")
+        return out
+
+    enc: Dict[str, Any] = {
+        "conv1": _conv(s, "encoder.conv1"),
+        "conv2": _conv(s, "encoder.conv2"),
+        "ln_post": _ln(s, "encoder.layer_norm"),
+    }
+    for i in range(cfg.n_audio_layer):
+        enc[f"layers_{i}"] = block(f"encoder.layers.{i}", cross=False)
+
+    dec: Dict[str, Any] = {
+        "embed_tokens": s["decoder.embed_tokens.weight"].astype(np.float32),
+        "embed_positions": s["decoder.embed_positions.weight"].astype(
+            np.float32)[:cfg.n_text_ctx],
+        "ln_post": _ln(s, "decoder.layer_norm"),
+    }
+    for i in range(cfg.n_text_layer):
+        dec[f"layers_{i}"] = block(f"decoder.layers.{i}", cross=True)
+    return {"encoder": enc, "decoder": dec}
+
+
+def load_hf_whisper(path: str):
+    """Load an HF Whisper checkpoint dir into (cfg, params)."""
+    cfg = whisper_config_from_hf(load_hf_config(path))
+    params = convert_whisper(load_state_dict(path), cfg)
     return cfg, {"params": params}

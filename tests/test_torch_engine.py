@@ -296,15 +296,25 @@ def _assert_mode_results_match(a, b):
 
 @pytest.fixture(scope="module")
 def checkpoints(tmp_path_factory):
+    import tests.test_hf_convert as hf_tests
     from tests.test_hf_convert import make_roberta_state, write_checkpoint
 
-    return {
-        "head": write_checkpoint(tmp_path_factory.mktemp("head"),
-                                 make_roberta_state(True, "roberta.")),
-        "encoder_only": write_checkpoint(
-            tmp_path_factory.mktemp("enc"), make_roberta_state(False),
-            fmt="bin"),
-    }
+    # The states draw from test_hf_convert's module RNG (seed 42, `:33`):
+    # start it where a fresh process has it, so the checkpoints do not
+    # depend on which test files ran before in this process.
+    saved = hf_tests.RNG.bit_generator.state
+    hf_tests.RNG.bit_generator.state = \
+        np.random.default_rng(42).bit_generator.state
+    try:
+        return {
+            "head": write_checkpoint(tmp_path_factory.mktemp("head"),
+                                     make_roberta_state(True, "roberta.")),
+            "encoder_only": write_checkpoint(
+                tmp_path_factory.mktemp("enc"), make_roberta_state(False),
+                fmt="bin"),
+        }
+    finally:
+        hf_tests.RNG.bit_generator.state = saved
 
 
 def _ref_probe(jcfg, je):

@@ -247,6 +247,22 @@ class TestSm90OnCard:
                                        attend(q, k, v, **kw).float(),
                                        atol=2e-2, rtol=2e-2)
 
+    @pytest.mark.parametrize("b", [1, 2, 4, 8])
+    def test_whisper_encoder_shape(self, cuda, b):
+        """The Whisper-small audio encoder's self-attention: 1500 tokens (not
+        a multiple of the 64-key tile), 12 heads of 64, no mask, q/k/v each
+        its own contiguous projection."""
+        gen = torch.Generator().manual_seed(b)
+        q, k, v = (torch.randn((b, 1500, 12, 64), generator=gen).to(
+            device=cuda, dtype=torch.bfloat16) for _ in range(3))
+        assert attention.choose_path(q, k, v) == "sm90"
+        before = flash_attention.launches_by_path["sm90"]
+        out = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert flash_attention.launches_by_path["sm90"] == before + 1
+        torch.testing.assert_close(out.float(), attend(q, k, v).float(),
+                                   atol=2e-2, rtol=2e-2)
+
     @pytest.mark.parametrize("segments", [False, True])
     def test_skipped_tiles_change_nothing(self, cuda, segments):
         """Overwrite the K/V of every key that no block loads (per
