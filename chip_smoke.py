@@ -56,6 +56,25 @@ JSON line each:
    cross-K/V, decode in all and per step, achieved TFLOP/s), the sm90
    kernel at [B, 1500, 12, 64] beside its plain version, SDPA and its
    bound, and windows/s and audio-seconds per second through the worker.
+8. slice.cluster — E5-large at full width (vocab 250037, hidden 1024, 24
+   layers, 16 heads of 64, batch 256, bf16, random weights from
+   ``--seed``) through `TPUWorker` (packed, coalescing 4, embeddings
+   published), the in-memory bus and `ClusterWorker` at the CLI's streaming
+   defaults (k 16, buckets 64/256, a checkpoint every 8 batches, coalescing
+   4): 2048 synthetic posts in 8 RecordBatches.  Checks: one assignment row
+   per post with 0 <= cluster < 16; 24 sm90 launches per dispatch; a valid
+   ClusterUpdateMessage on ``TOPIC_CLUSTERS``; the served stream replayed
+   through a CPU engine loaded from the card engine's state after its first
+   step (assignments equal off near-ties, centroids within 1e-4); a stop,
+   then a new worker on the same store resumes at the same step, and a
+   republished batch is rewritten without being folded again; 32 posts in
+   f32 on the CPU against the served bf16 embeddings (minimum cosine
+   >= 0.99, labels equal off near-ties); one `fit` step at 65,536 x 1024 x
+   k 8 on the card against the CPU.  Times: the cluster step per bucket
+   (device by CUDA-graph replay, and the host's share: JSON encode and
+   decode, `_extract`, dispatch), `fit` at 1,048,576 x 1024 x k 8 x 25
+   iterations, the E5-large forward per bucket, the sm90 kernel at
+   E5-large's shape, and posts/s through both workers.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``.  Any failed phase raises and exits
@@ -961,7 +980,8 @@ def phase_xlmr(torch, np, attention, device, gen, seed, smi):
     time_int8_parts(torch, engine, smi)
     del engine, bf16, static
     torch.cuda.empty_cache()
-    rows = xlmr_kernel_times(torch, attention, device, gen, smi)
+    rows = model_kernel_times(torch, attention, device, gen, smi,
+                              "xlmr_base", XLMR_HEADS, XLMR_HEAD_DIM)
     emit("times.kernel.sum", name="flash_attention", model="xlmr_base",
          at="batch 256, 12 heads of 64, bf16, serving padding: one call at "
             "each of buckets 32-512, summed",
@@ -975,27 +995,29 @@ def phase_xlmr(torch, np, attention, device, gen, seed, smi):
             "dispatches": served["dispatches"], "kernel_rows": rows}
 
 
-def xlmr_kernel_times(torch, attention, device, gen, smi):
-    """The sm90 kernel at XLM-R-base's shape (batch 256, 12 heads of 64,
-    bf16, serving padding) per bucket, beside its bound, the plain version
-    and SDPA."""
+def model_kernel_times(torch, attention, device, gen, smi, model, heads,
+                       head_dim):
+    """The sm90 kernel at a model's shape (batch 256, ``heads`` heads of
+    ``head_dim``, bf16, serving padding) per bucket, beside its bound, the
+    plain version and SDPA."""
     import torch.nn.functional as F
 
     rows = []
     for l in MAIN_BUCKETS:
-        q, k, v = _qkv(torch, BATCH, l, XLMR_HEADS, XLMR_HEAD_DIM,
-                       torch.bfloat16, gen, device)
+        q, k, v = _qkv(torch, BATCH, l, heads, head_dim, torch.bfloat16, gen,
+                       device)
         check(attention.choose_path(q, k, v) == "sm90",
-              f"XLM-R shape L={l} goes to {attention.choose_path(q, k, v)}")
+              f"{model} shape L={l} goes to "
+              f"{attention.choose_path(q, k, v)}")
         lo = l // 2 + 1 if l > 32 else 1
         mask = _padded_mask(torch, BATCH, l, gen, device, min_len=lo)
         times, errs, pairs = _time_bucket(torch, F, attention, q, k, v, mask,
-                                          None, f"xlmr padded L={l}")
-        parts = attention_bound_ms(pairs, BATCH, l, XLMR_HEADS,
-                                   XLMR_HEAD_DIM, "bfloat16", 2, False)
-        row = {"model": "xlmr_base", "bucket": l, "shape": "padded",
-               "batch": BATCH, "heads": XLMR_HEADS,
-               "head_dim": XLMR_HEAD_DIM, "dtype": "bfloat16",
+                                          None, f"{model} padded L={l}")
+        parts = attention_bound_ms(pairs, BATCH, l, heads, head_dim,
+                                   "bfloat16", 2, False)
+        row = {"model": model, "bucket": l, "shape": "padded",
+               "batch": BATCH, "heads": heads, "head_dim": head_dim,
+               "dtype": "bfloat16",
                "max_abs_err": errs, "ms": times["sm90"],
                "mma_sync_ms": times["mma_sync"], "eager_ms": times["eager"],
                "plain_ms": times["plain"], "library_ms": times["sdpa"],
@@ -1126,8 +1148,10 @@ def write_audio_traffic(np, root, seed):
 
 
 class DictProvider:
-    """``put_text`` / ``get_text`` / ``list_dir`` over a dict: the
-    writeback target of the ASR slice."""
+    """``put_text`` / ``get_text`` / ``list_dir`` / ``save_json`` /
+    ``load_json`` over a dict: the writeback and checkpoint target of the
+    ASR and cluster slices (JSON goes through a text round trip, as it
+    would through a file)."""
 
     def __init__(self):
         self.files = {}
@@ -1137,6 +1161,13 @@ class DictProvider:
 
     def get_text(self, rel):
         return self.files.get(rel)
+
+    def save_json(self, rel, data):
+        self.files[rel] = json.dumps(data)
+
+    def load_json(self, rel):
+        text = self.files.get(rel)
+        return json.loads(text) if text is not None else None
 
     def list_dir(self, rel):
         prefix = rel.rstrip("/") + "/"
@@ -1585,6 +1616,628 @@ def phase_asr(torch, np, attention, device, seed, smi):
             "kernel_rows": kernel_rows}
 
 
+# -- phase 8: E5-large embeddings clustered on the card ---------------------
+# E5-large's attention shape: 16 heads of 64.
+E5L_HEADS, E5L_HEAD_DIM = 16, 64
+# The ClusterWorker at the CLI's streaming defaults (`mode=cluster-worker`):
+# k 16, row buckets 64/256, a checkpoint every 8 batches, coalescing 4.
+CLUSTER_K, CLUSTER_BUCKETS, CLUSTER_CKPT_EVERY = 16, (64, 256), 8
+# `mode=cluster`'s batch fit (k 8, 25 iterations) over the north star's
+# 1M posts; the card-against-CPU step check at 65,536 rows.
+FIT_K, FIT_ITERS, FIT_N, FIT_CHECK_N, FIT_DIM = 8, 25, 1 << 20, 65536, 1024
+# Bounds, set before the first run on the card (PERF.md, PR 5).  E5-large
+# bf16 on the card against f32 on the CPU from the same weights: the
+# embeddings' minimum cosine, and labels equal where the CPU's top-2 score
+# gap exceeds the margin.  The k-means step on the card against the CPU:
+# assignments equal where the top-2 score gap exceeds the tie margin (the
+# ties are counted), centroids within 1e-4, one-hot sums within 1e-5 of
+# their largest entry.
+E5L_MIN_COSINE, E5L_LABEL_MARGIN = 0.99, 0.05
+CLUSTER_TIE_MARGIN, CLUSTER_CENTROID_TOL, CLUSTER_SUM_RTOL = 1e-4, 1e-4, 1e-5
+
+
+def _top2_gap(np, scores):
+    s = np.sort(scores, axis=1)
+    return s[:, 1] - s[:, 0]
+
+
+def _unit_rows(np, x):
+    return (x / np.maximum(np.linalg.norm(x, axis=1, keepdims=True),
+                           1e-12)).astype(np.float32)
+
+
+def unit_mixture(np, rng, centers, n):
+    """``n`` unit vectors around seeded unit ``centers`` (noise of norm
+    about 0.75 before renormalising: cosine about 0.8 to the centre)."""
+    d = centers.shape[1]
+    ids = rng.integers(0, len(centers), size=n)
+    noise = rng.standard_normal((n, d), dtype=np.float32)
+    return _unit_rows(np, centers[ids] + noise * np.float32(0.75 / d ** 0.5))
+
+
+def recording_cluster_engine(cfg, registry):
+    """A `ClusterEngine` that keeps each observe's input and assignments and
+    its state after the first one (the seeds plus one step), for the CPU
+    replay."""
+    from distributed_crawler_tpu_torch.cluster import ClusterEngine
+
+    class Recording(ClusterEngine):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.calls = []
+            self.first_state = None
+
+        def observe(self, vectors):
+            out = super().observe(vectors)
+            self.calls.append((vectors, out))
+            if self.first_state is None:
+                self.first_state = self.state_dict()
+            return out
+
+    return Recording(cfg, registry=registry)
+
+
+def serve_and_cluster(np, engine, batches, provider):
+    """The cluster main path: RecordBatches published on the in-memory bus,
+    embedded by `TPUWorker` (packed, coalescing 4, embeddings published),
+    their result frames folded by `ClusterWorker` at the CLI's streaming
+    defaults.  The kernel counts are set to 0 just before and read just
+    after.  The cluster worker is left running for the resume check."""
+    from distributed_crawler_tpu_torch.bus import (
+        TOPIC_CLUSTERS,
+        TOPIC_INFERENCE_BATCHES,
+        TOPIC_INFERENCE_RESULTS,
+        InMemoryBus,
+    )
+    from distributed_crawler_tpu_torch.cluster import (
+        ClusterEngineConfig,
+        ClusterWorker,
+        ClusterWorkerConfig,
+    )
+    from distributed_crawler_tpu_torch.inference.worker import (
+        TPUWorker,
+        TPUWorkerConfig,
+    )
+    from distributed_crawler_tpu_torch.ops import attention
+    from distributed_crawler_tpu_torch.utils import trace
+    from distributed_crawler_tpu_torch.utils.metrics import MetricsRegistry
+
+    bus = InMemoryBus(sync=False)
+    results, updates = [], []
+    bus.subscribe(TOPIC_INFERENCE_RESULTS, results.append)
+    bus.subscribe(TOPIC_CLUSTERS, updates.append)
+    tpu = TPUWorker(bus, engine, cfg=TPUWorkerConfig(
+        worker_id="chip-smoke-e5l", pack=True, coalesce_batches=4,
+        publish_embeddings=True), registry=MetricsRegistry())
+    ccfg = ClusterWorkerConfig(worker_id="chip-smoke-cluster", k=CLUSTER_K,
+                               buckets=CLUSTER_BUCKETS,
+                               checkpoint_every_batches=CLUSTER_CKPT_EVERY,
+                               coalesce_batches=4)
+    cengine = recording_cluster_engine(
+        ClusterEngineConfig(k=ccfg.k, buckets=ccfg.buckets, seed=ccfg.seed),
+        MetricsRegistry())
+    check(cengine.device.type == "cuda", f"cluster engine on "
+                                         f"{cengine.device}")
+    cw = ClusterWorker(bus, engine=cengine, provider=provider, cfg=ccfg,
+                       registry=MetricsRegistry())
+    check(not cw.resumed, "a fresh provider resumed a checkpoint")
+    trace.TRACER.reset()
+    cw.start()
+    tpu.start()
+    bus.start()
+    attention.flash_attention.launches = 0
+    by_path = attention.flash_attention.launches_by_path
+    for p in by_path:
+        by_path[p] = 0
+    dispatches0 = engine.m_latency.count
+    t_start = time.perf_counter()
+    try:
+        for b in batches:
+            bus.publish(TOPIC_INFERENCE_BATCHES, b.to_dict())
+        deadline = time.monotonic() + 600
+        while time.monotonic() < deadline:
+            st = cw.get_status()
+            if st["processed_batches"] + st["error_batches"] >= len(batches):
+                break
+            time.sleep(0.005)
+        t_end = time.perf_counter()
+        check(tpu.drain(timeout_s=60.0), "tpu worker did not drain")
+        check(cw.drain(timeout_s=60.0), "cluster worker did not drain")
+    finally:
+        tpu.stop()
+        bus.close()
+    launches = attention.flash_attention.launches
+    launches_by_path = dict(by_path)
+    dispatches = engine.m_latency.count - dispatches0
+    n_layers = engine.ecfg.n_layers
+    check(dispatches > 0, "no device dispatch on the cluster path")
+    check(launches == n_layers * dispatches,
+          f"{launches} kernel launches for {dispatches} dispatches "
+          f"(expected {n_layers} per dispatch)")
+    check(launches_by_path == {"sm90": launches, "mma_sync": 0, "simt": 0},
+          f"launches by path {launches_by_path}: every one should be sm90")
+    status = cw.get_status()
+    check(status["processed_batches"] == len(batches)
+          and status["error_batches"] == 0 and status["skipped_batches"] == 0,
+          f"cluster worker status {status}")
+    groups, process_ms = [], []
+    for s in trace.TRACER.spans():
+        if s.name == "cluster_worker.process":
+            groups.append(list(s.attrs.get("batch_ids")
+                               or [s.attrs.get("batch")]))
+            process_ms.append(s.duration_s * 1e3)
+    return {"results": results, "updates": updates, "worker": cw,
+            "engine": cengine, "launches": launches_by_path,
+            "dispatches": dispatches, "seconds": t_end - t_start,
+            "groups": groups, "process_ms": process_ms,
+            "device": cengine.timeline.snapshot()}
+
+
+def check_assignment_rows(provider, batches, crawl_id):
+    """Every post has exactly one assignment row, with 0 <= cluster < k."""
+    from distributed_crawler_tpu_torch.cluster import iter_assignments
+
+    rows = list(iter_assignments(provider, crawl_id))
+    uids = [r["post_uid"] for r in rows]
+    want = [r["post_uid"] for b in batches for r in b.records]
+    check(len(uids) == len(set(uids)) == len(want)
+          and set(uids) == set(want),
+          f"{len(uids)} assignment rows ({len(set(uids))} posts) for "
+          f"{len(want)} posts")
+    check(all(0 <= int(r["cluster"]) < CLUSTER_K for r in rows),
+          "cluster id out of range")
+    sizes = [0] * CLUSTER_K
+    for r in rows:
+        sizes[int(r["cluster"])] += 1
+    return sizes
+
+
+def check_updates(updates):
+    """At least one valid ClusterUpdateMessage on TOPIC_CLUSTERS."""
+    from distributed_crawler_tpu_torch.bus import ClusterUpdateMessage
+
+    check(len(updates) >= 1, "no ClusterUpdateMessage on TOPIC_CLUSTERS")
+    for u in updates:
+        msg = ClusterUpdateMessage.from_dict(u)
+        msg.validate()
+        check(msg.k == CLUSTER_K and sum(msg.sizes) == msg.vectors,
+              f"cluster update k={msg.k} sizes sum {sum(msg.sizes)} for "
+              f"{msg.vectors} vectors")
+    return ClusterUpdateMessage.from_dict(updates[-1]).to_dict()
+
+
+def replay_on_cpu(np, card_engine):
+    """The served stream through a CPU engine loaded from the card
+    engine's state after its first observe, chunk by chunk as the engine
+    steps: assignments equal where the top-2 score gap exceeds the tie
+    margin, centroids within the tolerance after every chunk."""
+    from distributed_crawler_tpu_torch.cluster import (
+        ClusterEngine,
+        ClusterEngineConfig,
+    )
+    from distributed_crawler_tpu_torch.utils.metrics import MetricsRegistry
+
+    cfg = card_engine.cfg
+    cpu = ClusterEngine(ClusterEngineConfig(k=cfg.k, buckets=cfg.buckets,
+                                            spherical=cfg.spherical),
+                        registry=MetricsRegistry(), device="cpu")
+    cpu.load_state(card_engine.first_state)
+    cap = max(cfg.buckets)
+    compared = ties = differ = 0
+    worst = 0.0
+    for vectors, card_out in card_engine.calls[1:]:
+        x = np.asarray(vectors, np.float32)
+        for off in range(0, len(x), cap):
+            chunk = x[off:off + cap]
+            c = cpu.centroids.numpy()
+            xn = _unit_rows(np, chunk)
+            decided = _top2_gap(
+                np, -2.0 * xn @ c.T + np.sum(c * c, axis=1)[None, :]) \
+                > CLUSTER_TIE_MARGIN
+            got = np.asarray(cpu.observe(chunk))
+            want = np.asarray(card_out[off:off + cap])
+            compared += int(decided.sum())
+            ties += int((~decided).sum())
+            differ += int((got[decided] != want[decided]).sum())
+    worst = float(np.abs(cpu.centroids.numpy()
+                         - card_engine.centroids.cpu().numpy()).max())
+    counts_equal = bool(np.array_equal(cpu.counts.numpy(),
+                                       card_engine.counts.cpu().numpy()))
+    check(differ == 0, f"{differ} of {compared} decided assignments differ "
+                       f"between the card and the CPU replay")
+    check(worst <= CLUSTER_CENTROID_TOL,
+          f"card vs CPU centroids {worst} > {CLUSTER_CENTROID_TOL}")
+    check(cpu.step == card_engine.step
+          and cpu.vectors == card_engine.vectors,
+          f"replay at step {cpu.step} ({cpu.vectors} vectors), the card at "
+          f"{card_engine.step} ({card_engine.vectors})")
+    return {"observes": len(card_engine.calls), "replayed_chunks":
+            cpu.step - card_engine.first_state["step"],
+            "assignments_compared": compared, "near_ties": ties,
+            "tie_margin": CLUSTER_TIE_MARGIN, "differ": differ,
+            "centroids_max_abs_err": worst, "tol": CLUSTER_CENTROID_TOL,
+            "counts_equal": counts_equal}
+
+
+def check_resume(torch, cw, provider, frame):
+    """Stop the worker (a final checkpoint); a new worker on the same
+    provider resumes at the same step; a republished served batch is
+    reassigned and rewritten but not folded again."""
+    from distributed_crawler_tpu_torch.bus import (
+        TOPIC_INFERENCE_RESULTS,
+        InMemoryBus,
+        RecordBatch,
+    )
+    from distributed_crawler_tpu_torch.cluster import ClusterWorker
+    from distributed_crawler_tpu_torch.utils.metrics import MetricsRegistry
+
+    cw.stop()
+    step, vectors = cw.engine.step, cw.engine.vectors
+    centroids = cw.engine.centroids.cpu()
+    bus = InMemoryBus(sync=True)
+    cw2 = ClusterWorker(bus, provider=provider, cfg=cw.cfg,
+                        registry=MetricsRegistry())
+    check(cw2.resumed and cw2.engine.step == step
+          and cw2.engine.vectors == vectors,
+          f"resumed at step {cw2.engine.step} ({cw2.engine.vectors} "
+          f"vectors), stopped at {step} ({vectors})")
+    check(torch.equal(cw2.engine.centroids.cpu(), centroids),
+          "resumed centroids differ from the stopped worker's")
+    check(frame["batch_id"] in cw2._folded, "folded window not resumed")
+    rel = (f"{cw.cfg.storage_prefix}/{frame['crawl_id']}/batches/"
+           f"{frame['batch_id']}.jsonl")
+    old = provider.files.pop(rel)
+    cw2.start()
+    try:
+        bus.publish(TOPIC_INFERENCE_RESULTS, frame)
+        check(cw2.drain(timeout_s=60.0), "resumed worker did not drain")
+    finally:
+        cw2.stop()
+    new = provider.get_text(rel)
+    check(new is not None, "republished batch not rewritten")
+    rows = [json.loads(ln) for ln in new.splitlines()]
+    vecs, _ = ClusterWorker._extract(RecordBatch.from_dict(frame))
+    check([r["cluster"] for r in rows] == cw2.engine.assign_only(vecs),
+          "rewritten rows are not the current centroids' assignments")
+    check(cw2.engine.step == step and cw2.engine.vectors == vectors,
+          f"republished batch folded again: step {step} -> "
+          f"{cw2.engine.step}")
+    old_rows = [json.loads(ln) for ln in old.splitlines()]
+    moved = sum(a["cluster"] != b["cluster"] for a, b in zip(old_rows, rows))
+    return {"resumed_step": step, "vectors": vectors, "rows_rewritten":
+            len(rows), "rows_moved_since_fold": moved,
+            "step_after_republish": cw2.engine.step}
+
+
+def check_e5_large_vs_cpu(torch, np, engine, texts, emb, scores, rng):
+    """32 posts through E5-large in f32 on the CPU from the card's weights,
+    bucketed as the engine buckets them, against the served bf16 results:
+    the embeddings' minimum cosine, and the labels off near-ties."""
+    from distributed_crawler_tpu_torch.models.encoder import (
+        EmbedderClassifier,
+    )
+    from distributed_crawler_tpu_torch.ops.padding import (
+        group_by_bucket,
+        pack_batch,
+    )
+
+    pick = sorted(int(i) for i in rng.choice(len(texts), size=32,
+                                             replace=False))
+    toks = engine.tokenizer.encode_batch([texts[i] for i in pick])
+    t0 = time.perf_counter()
+    cpu_model = EmbedderClassifier(replace(engine.ecfg, dtype="float32"))
+    cpu_model.load_state_dict({k: v.float().cpu() for k, v in
+                               engine.model.state_dict().items()})
+    cpu_model.eval()
+    c_emb = np.zeros((len(pick), engine.ecfg.hidden))
+    c_scores = np.zeros((len(pick), engine.ecfg.n_labels))
+    with torch.inference_mode():
+        for _, idx in sorted(group_by_bucket(toks,
+                                             engine.bucket_spec).items()):
+            ids, mask = pack_batch([toks[i] for i in idx],
+                                   engine.bucket_spec)
+            e, logits = cpu_model(torch.from_numpy(ids),
+                                  torch.from_numpy(mask))
+            c_emb[idx] = e.double().numpy()
+            c_scores[idx] = torch.softmax(logits.double(), dim=-1).numpy()
+    cpu_s = time.perf_counter() - t0
+    del cpu_model
+    cos = _min_cosine(np, c_emb, emb[pick])
+    clear = _top2_gap(np, -c_scores) > E5L_LABEL_MARGIN
+    labels_differ = int((c_scores.argmax(axis=1)[clear]
+                         != scores[pick].argmax(axis=1)[clear]).sum())
+    check(cos >= E5L_MIN_COSINE,
+          f"E5-large card bf16 vs CPU f32: min cosine {cos} < "
+          f"{E5L_MIN_COSINE}")
+    check(labels_differ == 0, f"{labels_differ} labels differ off near-ties")
+    return {"posts": len(pick), "buckets": sorted(
+        group_by_bucket(toks, engine.bucket_spec)), "min_cosine": cos,
+        "bound": E5L_MIN_COSINE, "emb_max_abs_err": float(
+            np.abs(c_emb - emb[pick]).max()),
+        "scores_max_abs_err": float(np.abs(c_scores - scores[pick]).max()),
+        "labels_compared": int(clear.sum()), "label_margin": E5L_LABEL_MARGIN,
+        "labels_differ": labels_differ, "cpu_seconds": cpu_s}
+
+
+def check_fit_step(torch, np, device, seed):
+    """One `fit` step (assign + update) on the card against the CPU at
+    N 65,536, D 1024, k 8, from the same centroids: assignments equal off
+    near-ties, the update (on the card's assignments) within its
+    tolerance; and the step's time on the card beside its bound."""
+    from distributed_crawler_tpu_torch.models import clustering
+    from distributed_crawler_tpu_torch.utils import cudatime
+
+    rng = np.random.default_rng(seed + 8)
+    centers = _unit_rows(np, rng.standard_normal((32, FIT_DIM)))
+    x = unit_mixture(np, rng, centers, FIT_CHECK_N)
+    c = x[:FIT_K].copy()
+    xd, cd = torch.from_numpy(x).to(device), torch.from_numpy(c).to(device)
+    a_card = clustering.assign(xd, cd)
+    sums_card, counts_card = clustering.update(xd, a_card, FIT_K)
+    a_card = a_card.cpu()
+    xc, cc = torch.from_numpy(x), torch.from_numpy(c)
+    decided = _top2_gap(np, clustering._pairwise_neg_scores(xc, cc).numpy()) \
+        > CLUSTER_TIE_MARGIN
+    a_cpu = clustering.assign(xc, cc).numpy()
+    differ = int((a_card.numpy()[decided] != a_cpu[decided]).sum())
+    sums_cpu, counts_cpu = clustering.update(xc, a_card, FIT_K)
+    sum_err = float((sums_card.cpu() - sums_cpu).abs().max()
+                    / sums_cpu.abs().max())
+    check(differ == 0, f"fit step: {differ} decided assignments differ")
+    check(torch.equal(counts_card.cpu(), counts_cpu), "fit step counts")
+    check(sum_err <= CLUSTER_SUM_RTOL,
+          f"fit step sums: {sum_err} > {CLUSTER_SUM_RTOL} of the largest")
+    ms = cudatime.event_time_ms(lambda: clustering.update(
+        xd, clustering.assign(xd, cd), FIT_K))
+    return {"n": FIT_CHECK_N, "dim": FIT_DIM, "k": FIT_K,
+            "assignments_compared": int(decided.sum()),
+            "near_ties": int((~decided).sum()), "differ": differ,
+            "sums_rel_err": sum_err, "tol": CLUSTER_SUM_RTOL, "step_ms": ms,
+            "step_bytes_bound_ms": FIT_CHECK_N * FIT_DIM * 4
+            / H100_BYTES_PER_S * 1e3}
+
+
+def time_fit(torch, np, device, seed, smi):
+    """`fit` at N 1,048,576 x D 1024 x k 8 x 25 iterations on the card
+    (synthetic unit vectors from a seeded numpy mixture, 4.3 GB of f32):
+    the whole fit by the host clock (the first call and a second one), the
+    Lloyd iterations by CUDA events, beside the bytes bound of one
+    iteration."""
+    from distributed_crawler_tpu_torch.models import clustering
+
+    rng = np.random.default_rng(seed + 9)
+    t0 = time.perf_counter()
+    centers = torch.from_numpy(_unit_rows(
+        np, rng.standard_normal((32, FIT_DIM)))).to(device)
+    ids = torch.from_numpy(rng.integers(0, 32, size=FIT_N)).to(device)
+    # The noise as seeded numpy bytes (uniform int8, standard deviation
+    # about 73.9), scaled on the card to the same norm as `unit_mixture`'s:
+    # numpy's normal draws would take about 25 s for 1G values.
+    noise = torch.frombuffer(bytearray(rng.bytes(FIT_N * FIT_DIM)),
+                             dtype=torch.int8).to(device)
+    x = centers[ids] + noise.view(FIT_N, FIT_DIM).float() \
+        * (0.75 / (73.9 * FIT_DIM ** 0.5))
+    del noise, ids
+    x = clustering.l2_normalize(x)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(device)
+    fit_s = []
+    for _ in range(2):  # the first call, then again
+        t0 = time.perf_counter()
+        res = clustering.fit(x, FIT_K, iters=FIT_ITERS,
+                             generator=torch.Generator().manual_seed(seed))
+        torch.cuda.synchronize()
+        fit_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(device)
+    t0 = time.perf_counter()
+    seeds = clustering.kmeans_plus_plus_init(
+        x, FIT_K, torch.Generator().manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    lloyd_ms = {}
+    for iters in (0, FIT_ITERS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = clustering._lloyd(x, seeds, FIT_K, iters)
+        end.record()
+        end.synchronize()
+        lloyd_ms[iters] = start.elapsed_time(end)
+        if iters == 0:
+            inertia0 = out.inertia.item()
+    counts = torch.bincount(res.assignments.long(), minlength=FIT_K)
+    check(bool(torch.isfinite(res.centroids).all().item()),
+          "fit centroids not finite")
+    check(res.centroids.shape == (FIT_K, FIT_DIM)
+          and int(counts.sum().item()) == FIT_N
+          and counts.numel() == FIT_K, "fit assignments out of range")
+    rerun_err = (out.centroids - res.centroids).abs().max().item()
+    check(rerun_err <= 1e-5,
+          f"fit is not its seeds plus the Lloyd iterations: {rerun_err}")
+    inertia = res.inertia.item()
+    check(inertia <= inertia0 * (1 + 1e-5),
+          f"fit inertia {inertia} above its seeds' {inertia0}")
+    per_iter = (lloyd_ms[FIT_ITERS] - lloyd_ms[0]) / FIT_ITERS
+    read_ms = FIT_N * FIT_DIM * 4 / H100_BYTES_PER_S * 1e3
+    row = {"n": FIT_N, "dim": FIT_DIM, "k": FIT_K, "iters": FIT_ITERS,
+           "data_setup_s": data_s, "fit_first_s": fit_s[0],
+           "fit_s": fit_s[1], "init_s": init_s,
+           "lloyd_ms": lloyd_ms[FIT_ITERS], "final_assign_ms": lloyd_ms[0],
+           "iter_ms": per_iter,
+           "iter_bound_ms_one_read": read_ms,
+           "iter_bound_ms_two_reads": 2 * read_ms,
+           "iter_operations_bound_ms": 4.0 * FIT_N * FIT_DIM * FIT_K
+           / H100_PEAK_FLOPS["float32"] * 1e3,
+           "inertia": inertia, "inertia_at_seeds": inertia0,
+           "rerun_centroids_max_abs_err": rerun_err,
+           "sizes": counts.tolist(), "peak_gb": peak / 1e9, "card": smi}
+    emit("times.fit", **row)
+    del x, res, out, seeds
+    torch.cuda.empty_cache()
+    return row
+
+
+def time_cluster_step(torch, np, state, frame, smi):
+    """The cluster step per bucket (64, 256), for the rows of one served
+    result frame: the host's share (the bus's JSON encode and decode,
+    `RecordBatch.from_dict`, `_extract`, the float matrix, then
+    `_dispatch_chunk`: pad, copy in, step, read back) against the step's
+    device time (`cluster_step` replayed in a CUDA graph, and issued from
+    Python)."""
+    from distributed_crawler_tpu_torch.bus import RecordBatch
+    from distributed_crawler_tpu_torch.bus.inmemory import serialize_payload
+    from distributed_crawler_tpu_torch.cluster import (
+        ClusterEngine,
+        ClusterEngineConfig,
+        ClusterWorker,
+        cluster_step,
+    )
+    from distributed_crawler_tpu_torch.utils import cudatime
+    from distributed_crawler_tpu_torch.utils.costmodel import (
+        kmeans_step_flops,
+    )
+    from distributed_crawler_tpu_torch.utils.metrics import MetricsRegistry
+
+    def host_ms(fn, reps=5):
+        out, times = None, []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out, sorted(times)[len(times) // 2]
+
+    eng = ClusterEngine(ClusterEngineConfig(k=CLUSTER_K,
+                                            buckets=CLUSTER_BUCKETS),
+                        registry=MetricsRegistry())
+    eng.load_state(state)
+    k, d = eng.cfg.k, eng.dim
+    rows = []
+    for bucket in CLUSTER_BUCKETS:
+        sub = dict(frame, records=frame["records"][:bucket],
+                   results=frame["results"][:bucket])
+        raw, encode_ms = host_ms(lambda: serialize_payload(sub))
+        payload, decode_ms = host_ms(lambda: json.loads(raw.decode("utf-8")))
+        batch, from_dict_ms = host_ms(lambda: RecordBatch.from_dict(payload))
+        (vecs, _), extract_ms = host_ms(lambda: ClusterWorker._extract(batch))
+        x, matrix_ms = host_ms(lambda: np.asarray(vecs, dtype=np.float32))
+        _, dispatch_ms = host_ms(lambda: eng._dispatch_chunk(
+            eng.centroids, eng.counts, x), reps=20)
+        xd = torch.from_numpy(x).to(eng.device)
+        md = torch.ones((bucket,), dtype=torch.float32, device=eng.device)
+        fn = lambda: cluster_step(eng.centroids, eng.counts, xd, md, k,  # noqa: E731
+                                  True)
+        device_ms = cudatime.graph_time_ms(fn)
+        eager_ms = cudatime.event_time_ms(fn)
+        io_bytes = 4 * (bucket * d + bucket + 2 * k * d + 2 * k + bucket + 1)
+        parts = {"bytes": io_bytes / H100_BYTES_PER_S * 1e3,
+                 "operations": kmeans_step_flops(k, d, bucket)
+                 / H100_PEAK_FLOPS["float32"] * 1e3}
+        row = {"bucket": bucket, "dim": d, "k": k,
+               "frame_bytes": len(raw), "json_encode_ms": encode_ms,
+               "json_decode_ms": decode_ms, "from_dict_ms": from_dict_ms,
+               "extract_ms": extract_ms, "matrix_ms": matrix_ms,
+               "dispatch_ms": dispatch_ms, "device_ms": device_ms,
+               "eager_ms": eager_ms, "bound_ms": bound_of(parts)[0],
+               "bound_by": bound_of(parts)[1], "bound_parts_ms": parts,
+               "host_ms": encode_ms + decode_ms + from_dict_ms + extract_ms
+               + matrix_ms + dispatch_ms, "card": smi}
+        rows.append(row)
+        emit("times.cluster_step", **row)
+    return rows
+
+
+def phase_cluster(torch, np, attention, device, gen, seed, smi):
+    """E5-large at full width through `TPUWorker`, the bus and
+    `ClusterWorker` (BASELINE config #5); checks against the CPU, crash
+    recovery; times."""
+    from distributed_crawler_tpu_torch.bus import RecordBatch
+    from distributed_crawler_tpu_torch.inference.engine import (
+        EngineConfig,
+        InferenceEngine,
+    )
+    from distributed_crawler_tpu_torch.utils.metrics import MetricsRegistry
+
+    t0 = time.perf_counter()
+    cfg = EngineConfig(model="e5_large", batch_size=BATCH, seed=seed)
+    engine = InferenceEngine(cfg, registry=MetricsRegistry())
+    ecfg = engine.ecfg
+    check(engine.device.type == "cuda", f"engine on {engine.device}")
+    check((ecfg.vocab_size, ecfg.hidden, ecfg.n_layers, ecfg.n_heads,
+           ecfg.mlp_dim, ecfg.dtype) == (250037, 1024, 24, 16, 4096,
+                                         "bfloat16"),
+          f"not E5-large's full width: {ecfg}")
+    check(engine.bucket_spec.lengths == MAIN_BUCKETS,
+          f"buckets {engine.bucket_spec.lengths}")
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    emit("slice.cluster.setup", model=cfg.model, batch=BATCH,
+         buckets=list(MAIN_BUCKETS), engine_init_s=init_s, warmup_s=warm_s,
+         cluster={"k": CLUSTER_K, "buckets": list(CLUSTER_BUCKETS),
+                  "checkpoint_every_batches": CLUSTER_CKPT_EVERY,
+                  "coalesce_batches": 4})
+
+    rng = np.random.default_rng(seed + 5)
+    n_batches = 8
+    batches = [RecordBatch.from_records(
+        synthetic_posts(np, rng, BATCH, i * BATCH), crawl_id="smoke-e5l")
+        for i in range(n_batches)]
+    provider = DictProvider()
+    served = serve_and_cluster(np, engine, batches, provider)
+    emb, scores, _ = check_results(np, ecfg, batches, served["results"])
+    sizes = check_assignment_rows(provider, batches, "smoke-e5l")
+    update = check_updates(served["updates"])
+    replay = replay_on_cpu(np, served["engine"])
+    cengine = served["engine"]
+    first_state = cengine.first_state
+    frame = next(f for f in served["results"]
+                 if f["batch_id"] == batches[0].batch_id)
+    resume = check_resume(torch, served["worker"], provider, frame)
+    texts = [t for b in batches for t in b.texts()]
+    vs_cpu = check_e5_large_vs_cpu(torch, np, engine, texts, emb, scores,
+                                   rng)
+    fit_step = check_fit_step(torch, np, device, seed)
+    n_posts = emb.shape[0]
+    emit("slice.cluster", posts=n_posts, batches=n_batches,
+         result_frames=len(served["results"]),
+         dispatches=served["dispatches"],
+         kernel_launches_by_path=served["launches"],
+         launches_per_dispatch=served["launches"]["sm90"]
+         / served["dispatches"],
+         cluster_group_batches=[len(g) for g in served["groups"]],
+         cluster_sizes=sizes,
+         cluster_steps=cengine.step, last_update=update,
+         card_vs_cpu_replay=replay, resume=resume,
+         e5_large_card_bf16_vs_cpu_f32=vs_cpu, fit_step=fit_step)
+    process_ms = served["process_ms"]
+    emit("times.slice", model="e5_large+cluster", posts=n_posts,
+         seconds=served["seconds"], posts_per_s=n_posts / served["seconds"],
+         cluster_process_ms=process_ms,
+         cluster_device_timeline=served["device"], card=smi)
+    time_cluster_step(torch, np, first_state, frame, smi)
+    time_fit(torch, np, device, seed, smi)
+    time_engine(torch, engine, smi, model=cfg.model)
+    del engine
+    torch.cuda.empty_cache()
+    rows = model_kernel_times(torch, attention, device, gen, smi, "e5_large",
+                              E5L_HEADS, E5L_HEAD_DIM)
+    emit("times.kernel.sum", name="flash_attention", model="e5_large",
+         at="16 heads of 64, batch 256, bf16, serving padding: one call at "
+            "each of buckets 32-512, summed",
+         ms=sum(r["ms"] for r in rows),
+         mma_sync_ms=sum(r["mma_sync_ms"] for r in rows),
+         plain_ms=sum(r["plain_ms"] for r in rows),
+         library_ms=sum(r["library_ms"] for r in rows),
+         bound_parts_ms={p: sum(r["bound_parts_ms"][p] for r in rows)
+                         for p in rows[0]["bound_parts_ms"]},
+         max_abs_err=max(r["max_abs_err"]["sm90"] for r in rows), card=smi)
+    return {"launches": served["launches"],
+            "dispatches": served["dispatches"], "kernel_rows": rows}
+
+
 KERNEL_SOURCES = {"sm90": "flash_attention_sm90.cu",
                   "mma_sync": "flash_attention.cu",
                   "simt": "flash_attention.cu"}
@@ -1665,8 +2318,10 @@ def main() -> int:
                               smi)
     xlmr = phase_xlmr(torch, np, attention, device, gen, args.seed, smi)
     asr = phase_asr(torch, np, attention, device, args.seed, smi)
+    clus = phase_cluster(torch, np, attention, device, gen, args.seed, smi)
     launches = {p: e5["launches"][p] + xlmr["launches"][p]
-                + asr["launches"][p] for p in attention.PATHS}
+                + asr["launches"][p] + clus["launches"][p]
+                for p in attention.PATHS}
     print(json.dumps({"kernels": [
         kernel_entry(path, rows, worst, launches)
         for path in attention.PATHS]}), flush=True)

@@ -11,10 +11,15 @@ so each module has an obvious counterpart:
   `models/from_jax.py` loads the reference's param tree into it;
 - `models/whisper.py` — Whisper ASR (log-mel, audio encoder, KV-cached
   greedy decode);
+- `models/clustering.py` — k-means (`assign`, `update`, k-means++,
+  `fit`);
 - `inference/` — tokenizer, `InferenceEngine`, `TPUWorker`, `ASRPipeline`;
 - `media/` — the audio chunker and `ASRWorker`;
+- `cluster/` — online spherical k-means (`ClusterEngine`) and
+  `ClusterWorker`, the consumer of the embedding stream;
 - `bus/` — `RecordBatch` and the in-memory bus the worker serves from;
-- `utils/` — metrics registry, span tracing, device timeline, FLOP count.
+- `utils/` — metrics registry, span tracing, device timeline, FLOP
+  counts.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (`device.resolve_device`).

@@ -1,8 +1,8 @@
-"""Bus constants and the media envelopes the serving slices need, copied
-from the reference's `distributed_crawler_tpu/bus/messages.py`.  The
-message types, topic strings and dict field names are a wire contract and
-must stay identical: a frame published by either package decodes in the
-other."""
+"""Bus constants and the media and cluster envelopes the serving slices
+need, copied from the reference's `distributed_crawler_tpu/bus/
+messages.py`.  The message types, topic strings and dict field names are a
+wire contract and must stay identical: a frame published by either package
+decodes in the other."""
 
 from __future__ import annotations
 
@@ -18,12 +18,17 @@ from . import codec
 
 MSG_AUDIO_BATCH = "audio_batch"
 MSG_TRANSCRIPT = "transcript"
+# The cluster worker's periodic centroid-state announcement.
+MSG_CLUSTER_UPDATE = "cluster_update"
 
 TOPIC_INFERENCE_BATCHES = "tpu-inference-batches"
 TOPIC_INFERENCE_RESULTS = "tpu-inference-results"
 # Audio refs bound for the ASR worker, and the transcripts it sends back.
 TOPIC_MEDIA_BATCHES = "tpu-media-batches"
 TOPIC_TRANSCRIPTS = "tpu-transcripts"
+# Cluster summaries after each checkpoint (fan-out; a missed update costs
+# the frontier's prioritisation freshness only).
+TOPIC_CLUSTERS = "tpu-clusters"
 
 # Frames without a tenant label decode to this documented default.
 DEFAULT_TENANT = "default"
@@ -225,4 +230,92 @@ class TranscriptMessage:
             timestamp=codec.parse_time(d.get("timestamp")),
             trace_id=d.get("trace_id", "") or "",
             tenant=normalize_tenant(d.get("tenant")),
+        )
+
+
+# -- streaming clustering ----------------------------------------------------
+@dataclass
+class ClusterUpdateMessage:
+    """The cluster worker's periodic centroid-state summary on
+    ``TOPIC_CLUSTERS``: ``sizes`` is the cumulative assignment count per
+    cluster (length ``k``), ``inertia`` the newest per-vector inertia,
+    ``underpopulated`` the ids whose share of assignments is under the
+    worker's ``min_cluster_fraction`` of the uniform share, and
+    ``channel_clusters`` a bounded map of recently seen channels to the
+    cluster their posts last landed in."""
+
+    message_type: str = MSG_CLUSTER_UPDATE
+    worker_id: str = ""
+    k: int = 0
+    step: int = 0                    # mini-batch steps applied so far
+    vectors: int = 0                 # embeddings assigned so far
+    sizes: List[int] = field(default_factory=list)
+    inertia: Optional[float] = None
+    underpopulated: List[int] = field(default_factory=list)
+    channel_clusters: Dict[str, int] = field(default_factory=dict)
+    timestamp: Optional[datetime] = None
+    trace_id: str = ""
+
+    @classmethod
+    def new(cls, worker_id: str, k: int, step: int = 0, vectors: int = 0,
+            sizes: Optional[List[int]] = None,
+            inertia: Optional[float] = None,
+            underpopulated: Optional[List[int]] = None,
+            channel_clusters: Optional[Dict[str, int]] = None
+            ) -> "ClusterUpdateMessage":
+        return cls(worker_id=worker_id, k=int(k), step=int(step),
+                   vectors=int(vectors), sizes=list(sizes or []),
+                   inertia=inertia,
+                   underpopulated=list(underpopulated or []),
+                   channel_clusters=dict(channel_clusters or {}),
+                   timestamp=codec.utcnow(), trace_id=new_trace_id())
+
+    def validate(self) -> None:
+        if self.message_type != MSG_CLUSTER_UPDATE:
+            raise ValueError(
+                f"invalid cluster update message type: {self.message_type}")
+        if not self.worker_id:
+            raise ValueError("cluster update worker_id cannot be empty")
+        if self.k <= 0:
+            raise ValueError("cluster update k must be positive")
+        if self.sizes and len(self.sizes) != self.k:
+            raise ValueError(
+                f"cluster update carries {len(self.sizes)} sizes for k="
+                f"{self.k}")
+        for c in self.underpopulated:
+            if not 0 <= int(c) < self.k:
+                raise ValueError(f"underpopulated cluster id {c} out of "
+                                 f"range for k={self.k}")
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "message_type": self.message_type,
+            "worker_id": self.worker_id,
+            "k": self.k,
+            "step": self.step,
+            "vectors": self.vectors,
+            "sizes": self.sizes,
+            "inertia": self.inertia,
+            "underpopulated": self.underpopulated,
+            "channel_clusters": self.channel_clusters,
+            "timestamp": _opt_time(self.timestamp),
+            "trace_id": self.trace_id,
+        }
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ClusterUpdateMessage":
+        inertia = d.get("inertia")
+        return cls(
+            message_type=d.get("message_type", MSG_CLUSTER_UPDATE),
+            worker_id=d.get("worker_id", "") or "",
+            k=int(d.get("k") or 0),
+            step=int(d.get("step") or 0),
+            vectors=int(d.get("vectors") or 0),
+            sizes=[int(s) for s in (d.get("sizes") or [])],
+            inertia=float(inertia) if inertia is not None else None,
+            underpopulated=[int(c) for c in (d.get("underpopulated") or [])],
+            channel_clusters={str(ch): int(c) for ch, c in
+                              (d.get("channel_clusters") or {}).items()},
+            timestamp=codec.parse_time(d.get("timestamp")),
+            trace_id=d.get("trace_id", "") or "",
         )

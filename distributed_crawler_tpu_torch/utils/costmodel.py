@@ -1,8 +1,10 @@
-"""Analytic cost of one embed+classify batch and of one greedy ASR batch.
+"""Analytic cost of one embed+classify batch, one greedy ASR batch and
+one online k-means step.
 
-`encoder_forward_flops` and `whisper_forward_flops` are the reference's
-formulas (`distributed_crawler_tpu/utils/costmodel.py:66-117`); the cost
-table, the efficiency meter and the H100 peak wait for a later slice.
+`encoder_forward_flops`, `whisper_forward_flops` and `kmeans_step_flops`
+are the reference's formulas (`distributed_crawler_tpu/utils/
+costmodel.py:66-132`); the cost table, the efficiency meter and the H100
+peak wait for a later slice.
 """
 
 from __future__ import annotations
@@ -49,3 +51,17 @@ def whisper_forward_flops(cfg, batch: int, decode_len: int) -> float:
     logits = 2 * dt * cfg.n_vocab
     decoder = steps * (cfg.n_text_layer * dec_step_layer + logits)
     return float(batch) * (encoder + cross_kv + decoder)
+
+
+def kmeans_step_flops(k: int, dim: int, rows: int) -> float:
+    """Analytic FLOPs for one online mini-batch k-means step.
+
+    Assignment: one ``[rows, dim] x [dim, k]`` product (2·R·D·K) plus the
+    ``||c||²`` bias row (2·K·D).  Update: the one-hot segment-sum product
+    ``[k, rows] x [rows, dim]`` (2·R·D·K) plus the running-mean fold and
+    the spherical renormalisation over the centroid table (~6·K·D).
+    Normalising the incoming rows costs ~3·R·D.  A multiply-accumulate
+    counts as 2 FLOPs, as in `encoder_forward_flops`.
+    """
+    r, d, kk = float(rows), float(dim), float(k)
+    return 4.0 * r * d * kk + 3.0 * r * d + 8.0 * kk * d

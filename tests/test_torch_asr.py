@@ -305,10 +305,18 @@ def test_from_pretrained_equal(tmp_path, wavs, caplog):
     jasr = _ref_module("inference.asr")
     jut = _ref_module("utils.metrics")
     ckpt, hf_cfg = _write_hf_whisper(tmp_path / "ckpt", vocab=51_865)
-    with caplog.at_level("INFO", logger="dct.torch.inference.asr"):
-        got = tasr.ASRPipeline.from_pretrained(
-            ckpt, batch_size=2, max_len=MAX_LEN, dtype="float32",
-            registry=MetricsRegistry(), device="cpu")
+    # Capture at the module's own logger: the JAX package's
+    # `setup_logging`, which other tests in this process may have run,
+    # stops the "dct" logger tree from propagating to the root logger,
+    # where caplog listens.
+    tasr.logger.addHandler(caplog.handler)
+    try:
+        with caplog.at_level("INFO", logger="dct.torch.inference.asr"):
+            got = tasr.ASRPipeline.from_pretrained(
+                ckpt, batch_size=2, max_len=MAX_LEN, dtype="float32",
+                registry=MetricsRegistry(), device="cpu")
+    finally:
+        tasr.logger.removeHandler(caplog.handler)
     assert got.detokenize is None
     assert "token-id output only" in caplog.text
     assert got.model.cfg.n_vocab == hf_cfg["vocab_size"]
