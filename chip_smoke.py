@@ -75,6 +75,30 @@ JSON line each:
    decode, `_extract`, dispatch), `fit` at 1,048,576 x 1024 x k 8 x 25
    iterations, the E5-large forward per bucket, the sm90 kernel at
    E5-large's shape, and posts/s through both workers.
+9. slice.moe — Switch-MoE at XLM-R-base width (vocab 250002, hidden 768,
+   12 layers, 12 heads of 64, 8 experts of 3072 in every layer, capacity
+   factor 1.25, 8 labels; ``bench.py``'s MoE configuration at the
+   published vocabulary), added to the engine's registry as a deployment
+   adds one, bf16 weights from ``--seed``: 2048 synthetic posts through
+   `TPUWorker` (packed, coalescing 4) once in each of dense, capacity and
+   int8 dispatch on the same weights.  Checks: one result per post and 12
+   sm90 launches per dispatch; dense bf16 on the card against f32 on the
+   CPU on 32 posts (minimum cosine >= 0.99; the router's choices equal
+   off a 1e-3 near-tie margin on the same layer inputs, and counted
+   free-running); capacity against dense on the same [256, bucket]
+   layouts (capacity factor 8: embeddings within 2e-2; 1.25: the share of
+   real tokens dropped per bucket, kept tokens within 2e-2 of dense); one
+   served capacity dispatch replayed in f32 on the CPU from the arrays the
+   worker dispatched (layer by layer on the card's inputs, and end to end
+   over the segments no routing difference touches: minimum cosine >=
+   0.99); int8 and ``int8_static`` against bf16 layer by layer on the same
+   inputs (MoE outputs > 0.98 / > 0.97; int8's attention > 0.98;
+   int8_static's attention against the CPU's, its cosine to bf16
+   reported), end to end reported; layer 0's int8 expert products equal
+   to an int32 matmul on the CPU; capacity with int8 refused before any
+   weight is read.  Times per bucket: each dispatch's forward, FLOPs,
+   achieved TFLOP/s and peak memory, XLM-R-base's dense-MLP forward beside
+   them, layer 0's MoE against the dense MLP; posts/s per dispatch.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``.  Any failed phase raises and exits
@@ -785,11 +809,14 @@ class _Records(logging.Handler):
         self.messages.append(record.getMessage())
 
 
-def _min_cosine(np, a, b):
+def _cosines(np, a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-    cos = np.sum(a * b, axis=1) / (np.linalg.norm(a, axis=1)
-                                   * np.linalg.norm(b, axis=1))
-    return float(cos.min())
+    return np.sum(a * b, axis=1) / (np.linalg.norm(a, axis=1)
+                                    * np.linalg.norm(b, axis=1))
+
+
+def _min_cosine(np, a, b):
+    return float(_cosines(np, a, b).min())
 
 
 def check_int8_products(torch, engine, gen):
@@ -2238,6 +2265,712 @@ def phase_cluster(torch, np, attention, device, gen, seed, smi):
             "dispatches": served["dispatches"], "kernel_rows": rows}
 
 
+# -- phase 9: Switch-MoE at XLM-R-base width with 8 experts ------------------
+# `bench.py`'s MoE configuration (`_measure_moe`): XLM-R-base's widths, 8
+# experts, capacity factor 1.25, at the published vocabulary.  No preset
+# has experts: a deployment adds the entry to the registry, as here.
+MOE_MODEL = "xlmr_base_moe8"
+MOE_EXPERTS, MOE_CF = 8, 1.25
+# A token whose f32 top-1 router probability leads the second by less
+# than this is a near-tie: bf16 rounding may pick either expert.
+MOE_NEAR_TIE = 1e-3
+MOE_DISPATCHES = ("dense", "capacity", "int8")
+
+
+def moe_config():
+    from distributed_crawler_tpu_torch.models.encoder import XLMR_BASE
+
+    return replace(XLMR_BASE, n_experts=MOE_EXPERTS,
+                   moe_capacity_factor=MOE_CF)
+
+
+def moe_forward_flops(ecfg, batch, seq, dispatch):
+    """Forward FLOPs of a Switch-MoE encoder: `encoder_forward_flops`
+    without its MLP term, plus per layer the router (2·h·E per token) and
+    the experts' up and down products (4·h·m per token slot): E slots per
+    token for dense dispatch, ``cap·E`` per group of ``g`` tokens for
+    capacity dispatch."""
+    import math
+
+    from distributed_crawler_tpu_torch.utils.costmodel import (
+        encoder_forward_flops,
+    )
+
+    h, m, e = ecfg.hidden, ecfg.mlp_dim, ecfg.n_experts
+    n = batch * seq
+    if dispatch == "capacity":
+        g = min(n, 4096)
+        cap = max(1, int(math.ceil(g / e * ecfg.moe_capacity_factor)))
+        slots = int(math.ceil(n / g)) * e * cap
+    else:
+        slots = n * e
+    per_layer = 2 * n * h * e + 4 * h * m * slots
+    return (encoder_forward_flops(replace(ecfg, mlp_dim=0), batch, seq)
+            + ecfg.n_layers * per_layer)
+
+
+def _moe_inputs(model):
+    """Forward hooks that keep each layer's MoE input, its mask, and which
+    tokens got an expert's output (capacity dispatch drops the rest)."""
+    got = []
+    hooks = [layer.moe.register_forward_hook(
+        lambda mod, args, out: got.append(
+            (args[0], args[1], (out != 0).any(-1))))
+        for layer in model.encoder.layers]
+    return got, hooks
+
+
+def _routes(torch, layers, inputs):
+    """(top, margin) per layer of each layer's router on its input: the
+    expert chosen and the f32 lead of the top-1 probability."""
+    out = []
+    with torch.inference_mode():
+        for layer, (x, *_) in zip(layers, inputs):
+            probs, top = layer.moe.route(x)
+            top2 = probs.topk(2, dim=-1).values
+            out.append((top.cpu(), (top2[..., 0] - top2[..., 1]).cpu()))
+    return out
+
+
+def _run_with_inputs(torch, model, arrays, device, **kw):
+    """One forward with the MoE inputs recorded: (emb, inputs)."""
+    inputs, hooks = _moe_inputs(model)
+    try:
+        with torch.inference_mode():
+            t = [torch.from_numpy(a).to(device) for a in arrays]
+            extra = dict(zip(("segment_ids", "positions"), t[2:]))
+            emb, _ = model(t[0], t[1], **extra, **kw)
+    finally:
+        for h in hooks:
+            h.remove()
+    return emb, inputs
+
+
+def _cpu_twin(torch, engine):
+    """The engine's model in f32 on the CPU, from its state."""
+    from distributed_crawler_tpu_torch.models.encoder import (
+        EmbedderClassifier,
+    )
+
+    model = EmbedderClassifier(replace(engine.ecfg, dtype="float32"))
+    model.load_state_dict({k: v.float().cpu()
+                           for k, v in engine.model.state_dict().items()})
+    return model.eval()
+
+
+def check_moe_dense_vs_cpu(torch, np, engine, toks, rng):
+    """32 posts in bf16 on the card against f32 on the CPU, each bucket's
+    posts in one batch: minimum cosine of the embeddings; the router's
+    choices token by token, on the same layer inputs (the card's, which
+    must agree off near-ties) and free-running (each side its own
+    inputs: counted, not held)."""
+    from distributed_crawler_tpu_torch.ops.padding import (
+        BucketSpec,
+        bucket_for,
+        pack_batch,
+    )
+
+    cpu = _cpu_twin(torch, engine)
+    pick = [int(i) for i in rng.choice(len(toks), size=32, replace=False)]
+    by_bucket = {}
+    for i in pick:
+        by_bucket.setdefault(bucket_for(len(toks[i]), engine.bucket_spec),
+                             []).append(i)
+    cos, real = [], 0
+    same = {"decided": 0, "near_ties": 0, "differ_off_ties": 0}
+    free = {"decided": 0, "near_ties": 0, "differ": 0, "differ_off_ties": 0}
+    for bucket, idx in sorted(by_bucket.items()):
+        ids, mask = pack_batch([toks[i] for i in idx], BucketSpec((bucket,)))
+        g_emb, g_in = _run_with_inputs(torch, engine.model, (ids, mask),
+                                       engine.device)
+        c_emb, c_in = _run_with_inputs(torch, cpu, (ids, mask), "cpu")
+        cos.append(_min_cosine(np, g_emb.float().cpu().numpy(),
+                               c_emb.numpy()))
+        real_t = torch.from_numpy(mask)
+        real += int(real_t.sum())
+        g_routes = _routes(torch, engine.model.encoder.layers, g_in)
+        c_routes = _routes(torch, cpu.encoder.layers, c_in)
+        same_in = [(x.float().cpu(),) for x, *_ in g_in]
+        s_routes = _routes(torch, cpu.encoder.layers, same_in)
+        for (gt, _), (ct, cm), (st, sm) in zip(g_routes, c_routes, s_routes):
+            tie = (sm < MOE_NEAR_TIE) & real_t
+            off = ~(sm < MOE_NEAR_TIE) & real_t
+            same["decided"] += int(real_t.sum())
+            same["near_ties"] += int(tie.sum())
+            same["differ_off_ties"] += int(((gt != st) & off).sum())
+            ctie = (cm < MOE_NEAR_TIE) & real_t
+            diff = (gt != ct) & real_t
+            free["decided"] += int(real_t.sum())
+            free["near_ties"] += int(ctie.sum())
+            free["differ"] += int(diff.sum())
+            free["differ_off_ties"] += int((diff & ~ctie).sum())
+    out = {"posts": len(pick), "real_tokens": real, "min_cosine": min(cos),
+           "bound": 0.99, "near_tie_margin": MOE_NEAR_TIE,
+           "router_same_inputs": same, "router_free_running": free}
+    emit("slice.moe.dense_vs_cpu", **out)
+    check(out["min_cosine"] >= 0.99, f"MoE dense: card bf16 vs CPU f32 "
+                                     f"minimum cosine {out['min_cosine']}")
+    check(same["differ_off_ties"] == 0,
+          f"MoE router on the same inputs: {same['differ_off_ties']} tokens "
+          f"pick another expert off a {MOE_NEAR_TIE} margin")
+    del cpu
+    return out
+
+
+def check_capacity_vs_dense(torch, np, dense, capacity, toks):
+    """Capacity against dense dispatch on the same [256, bucket] layout
+    on the card, per bucket: at capacity factor 8 (nothing overflows) the
+    embeddings within 2e-2; at 1.25, each layer's MoE on the dense
+    forward's own layer inputs: the share of real tokens dropped, and
+    every kept token's output within 2e-2 of dense dispatch's."""
+    from distributed_crawler_tpu_torch.models.encoder import (
+        EmbedderClassifier,
+    )
+    from distributed_crawler_tpu_torch.ops.padding import (
+        BucketSpec,
+        bucket_for,
+        pack_batch,
+    )
+
+    tol = 2e-2
+    roomy = EmbedderClassifier(
+        replace(capacity.ecfg, moe_capacity_factor=8.0),
+        embed_dtype=capacity.model.encoder.embed_tokens.dtype)
+    roomy.load_state_dict(capacity.model.state_dict())
+    roomy = roomy.to(capacity.device).eval()
+    rows = []
+    for bucket in MAIN_BUCKETS:
+        chunk = [t for t in toks
+                 if bucket_for(len(t), dense.bucket_spec) == bucket][:BATCH]
+        ids, mask = pack_batch(chunk, BucketSpec((bucket,)),
+                               batch_pad_to=BATCH)
+        d_emb, inputs = _run_with_inputs(torch, dense.model, (ids, mask),
+                                         dense.device)
+        r_emb, _ = _run_with_inputs(torch, roomy, (ids, mask),
+                                    dense.device)
+        roomy_err = float((r_emb.float() - d_emb.float()).abs().max())
+        dropped = real = 0
+        kept_err = 0.0
+        with torch.inference_mode():
+            for layer_d, layer_c, (x, m, _) in zip(
+                    dense.model.encoder.layers,
+                    capacity.model.encoder.layers, inputs):
+                d_out = layer_d.moe(x, m).float()
+                c_out = layer_c.moe(x, m).float()
+                real_t = m.bool()
+                kept = c_out.abs().amax(-1) > 0
+                dropped += int((real_t & ~kept).sum())
+                real += int(real_t.sum())
+                sel = real_t & kept
+                kept_err = max(kept_err, float(
+                    (c_out[sel] - d_out[sel]).abs().max()))
+        row = {"bucket": bucket, "rows": len(chunk),
+               "cf8_emb_max_abs_err": roomy_err, "real_token_layers": real,
+               "dropped": dropped, "dropped_share": dropped / real,
+               "kept_max_abs_err": kept_err, "tol": tol}
+        emit("slice.moe.capacity_vs_dense", **row)
+        check(roomy_err <= tol, f"capacity factor 8 vs dense at {bucket}: "
+                                f"{roomy_err} > {tol}")
+        check(kept_err <= tol, f"capacity vs dense kept tokens at {bucket}: "
+                               f"{kept_err} > {tol}")
+        rows.append(row)
+        del inputs
+    del roomy
+    torch.cuda.empty_cache()
+    return rows
+
+
+class _DispatchRecorder:
+    """While active, keeps each of the engine's dispatches: the host
+    arrays it placed, its keywords and its host outputs."""
+
+    def __init__(self, np, engine):
+        self.np, self.engine, self.dispatches = np, engine, []
+        self._arrays = None
+
+    def __enter__(self):
+        eng, place, dispatch = self.engine, self.engine._place, \
+            self.engine._dispatch
+
+        def recording_place(arrays):
+            self._arrays = [self.np.array(a) for a in arrays]
+            return place(arrays)
+
+        def recording_dispatch(placed, **kw):
+            out = dispatch(placed, **kw)
+            self.dispatches.append((self._arrays, kw, out))
+            return out
+
+        eng._place, eng._dispatch = recording_place, recording_dispatch
+        return self
+
+    def __exit__(self, *exc):
+        del self.engine._place, self.engine._dispatch
+
+
+def _segments_used(np, arrays):
+    seg = arrays[2]
+    return int(sum(len(np.unique(r[r > 0])) for r in seg))
+
+
+def replay_capacity_on_cpu(torch, np, engine, recorder):
+    """One served capacity dispatch again in f32 on the CPU, from the exact
+    arrays the worker dispatched (of the smallest bucket, the one with the
+    most segments).
+
+    - Layer by layer on the card's own layer inputs: the CPU's router
+      agrees off near-ties, and every real token that both sides route
+      alike and keep carries the card's expert output (cosine >= 0.99).
+    - End to end, each side from its own inputs: bf16 drift moves some
+      routes past any fixed margin, and a token routed or dropped
+      otherwise at any layer changes its segment's pooled embedding (past
+      capacity it also moves its group's queue).  The minimum cosine
+      against the served embeddings is held over the segments no such
+      token touches and reported over all."""
+    arrays, kw, (emb, _, event) = min(
+        recorder.dispatches,
+        key=lambda d: (d[0][0].shape[1], -_segments_used(np, d[0])))
+    if event is not None:
+        event.synchronize()
+    served = emb.float().numpy()
+    n_seg, hid = served.shape[1], served.shape[2]
+    served = served.reshape(-1, hid)
+    cpu = _cpu_twin(torch, engine)
+    c_emb, c_in = _run_with_inputs(torch, cpu, arrays, "cpu", **kw)
+    g_emb, g_in = _run_with_inputs(torch, engine.model, arrays,
+                                   engine.device, **kw)
+    c_emb = c_emb.numpy().reshape(-1, hid)
+    real_t = torch.from_numpy(arrays[1]).bool()
+
+    forced = {"decided": 0, "near_ties": 0, "near_tie_flips": 0,
+              "differ_off_ties": 0, "drop_differs": 0, "compared": 0,
+              "min_cosine": 1.0}
+    with torch.inference_mode():
+        for c_layer, g_layer, (x, m, g_kept) in zip(
+                cpu.encoder.layers, engine.model.encoder.layers, g_in):
+            g_out = g_layer.moe(x, m).float().cpu()
+            _, g_top = g_layer.moe.route(x)
+            xc, mc = x.float().cpu(), m.cpu()
+            c_out = c_layer.moe(xc, mc)
+            probs, c_top = c_layer.moe.route(xc)
+            top2 = probs.topk(2, dim=-1).values
+            tie = (top2[..., 0] - top2[..., 1]) < MOE_NEAR_TIE
+            flip = (g_top.cpu() != c_top) & real_t
+            drop_diff = (g_kept.cpu() != (c_out != 0).any(-1)) & real_t
+            ok = real_t & ~flip & ~drop_diff & g_kept.cpu()
+            forced["decided"] += int(real_t.sum())
+            forced["near_ties"] += int((tie & real_t).sum())
+            forced["near_tie_flips"] += int((flip & tie).sum())
+            forced["differ_off_ties"] += int((flip & ~tie).sum())
+            forced["drop_differs"] += int(drop_diff.sum())
+            forced["compared"] += int(ok.sum())
+            cos = torch.nn.functional.cosine_similarity(
+                g_out[ok], c_out[ok], dim=-1)
+            forced["min_cosine"] = min(forced["min_cosine"],
+                                       float(cos.min()))
+
+    touched = torch.zeros_like(real_t)
+    free = {"decided": 0, "near_ties": 0, "differ": 0,
+            "differ_off_ties": 0, "drop_differs": 0, "dropped_card": 0}
+    for (gt, _), (ct, cm), (_, _, g_kept), (_, _, c_kept) in zip(
+            _routes(torch, engine.model.encoder.layers, g_in),
+            _routes(torch, cpu.encoder.layers, c_in), g_in, c_in):
+        g_kept = g_kept.cpu()
+        tie = (cm < MOE_NEAR_TIE) & real_t
+        diff = (gt != ct) & real_t
+        drop_diff = (g_kept != c_kept) & real_t
+        touched |= diff | drop_diff
+        free["decided"] += int(real_t.sum())
+        free["near_ties"] += int(tie.sum())
+        free["differ"] += int(diff.sum())
+        free["differ_off_ties"] += int((diff & ~tie).sum())
+        free["drop_differs"] += int(drop_diff.sum())
+        free["dropped_card"] += int((real_t & ~g_kept).sum())
+    seg = arrays[2]
+    rows, cols = np.nonzero(touched.numpy() & (seg > 0))
+    touched_seg = np.zeros(served.shape[0], bool)
+    touched_seg[rows * n_seg + seg[rows, cols] - 1] = True
+    used = np.linalg.norm(c_emb, axis=1) > 0
+    clean = used & ~touched_seg
+    rerun_err = float(np.abs(g_emb.float().cpu().numpy().reshape(
+        served.shape) - served).max())
+    out = {"bucket": int(arrays[0].shape[1]),
+           "rows": int(arrays[0].shape[0]), "segments": int(used.sum()),
+           "layer_by_layer_on_card_inputs": forced,
+           "end_to_end": {
+               "router": free, "untouched_segments": int(clean.sum()),
+               "min_cosine_untouched": _min_cosine(np, served[clean],
+                                                   c_emb[clean]),
+               "min_cosine_all": _min_cosine(np, served[used],
+                                             c_emb[used])},
+           "bound": 0.99, "card_rerun_max_abs_err": rerun_err}
+    emit("slice.moe.capacity_replay", **out)
+    check(forced["differ_off_ties"] == 0,
+          f"capacity replay: {forced['differ_off_ties']} tokens routed "
+          f"otherwise off a {MOE_NEAR_TIE} margin on the same inputs")
+    check(forced["min_cosine"] >= 0.99,
+          f"capacity replay: expert outputs on the card's inputs, minimum "
+          f"cosine {forced['min_cosine']}")
+    check(clean.sum() >= 10,
+          f"capacity replay: only {clean.sum()} of {used.sum()} segments "
+          f"untouched by a routing difference")
+    check(out["end_to_end"]["min_cosine_untouched"] >= 0.99,
+          f"capacity replay: card vs CPU f32 minimum cosine "
+          f"{out['end_to_end']['min_cosine_untouched']} over untouched "
+          f"segments")
+    del cpu
+    return out
+
+
+# A quantized layer on the card against the same layer on the CPU, both
+# bf16 with the same int8 accumulators: bf16 rounding (2^-8 relative) of
+# the outputs and of the attention's softmax; per-post cosine.
+QUANT_CARD_VS_CPU = 0.999
+
+
+def check_quantized_vs_bf16(torch, np, bf16, quantized, toks, bound,
+                            served=None):
+    """A quantized MoE engine against bf16 dense dispatch on the same
+    weights, per bucket on the same [256, bucket] layout:
+
+    - layer by layer on the bf16 forward's own inputs: each post's MoE
+      output (the int8 experts, dynamic in both modes; both f32 routers
+      pick the same experts on the same input), cosine > ``bound``; its
+      attention output (the int8 projections), cosine > ``bound`` under
+      dynamic scales.  Under ``int8_static`` the attention's cosine is
+      reported, not held: the reference calibrates on full-length
+      sequences, so a short post's attention output overflows the
+      calibrated ``attn_out`` scale and clips (ROADMAP Queue 3).  What is
+      held there is the card's quantized attention against the same
+      layer on the CPU, at the shortest bucket (> QUANT_CARD_VS_CPU);
+    - end to end: int8 noise in the router's input moves routes, and a
+      token sent to another expert carries another MLP's output, so the
+      embeddings' cosines are reported (minimum, percentiles) with the
+      posts no routing difference touches counted apart; ``served``
+      (each engine's served embeddings) adds the served posts' minimum."""
+    import copy
+
+    from distributed_crawler_tpu_torch.ops.padding import (
+        BucketSpec,
+        bucket_for,
+        pack_batch,
+    )
+
+    def cos_min(a, b, real):
+        """Minimum over posts of the cosine between two [L, H] outputs
+        of a post's real tokens, each taken as one vector (a per-token
+        cosine would single out tokens whose output is near zero)."""
+        real = real.to(a.device)
+        keep = real[..., None].float()
+        a = (a.float() * keep).flatten(1)
+        b = (b.float().to(a.device) * keep).flatten(1)
+        return float(torch.nn.functional.cosine_similarity(
+            a, b, dim=-1)[real.any(1)].min())
+
+    static = quantized.ecfg.quant == "int8_static"
+    forced = {"tokens": 0, "routes_differ": 0, "min_cosine": 1.0,
+              "attention_min_cosine": 1.0, "over": "posts",
+              "attention_card_vs_cpu_min_cosine": 1.0,
+              "attention_card_vs_cpu_bucket": MAIN_BUCKETS[0]}
+    cos_all, cos_clean = [], []
+    with torch.inference_mode():
+        for bucket in MAIN_BUCKETS:
+            chunk = [t for t in toks
+                     if bucket_for(len(t), bf16.bucket_spec) == bucket][:BATCH]
+            ids, mask = pack_batch(chunk, BucketSpec((bucket,)),
+                                   batch_pad_to=BATCH)
+            layer_in = []
+            hooks = [layer.register_forward_pre_hook(
+                lambda mod, args: layer_in.append(args[0]))
+                for layer in bf16.model.encoder.layers]
+            try:
+                b_emb, b_in = _run_with_inputs(torch, bf16.model,
+                                               (ids, mask), bf16.device)
+            finally:
+                for h in hooks:
+                    h.remove()
+            q_emb, q_in = _run_with_inputs(torch, quantized.model,
+                                           (ids, mask), quantized.device)
+            real_t = torch.from_numpy(mask).to(bf16.device)
+            touched = torch.zeros_like(real_t)
+            for b_layer, q_layer, (x, m, _), (xq, _, _), xa in zip(
+                    bf16.model.encoder.layers,
+                    quantized.model.encoder.layers, b_in, q_in, layer_in):
+                q_attn = q_layer.attn(xa, m)
+                forced["attention_min_cosine"] = min(
+                    forced["attention_min_cosine"],
+                    cos_min(q_attn, b_layer.attn(xa, m), real_t))
+                if bucket == MAIN_BUCKETS[0]:
+                    cpu_attn = copy.deepcopy(q_layer.attn).cpu()
+                    forced["attention_card_vs_cpu_min_cosine"] = min(
+                        forced["attention_card_vs_cpu_min_cosine"],
+                        cos_min(cpu_attn(xa.cpu(), m.cpu()), q_attn,
+                                real_t))
+                _, b_top = b_layer.moe.route(x)
+                _, q_top = q_layer.moe.route(x)
+                forced["routes_differ"] += int(((b_top != q_top)
+                                                & real_t).sum())
+                forced["tokens"] += int(real_t.sum())
+                forced["min_cosine"] = min(
+                    forced["min_cosine"],
+                    cos_min(q_layer.moe(x, m), b_layer.moe(x, m), real_t))
+                touched |= (q_layer.moe.route(xq)[1] != b_top) & real_t
+            n = len(chunk)
+            cos = _cosines(np, q_emb.float().cpu().numpy()[:n],
+                           b_emb.float().cpu().numpy()[:n])
+            cos_all.extend(cos.tolist())
+            cos_clean.extend(cos[~touched.any(1).cpu().numpy()[:n]].tolist())
+            del b_in, q_in, layer_in
+    torch.cuda.empty_cache()
+    cos_all = np.asarray(cos_all)
+    out = {"posts": int(cos_all.size), "bound": bound,
+           "card_vs_cpu_bound": QUANT_CARD_VS_CPU,
+           "attention_vs_bf16_held": not static,
+           "layer_by_layer_on_bf16_inputs": forced,
+           "end_to_end": {
+               "min_cosine": float(cos_all.min()),
+               "p1_cosine": float(np.percentile(cos_all, 1)),
+               "median_cosine": float(np.median(cos_all)),
+               "posts_untouched_by_routing": len(cos_clean),
+               "min_cosine_untouched": (float(min(cos_clean))
+                                        if cos_clean else None)}}
+    if served is not None:
+        out["end_to_end"]["served_posts"] = int(served[0].shape[0])
+        out["end_to_end"]["served_min_cosine"] = _min_cosine(np, *served)
+    emit("slice.moe.quantized_vs_bf16", quant=quantized.ecfg.quant, **out)
+    check(forced["routes_differ"] == 0,
+          "the same layer input routed otherwise by the two models")
+    check(forced["min_cosine"] > bound,
+          f"{quantized.ecfg.quant} vs bf16 on the same inputs: MoE outputs' "
+          f"minimum cosine {forced['min_cosine']}")
+    check(static or forced["attention_min_cosine"] > bound,
+          f"{quantized.ecfg.quant} vs bf16 on the same inputs: attention's "
+          f"minimum cosine {forced['attention_min_cosine']}")
+    check(forced["attention_card_vs_cpu_min_cosine"] > QUANT_CARD_VS_CPU,
+          f"{quantized.ecfg.quant} attention, card vs CPU: minimum cosine "
+          f"{forced['attention_card_vs_cpu_min_cosine']}")
+    return out
+
+
+def check_moe_int8_products(torch, engine, gen):
+    """Layer 0's int8 expert products on the card against an int32 matmul
+    on the CPU, on 64 rows of quantized activations: exactly equal."""
+    from distributed_crawler_tpu_torch.ops.quant import (
+        int8_matmul,
+        quantize_activations,
+    )
+
+    moe = engine.model.encoder.layers[0].moe
+    e, m, h = moe.experts_up_q.shape
+    weights = [("experts_up", moe.experts_up_q.reshape(e * m, h))]
+    weights += [(f"experts_down[{i}]", moe.experts_down_q[i])
+                for i in range(e)]
+    out = {}
+    for name, w_q in weights:
+        x = torch.randn((64, w_q.shape[1]), generator=gen).to(
+            device=engine.device, dtype=torch.bfloat16)
+        x_q, _ = quantize_activations(x)
+        acc = int8_matmul(x_q, w_q)
+        torch.cuda.synchronize()
+        want = x_q.cpu().to(torch.int32) @ w_q.cpu().to(torch.int32).t()
+        check(acc.dtype == torch.int32 and torch.equal(acc.cpu(), want),
+              f"int8 product {name}: card and CPU int32 matmul differ")
+        out[name] = {"m": 64, "k": int(w_q.shape[1]), "n": int(w_q.shape[0]),
+                     "equal": True}
+    return out
+
+
+def check_capacity_int8_refused(engine_mod):
+    """``capacity`` with ``quantize`` raises ValueError before any weight
+    is read or drawn."""
+    def no_weights(*a, **k):
+        raise Fail("weights were loaded before the config was refused")
+
+    saved = engine_mod.random_tree, engine_mod._load_pretrained
+    engine_mod.random_tree = engine_mod._load_pretrained = no_weights
+    try:
+        engine_mod.InferenceEngine(engine_mod.EngineConfig(
+            model=MOE_MODEL, moe_dispatch="capacity", quantize="int8"))
+    except ValueError as e:
+        return str(e)
+    finally:
+        engine_mod.random_tree, engine_mod._load_pretrained = saved
+    raise Fail("capacity dispatch with int8 was not refused")
+
+
+def time_moe(torch, engines, yardstick, smi):
+    """Per bucket at batch 256: each dispatch's forward (from
+    `time_engine`) with its MoE FLOP count, achieved TFLOP/s and peak
+    device memory; XLM-R-base's dense-MLP forward beside it; layer 0's MoE
+    alone against the dense MLP."""
+    from distributed_crawler_tpu_torch.utils import cudatime
+    from distributed_crawler_tpu_torch.utils.costmodel import (
+        encoder_forward_flops,
+    )
+
+    forward = {name: {r["bucket"]: r for r in time_engine(
+        torch, eng, smi, model=MOE_MODEL, dispatch=name)}
+        for name, eng in engines.items()}
+    base = {r["bucket"]: r for r in time_engine(
+        torch, yardstick, smi, model="xlmr_base", dispatch="dense_mlp")}
+    rows = []
+    for bucket in MAIN_BUCKETS:
+        row = {"bucket": bucket, "batch": BATCH, "card": smi,
+               "xlmr_base_forward_ms": base[bucket]["forward_ms"],
+               "xlmr_base_tflop_per_s": encoder_forward_flops(
+                   yardstick.ecfg, BATCH, bucket)
+               / (base[bucket]["forward_ms"] * 1e-3) / 1e12}
+        ids = torch.full((BATCH, bucket), 5, dtype=torch.int32,
+                         device=yardstick.device)
+        mask = torch.ones_like(ids)
+        x = torch.randn((BATCH, bucket, yardstick.ecfg.hidden),
+                        device=yardstick.device, dtype=torch.bfloat16)
+        with torch.inference_mode():
+            row["mlp_layer_ms"] = cudatime.event_time_ms(
+                lambda: yardstick.model.encoder.layers[0].mlp(x),
+                min_iters=3, max_iters=20)
+            for name, eng in engines.items():
+                flops = moe_forward_flops(eng.ecfg, BATCH, bucket,
+                                          eng.ecfg.moe_dispatch)
+                ms = forward[name][bucket]["forward_ms"]
+                torch.cuda.synchronize()
+                resident = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                eng.model(ids, mask)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+                moe = eng.model.encoder.layers[0].moe
+                layer_ms = cudatime.event_time_ms(
+                    lambda: moe(x, mask), min_iters=3, max_iters=20)
+                row[name] = {
+                    "forward_ms": ms,
+                    "batch_ms": forward[name][bucket]["batch_ms"],
+                    "forward_over_xlmr_base": ms / row[
+                        "xlmr_base_forward_ms"],
+                    "flops": flops, "tflop_per_s": flops / (ms * 1e-3) / 1e12,
+                    "peak_memory_gb": peak / 1e9,
+                    "forward_extra_memory_gb": (peak - resident) / 1e9,
+                    "moe_layer_ms": layer_ms,
+                    "moe_layer_over_mlp": layer_ms / row["mlp_layer_ms"]}
+        rows.append(row)
+        emit("times.moe", model=MOE_MODEL, **row)
+        del ids, mask, x
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_moe(torch, np, device, gen, seed, smi):
+    """Switch-MoE at XLM-R-base width with 8 experts, served through
+    `TPUWorker` in dense, capacity and int8 dispatch on the same seeded
+    bf16 weights; the checks of each dispatch; times."""
+    from distributed_crawler_tpu_torch.bus import RecordBatch
+    from distributed_crawler_tpu_torch.inference import engine as engine_mod
+    from distributed_crawler_tpu_torch.utils.metrics import MetricsRegistry
+
+    refused = check_capacity_int8_refused(engine_mod)
+    engine_mod.MODEL_REGISTRY[MOE_MODEL] = moe_config()
+    t0 = time.perf_counter()
+    ecfg0 = engine_mod.EngineConfig(model=MOE_MODEL).encoder_config()
+    tree = engine_mod.random_tree(ecfg0, seed)
+    tree_s = time.perf_counter() - t0
+
+    def make(model=MOE_MODEL, params=tree, **kw):
+        t = time.perf_counter()
+        eng = engine_mod.InferenceEngine(engine_mod.EngineConfig(
+            model=model, batch_size=BATCH, seed=seed,
+            param_dtype="bfloat16", **kw), params=params,
+            registry=MetricsRegistry())
+        check(eng.device.type == "cuda", f"engine on {eng.device}")
+        return eng, time.perf_counter() - t
+
+    engines, init_s = {}, {}
+    for name, kw in (("dense", {"moe_dispatch": "dense"}),
+                     ("capacity", {"moe_dispatch": "capacity"}),
+                     ("int8", {"moe_dispatch": "dense",
+                               "quantize": "int8"})):
+        engines[name], init_s[name] = make(**kw)
+    ecfg = engines["dense"].ecfg
+    check((ecfg.vocab_size, ecfg.hidden, ecfg.n_layers, ecfg.n_heads,
+           ecfg.mlp_dim, ecfg.n_experts, ecfg.moe_capacity_factor,
+           ecfg.n_labels, ecfg.dtype) == (250002, 768, 12, 12, 3072, 8,
+                                          1.25, 8, "bfloat16"),
+          f"not XLM-R-base's width with 8 experts: {ecfg}")
+    check([e.ecfg.moe_dispatch for e in engines.values()]
+          == ["dense", "capacity", "dense"]
+          and engines["int8"].ecfg.quant == "int8",
+          "dispatch or quantization not applied")
+    t0 = time.perf_counter()
+    for eng in engines.values():
+        eng.warmup()
+    torch.cuda.synchronize()
+    emit("slice.moe.setup", model=MOE_MODEL, batch=BATCH,
+         buckets=list(MAIN_BUCKETS), experts=MOE_EXPERTS,
+         capacity_factor=MOE_CF, random_tree_s=tree_s, engine_init_s=init_s,
+         warmup_s=time.perf_counter() - t0, capacity_int8_refused=refused)
+
+    rng = np.random.default_rng(seed + 9)
+    batches = [RecordBatch.from_records(
+        synthetic_posts(np, rng, BATCH, i * BATCH), crawl_id="smoke-moe")
+        for i in range(8)]
+    served = {}
+    for name, eng in engines.items():
+        if name == "capacity":
+            with _DispatchRecorder(np, eng) as recorder:
+                served[name] = serve_batches(np, eng, batches)
+        else:
+            served[name] = serve_batches(np, eng, batches)
+        torch.cuda.empty_cache()
+    texts = [t for b in batches for t in b.texts()]
+    toks = engines["dense"].tokenizer.encode_batch(texts)
+
+    vs_cpu = check_moe_dense_vs_cpu(torch, np, engines["dense"], toks, rng)
+    cap_rows = check_capacity_vs_dense(torch, np, engines["dense"],
+                                       engines["capacity"], toks)
+    replay = replay_capacity_on_cpu(torch, np, engines["capacity"], recorder)
+    recorder.dispatches.clear()
+    int8_vs = check_quantized_vs_bf16(
+        torch, np, engines["dense"], engines["int8"], toks, 0.98,
+        served=(served["int8"]["emb"], served["dense"]["emb"]))
+    products = check_moe_int8_products(torch, engines["int8"], gen)
+    static, init_s["int8_static"] = make(moe_dispatch="dense",
+                                         quantize="int8_static")
+    check(static.ecfg.quant == "int8_static", "int8_static not applied")
+    static_vs = check_quantized_vs_bf16(torch, np, engines["dense"], static,
+                                        toks, 0.97)
+    del static
+    torch.cuda.empty_cache()
+
+    launches = {p: sum(s["launches_by_path"][p] for s in served.values())
+                for p in served["dense"]["launches_by_path"]}
+    dispatches = sum(s["dispatches"] for s in served.values())
+    emit("slice.moe", records=len(texts), batches=len(batches),
+         served={name: {"result_frames": s["result_frames"],
+                        "dispatches": s["dispatches"],
+                        "kernel_launches_by_path": s["launches_by_path"],
+                        "launches_per_dispatch":
+                            s["launches"] / s["dispatches"],
+                        "coalesced_groups": s["coalesced_groups"]}
+                 for name, s in served.items()},
+         dense_card_bf16_vs_cpu_f32=vs_cpu, capacity_vs_dense=cap_rows,
+         capacity_replay_on_cpu=replay,
+         int8_vs_bf16=int8_vs, int8_static_vs_bf16=static_vs,
+         int8_products=products, engine_init_s=init_s)
+    for name, s in served.items():
+        emit("times.slice", model=MOE_MODEL, dispatch=name,
+             posts=s["emb"].shape[0], seconds=s["seconds"],
+             posts_per_s=s["posts_per_s"],
+             p50_batch_latency_ms=s["p50_ms"],
+             dispatch_latencies=s["latencies"], card=smi)
+    yardstick, _ = make(model="xlmr_base",
+                        params=engine_mod.random_tree(
+                            engine_mod.EngineConfig(
+                                model="xlmr_base").encoder_config(), seed))
+    time_moe(torch, engines, yardstick, smi)
+    del engines, yardstick
+    torch.cuda.empty_cache()
+    return {"launches": launches, "dispatches": dispatches}
+
+
 KERNEL_SOURCES = {"sm90": "flash_attention_sm90.cu",
                   "mma_sync": "flash_attention.cu",
                   "simt": "flash_attention.cu"}
@@ -2319,8 +3052,8 @@ def main() -> int:
     xlmr = phase_xlmr(torch, np, attention, device, gen, args.seed, smi)
     asr = phase_asr(torch, np, attention, device, args.seed, smi)
     clus = phase_cluster(torch, np, attention, device, gen, args.seed, smi)
-    launches = {p: e5["launches"][p] + xlmr["launches"][p]
-                + asr["launches"][p] + clus["launches"][p]
+    moe = phase_moe(torch, np, device, gen, args.seed, smi)
+    launches = {p: sum(ph["launches"][p] for ph in (e5, xlmr, asr, clus, moe))
                 for p in attention.PATHS}
     print(json.dumps({"kernels": [
         kernel_entry(path, rows, worst, launches)

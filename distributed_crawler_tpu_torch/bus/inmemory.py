@@ -6,8 +6,11 @@ inmemory.py`:
 - every payload goes through a JSON round trip, as on a real transport —
   which is what catches a numpy scalar leaking into results;
 - a payload that fails to decode is dropped (it will never parse);
-- a handler that raises is retried up to ``max_redeliveries`` times, then
-  the message goes to the dead letters;
+- a handler that raises is retried up to ``max_redeliveries`` times
+  through `utils/resilience.retry_call` (a fixed ``retry_delay_s`` wait,
+  or the exception's ``retry_after_s`` hint capped at 2 s; each retry
+  counts in ``resilience_retries_total``), then the message goes to the
+  dead letters;
 - delivery is inline on publish (``sync=True``) or on a dispatch thread.
 """
 
@@ -20,7 +23,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-from ..utils import trace
+from ..utils import resilience, trace
 
 logger = logging.getLogger("dct.torch.bus")
 
@@ -42,6 +45,12 @@ class InMemoryBus:
         self.max_redeliveries = max_redeliveries
         self.retry_delay_s = retry_delay_s
         self.sync = sync
+        # The reference's redelivery schedule: a fixed delay (multiplier
+        # 1), ``retry_after_s`` hints honoured up to 2 s.
+        self._retry = resilience.RetryPolicy(
+            max_attempts=max_redeliveries + 1, base_delay_s=retry_delay_s,
+            max_delay_s=max(retry_delay_s, 1.0), multiplier=1.0,
+            jitter=0.0, retry_after_cap_s=2.0)
         self._handlers: Dict[str, List[Handler]] = {}
         self._lock = threading.RLock()
         self._queue: "queue.Queue[Tuple[str, bytes]]" = queue.Queue()
@@ -97,21 +106,6 @@ class InMemoryBus:
                 continue
             self._deliver(topic, data)
 
-    def _call_with_retries(self, handler: Handler,
-                           payload: Dict[str, Any]) -> None:
-        for attempt in range(self.max_redeliveries + 1):
-            try:
-                handler(payload)
-                return
-            except Exception:
-                if attempt == self.max_redeliveries:
-                    raise
-                logger.warning("handler failed (attempt %d of %d); "
-                               "redelivering", attempt + 1,
-                               self.max_redeliveries + 1, exc_info=True)
-                if self.retry_delay_s > 0:
-                    time.sleep(self.retry_delay_s)
-
     def _deliver(self, topic: str, data: bytes) -> None:
         try:
             payload = json.loads(data.decode("utf-8"))
@@ -124,7 +118,9 @@ class InMemoryBus:
                                 transport="inmemory"):
             for handler in handlers:
                 try:
-                    self._call_with_retries(handler, payload)
+                    resilience.retry_call(handler, payload,
+                                          retry=self._retry,
+                                          op=f"bus.inmemory.{topic}")
                     delivered, last_err = True, ""
                 except Exception as e:
                     delivered, last_err = False, str(e)

@@ -72,7 +72,7 @@ MODEL_REGISTRY: Dict[str, EncoderConfig] = {
 # raises instead of being silently ignored.  ``checkpoint_dir`` waits for
 # the training slice, which defines the port's checkpoints (the
 # reference's are orbax OCDBT stores, which need orbax and JAX to read).
-_WAITING_FIELDS = ("checkpoint_dir", "moe_dispatch")
+_WAITING_FIELDS = ("checkpoint_dir",)
 
 
 @dataclass(frozen=True)
@@ -125,8 +125,16 @@ class InferenceEngine:
             if getattr(cfg, name):
                 raise NotImplementedError(
                     f"EngineConfig.{name} is not ported yet")
+        # Validated before any checkpoint I/O, as the reference does.
         if cfg.attention and cfg.attention not in ("auto", "xla", "flash"):
             raise ValueError(f"unknown attention mode {cfg.attention!r}")
+        if cfg.moe_dispatch and cfg.moe_dispatch not in ("dense",
+                                                         "capacity"):
+            raise ValueError(f"unknown moe_dispatch {cfg.moe_dispatch!r}")
+        if cfg.moe_dispatch == "capacity" and cfg.quantize:
+            raise ValueError(
+                "moe_dispatch='capacity' requires quantize unset — the "
+                "int8 expert GEMMs ride dense dispatch")
         if cfg.attention == "xla" and self.device.type == "cuda":
             raise ValueError("attention='xla' selects the plain version, "
                              "which never runs on the card")
@@ -137,6 +145,8 @@ class InferenceEngine:
             self.ecfg = cfg.encoder_config()
         if cfg.attention:
             self.ecfg = replace(self.ecfg, attention=cfg.attention)
+        if cfg.moe_dispatch:
+            self.ecfg = replace(self.ecfg, moe_dispatch=cfg.moe_dispatch)
         self._rows = cfg.batch_size
         self.tokenizer = tokenizer or HashingTokenizer(self.ecfg.vocab_size)
         self.bucket_spec = BucketSpec(

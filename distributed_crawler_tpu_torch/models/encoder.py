@@ -1,4 +1,4 @@
-"""Transformer text encoder: the E5/XLM-R family, dense path, in PyTorch.
+"""Transformer text encoder: the E5/XLM-R family, in PyTorch.
 
 The counterpart of `distributed_crawler_tpu/models/encoder.py`, with the
 same config fields, published presets, module names and numerics:
@@ -14,6 +14,9 @@ same config fields, published presets, module names and numerics:
   tables may be held in a narrower ``embed_dtype``, as the reference's
   ``param_dtype`` casts them);
 - post-LN like BERT, with residual adds in f32;
+- with ``n_experts > 0`` each layer's MLP is a top-1 Switch-MoE
+  (`SwitchMoE`): an f32 router, tanh-GELU experts, dense or capacity
+  dispatch, and int8 experts on the dense dispatch;
 - attention through `ops.mha`: the hand-written CUDA kernel for a CUDA
   tensor, the plain version for a CPU tensor;
 - no dynamic shapes: padding masks, and for packed rows ``segment_ids`` and
@@ -21,9 +24,10 @@ same config fields, published presets, module names and numerics:
 
 With ``calibrate=True`` each projection records its input's abs-max (f32)
 in its module's ``absmax`` dict, which `models/quant.
-calibrate_activation_scales` reads.  Switch-MoE (``n_experts > 0``) waits
-for a later slice and raises ``NotImplementedError``.  ``remat`` is a
-training flag; inference accepts and ignores it.
+calibrate_activation_scales` reads (a MoE layer's experts record nothing,
+as in the reference: they stay dynamic under ``int8_static``).  ``remat``
+is a training flag; inference accepts and ignores it, and the MoE
+load-balancing loss, which only training reads, is not computed.
 """
 
 from __future__ import annotations
@@ -38,7 +42,12 @@ from torch import nn
 
 from ..device import torch_dtype
 from ..ops.attention import mha
-from ..ops.quant import int8_dense, int8_qkv
+from ..ops.quant import (
+    int8_dense,
+    int8_experts_down,
+    int8_experts_up,
+    int8_qkv,
+)
 
 
 @dataclass(frozen=True)
@@ -87,8 +96,6 @@ class EncoderConfig:
                              "(quant='none')")
         if self.attention not in ("auto", "xla", "flash"):
             raise ValueError(f"unknown attention mode {self.attention!r}")
-        if self.n_experts:
-            raise NotImplementedError("Switch-MoE is not ported yet")
 
     @property
     def quantized(self) -> bool:
@@ -222,6 +229,126 @@ class DenseMLP(_Calibrated):
         return self.mlp_down(h)
 
 
+class SwitchMoE(nn.Module):
+    """Top-1 switch MLP (the reference's ``SwitchMoE``), dispatch by
+    ``cfg.moe_dispatch``:
+
+    - ``router``: an f32 `Dense` ``[E, h]`` with bias on the f32 input;
+      softmax, then ``argmax`` (the first index wins ties, as in
+      ``jnp.argmax``);
+    - experts: tanh GELU; ``experts_up`` ``[E, m, h]`` and ``experts_down``
+      ``[E, h, m]`` in the activation dtype, each expert ``[out, in]`` as
+      `Dense` holds its weight (the reference's kernels are ``[E, in,
+      out]``).  Under int8 they are ``*_q`` int8 buffers of the same
+      layout with per-(expert, output channel) f32 scales ``[E, m]`` and
+      ``[E, h]``;
+    - the output is scaled by the chosen expert's router probability, cast
+      to the activation dtype before the product.
+
+    ``"dense"`` runs every expert on every token, then takes the chosen
+    one's output: one ``[N, h] x [h, E*m]`` product up, one product per
+    expert down (batched), an exact gather.  ``"capacity"`` packs each
+    group of ``_GROUP`` tokens into ``cap = ceil(g / E * cf)`` slots per
+    expert in arrival order; tokens past capacity, and tokens with mask 0,
+    contribute zero.  The reference packs and unpacks with one-hot
+    products; here a scatter packs and a gather unpacks, which selects the
+    same values exactly."""
+
+    _GROUP = 4096
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        e, h, m = cfg.n_experts, cfg.hidden, cfg.mlp_dim
+        self.router = Dense(h, e, dtype=torch.float32)
+        if cfg.quantized:
+            self.register_buffer("experts_up_q", torch.zeros(
+                e, m, h, dtype=torch.int8))
+            self.register_buffer("experts_up_scale", torch.ones(e, m))
+            self.register_buffer("experts_down_q", torch.zeros(
+                e, h, m, dtype=torch.int8))
+            self.register_buffer("experts_down_scale", torch.ones(e, h))
+        else:
+            self.experts_up = nn.Parameter(
+                torch.empty(e, m, h, dtype=cfg.adtype))
+            self.experts_down = nn.Parameter(
+                torch.empty(e, h, m, dtype=cfg.adtype))
+
+    def route(self, x: torch.Tensor):
+        """(probs [..., E] f32, top [...] int64) of the f32 router."""
+        probs = torch.softmax(self.router(x.float()), dim=-1)
+        return probs, torch.argmax(probs, dim=-1)
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        probs, top = self.route(x)
+        if self.cfg.moe_dispatch == "capacity":
+            out = self._capacity_experts(x, top, mask)
+        else:
+            out = self._dense_experts(x, top)
+        chosen = probs.gather(-1, top[..., None])
+        return out * chosen.to(self.cfg.adtype)
+
+    def _dense_experts(self, x: torch.Tensor,
+                       top: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        e, h, m = cfg.n_experts, cfg.hidden, cfg.mlp_dim
+        xf = x.reshape(-1, h)
+        if cfg.quantized:
+            hid = int8_experts_up(xf, self.experts_up_q,
+                                  self.experts_up_scale, out_dtype=cfg.adtype)
+            hid = F.gelu(hid, approximate="tanh")
+            out = int8_experts_down(hid, self.experts_down_q,
+                                    self.experts_down_scale,
+                                    out_dtype=cfg.adtype)      # [N, E, h]
+            out = out.transpose(0, 1)                          # [E, N, h]
+        else:
+            hid = F.linear(xf, self.experts_up.reshape(e * m, h))
+            hid = F.gelu(hid, approximate="tanh").view(-1, e, m)
+            out = torch.bmm(hid.transpose(0, 1),
+                            self.experts_down.transpose(1, 2))  # [E, N, h]
+        idx = top.reshape(1, -1, 1).expand(1, xf.shape[0], h)
+        return out.gather(0, idx).view(x.shape)
+
+    def _capacity_experts(self, x: torch.Tensor, top: torch.Tensor,
+                          mask: Optional[torch.Tensor]) -> torch.Tensor:
+        cfg = self.cfg
+        e, h = cfg.n_experts, cfg.hidden
+        n = top.numel()
+        g = min(n, self._GROUP)
+        k = int(math.ceil(n / g))
+        n_pad = k * g
+        # The reference's expression, in Python floats.
+        cap = max(1, int(math.ceil(g / e * cfg.moe_capacity_factor)))
+        topf = top.reshape(n)
+        valid = (torch.ones(n, dtype=torch.bool, device=x.device)
+                 if mask is None else mask.reshape(n).bool())
+        if n_pad != n:
+            topf = F.pad(topf, (0, n_pad - n))
+            valid = F.pad(valid, (0, n_pad - n))
+        # 0-based arrival rank of each token in its expert's queue within
+        # its group; padding tokens never route, so they take no slot.
+        onehot = F.one_hot(topf, e) * valid[:, None]
+        arrivals = torch.cumsum(onehot.view(k, g, e), dim=1).view(n_pad, e)
+        rank = arrivals.gather(1, topf[:, None]).squeeze(1) - 1
+        keep = valid & (rank < cap)
+        group = torch.arange(n_pad, device=x.device) // g
+        # Slot of each kept token in [E, K*cap]; the rest write one spare
+        # row past the end, which nothing reads.
+        slots = e * k * cap
+        slot = torch.where(keep, (topf * k + group) * cap + rank,
+                           torch.full_like(rank, slots))[:n]
+        packed = torch.zeros(slots + 1, h, dtype=x.dtype, device=x.device)
+        packed.index_copy_(0, slot, x.reshape(n, h))
+        x_e = packed[:slots].view(e, k * cap, h)
+        hid = F.gelu(torch.bmm(x_e, self.experts_up.transpose(1, 2)),
+                     approximate="tanh")
+        out_e = torch.bmm(hid, self.experts_down.transpose(1, 2))
+        rows = out_e.view(slots, h).index_select(0, slot.clamp(max=slots - 1))
+        y = torch.where(keep[:n, None], rows, torch.zeros_like(rows))
+        return y.view(x.shape)
+
+
 def _layer_norm(cfg: EncoderConfig) -> nn.LayerNorm:
     return nn.LayerNorm(cfg.hidden, eps=cfg.layer_norm_eps,
                         dtype=torch.float32)
@@ -233,7 +360,10 @@ class EncoderLayer(nn.Module):
         self.cfg = cfg
         self.attn = SelfAttention(cfg)
         self.ln_attn = _layer_norm(cfg)
-        self.mlp = DenseMLP(cfg)
+        if cfg.n_experts:
+            self.moe = SwitchMoE(cfg)
+        else:
+            self.mlp = DenseMLP(cfg)
         self.ln_mlp = _layer_norm(cfg)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
@@ -241,7 +371,7 @@ class EncoderLayer(nn.Module):
         adtype = self.cfg.adtype
         a = self.attn(x, mask, segment_ids)
         x = self.ln_attn(x.float() + a.float()).to(adtype)
-        m = self.mlp(x)
+        m = self.moe(x, mask) if self.cfg.n_experts else self.mlp(x)
         return self.ln_mlp(x.float() + m.float()).to(adtype)
 
 
@@ -397,16 +527,26 @@ def _fill(param: torch.Tensor, generator: torch.Generator, draw) -> None:
 
 @torch.no_grad()
 def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
-    """The LayerNorms and `Dense` layers under ``module``, in module order:
-    unit scales and zero biases; fan-in truncated normal kernels on
-    [-2σ, 2σ], σ corrected for the truncation (jax's variance_scaling
-    constant), zero biases."""
+    """The LayerNorms, `Dense` layers and float Switch-MoE experts under
+    ``module``, in module order: unit scales and zero biases; fan-in
+    truncated normal kernels on [-2σ, 2σ], σ corrected for the truncation
+    (jax's variance_scaling constant), zero biases.  Each expert's fan-in
+    is its input width, as flax's ``lecun_normal`` counts it for an
+    ``[E, in, out]`` kernel."""
     for m in module.modules():
         if isinstance(m, nn.LayerNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
         elif isinstance(m, Dense):
-            std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
-            _fill(m.weight, generator, lambda t: nn.init.trunc_normal_(
-                t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator))
+            _fill(m.weight, generator,
+                  _trunc_normal(m.in_features, generator))
             m.bias.zero_()
+        elif isinstance(m, SwitchMoE) and not m.cfg.quantized:
+            for w in (m.experts_up, m.experts_down):
+                _fill(w, generator, _trunc_normal(w.shape[-1], generator))
+
+
+def _trunc_normal(fan_in: int, generator: torch.Generator):
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    return lambda t: nn.init.trunc_normal_(t, 0.0, std, -2.0 * std,
+                                           2.0 * std, generator=generator)

@@ -9,7 +9,8 @@ unknown leaf, a shape mismatch or a float leaf where int8 is expected
 raises — no leaf is ever skipped.  Flax kernels are ``[in, out]`` and are
 transposed into ``nn.Linear``'s ``[out, in]``; the fused ``qkv`` kernel
 ``[h, 3, h]`` is reshaped to ``[h, 3h]`` (q/k/v major) first.  Flax conv
-kernels ``[k, in, out]`` become ``nn.Conv1d``'s ``[out, in, k]``.  Float
+kernels ``[k, in, out]`` become ``nn.Conv1d``'s ``[out, in, k]``, and
+Switch-MoE expert kernels ``[E, in, out]`` become ``[E, out, in]``.  Float
 leaves take the target's dtype (bf16 for Whisper's Dense and conv
 weights, as flax casts them at use).  The int8 layout
 (``quant="int8"``/``"int8_static"``) has ``kernel_q`` int8 in place of
@@ -24,12 +25,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from .encoder import EmbedderClassifier, QuantDense
+from .encoder import EmbedderClassifier, QuantDense, SwitchMoE
 from .whisper import MHA, MLP, Whisper
 
 # flax path -> (torch tensor, flax shape, kind): a "kernel" leaf is the
 # flax array reshaped to [shape[0], -1] and transposed; a "conv" leaf is
-# the flax array with its axes reversed; a "plain" leaf is the flax array
+# the flax array with its axes reversed; an "experts" leaf is the flax
+# array with its last two axes swapped; a "plain" leaf is the flax array
 # reshaped to the tensor's shape.
 _Leaf = Tuple[torch.Tensor, Tuple[int, ...], str]
 
@@ -67,6 +69,24 @@ def _dense(prefix: str, module: nn.Module) -> Dict[str, _Leaf]:
     return _proj(prefix + "/", module, (in_f, out_f))
 
 
+def _moe(prefix: str, moe: SwitchMoE) -> Dict[str, _Leaf]:
+    """The router and the expert kernels (float ``kernel``, or int8
+    ``kernel_q`` with its ``[E, out]`` ``scale``)."""
+    leaves = _dense(f"{prefix}/router", moe.router)
+    quantized = moe.cfg.quantized
+    for name in ("experts_up", "experts_down"):
+        t = getattr(moe, f"{name}_q" if quantized else name)
+        e, out_f, in_f = t.shape
+        key = f"{prefix}/{name}/kernel"
+        if quantized:
+            leaves[f"{key}_q"] = (t, (e, in_f, out_f), "experts")
+            leaves[f"{prefix}/{name}/scale"] = _plain(
+                getattr(moe, f"{name}_scale"), (e, out_f))
+        else:
+            leaves[key] = (t, (e, in_f, out_f), "experts")
+    return leaves
+
+
 def _layer_norm(prefix: str, module: nn.LayerNorm) -> Dict[str, _Leaf]:
     n = module.weight.shape[0]
     return {f"{prefix}/scale": _plain(module.weight, (n,)),
@@ -89,8 +109,11 @@ def flax_leaves(model: EmbedderClassifier) -> Dict[str, _Leaf]:
         leaves.update(_proj(f"{p}/attn/qkv/", layer.attn.qkv, (h, 3, h)))
         leaves.update(_dense(f"{p}/attn/attn_out", layer.attn.attn_out))
         leaves.update(_layer_norm(f"{p}/ln_attn", layer.ln_attn))
-        leaves.update(_dense(f"{p}/mlp/mlp_up", layer.mlp.mlp_up))
-        leaves.update(_dense(f"{p}/mlp/mlp_down", layer.mlp.mlp_down))
+        if model.cfg.n_experts:
+            leaves.update(_moe(f"{p}/moe", layer.moe))
+        else:
+            leaves.update(_dense(f"{p}/mlp/mlp_up", layer.mlp.mlp_up))
+            leaves.update(_dense(f"{p}/mlp/mlp_down", layer.mlp.mlp_down))
         leaves.update(_layer_norm(f"{p}/ln_mlp", layer.ln_mlp))
     leaves.update(_dense("cls_head/pooler", model.cls_head.pooler))
     leaves.update(_dense("cls_head/head", model.cls_head.head))
@@ -138,6 +161,8 @@ def _load(model: nn.Module, tree: Mapping[str, Any],
                 arr = arr.reshape(arr.shape[0], -1).T
             elif kind == "conv":
                 arr = arr.transpose(2, 1, 0)
+            elif kind == "experts":
+                arr = arr.transpose(0, 2, 1)
             src = np.array(arr.reshape(target.shape), order="C",
                            dtype=np.int8 if arr.dtype == np.int8
                            else np.float32)  # a writable copy
@@ -154,6 +179,8 @@ def _to_tree(expected: Dict[str, _Leaf]) -> Dict[str, Any]:
             a = a.T
         elif kind == "conv":
             a = a.permute(2, 1, 0)
+        elif kind == "experts":
+            a = a.transpose(1, 2)
         *parents, leaf = _split(path)
         node = out
         for key in parents:
@@ -238,10 +265,14 @@ def whisper_flax_tree(model: Whisper) -> Dict[str, Any]:
     return _to_tree(whisper_leaves(model))
 
 
+# Params the reference declares with a "/" in their name: one key of
+# their module's subtree (``attn/qkv/kernel``, ``moe/experts_up/scale``).
+_SLASHED = ("qkv", "experts_up", "experts_down")
+
+
 def _split(path: str):
-    """A flax path into tree keys: ``qkv/kernel`` and its siblings are one
-    key of the attention subtree, as the reference names them."""
+    """A flax path into tree keys."""
     parts = path.split("/")
-    if len(parts) >= 2 and parts[-2] == "qkv":
-        return parts[:-2] + [f"qkv/{parts[-1]}"]
+    if len(parts) >= 2 and parts[-2] in _SLASHED:
+        return parts[:-2] + [f"{parts[-2]}/{parts[-1]}"]
     return parts

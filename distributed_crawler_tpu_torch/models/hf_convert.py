@@ -41,8 +41,11 @@ from .whisper import WhisperConfig
 
 _POS_OFFSET = 2  # RoBERTa: padding_idx (1) + 1
 
-# The dtypes ``safetensors.numpy`` reads; it raises on the others (BF16 and
-# the F8 family have no numpy dtype).
+# The dtypes ``safetensors.numpy`` reads as they are stored.  BF16 has no
+# numpy dtype of its own: the reference's process has JAX imported, which
+# registers ml_dtypes' ``bfloat16``, so the library reads it there and the
+# converters widen it to f32; this reader widens it to f32 at once (the
+# same values).  The F8 family and the rest raise, as in the library.
 _ST_DTYPES = {
     "F64": "<f8", "F32": "<f4", "F16": "<f2",
     "I64": "<i8", "U64": "<u8", "I32": "<i4", "U32": "<u4",
@@ -54,7 +57,8 @@ _ST_DTYPES = {
 def read_safetensors(path: str) -> Dict[str, np.ndarray]:
     """Read a ``.safetensors`` file into writable numpy arrays: a
     little-endian u64 header length, a JSON header of ``dtype``, ``shape``
-    and ``data_offsets`` per tensor, then the raw bytes."""
+    and ``data_offsets`` per tensor, then the raw bytes.  BF16 tensors come
+    back as f32, widened exactly."""
     out: Dict[str, np.ndarray] = {}
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
@@ -64,10 +68,12 @@ def read_safetensors(path: str) -> Dict[str, np.ndarray]:
             if name == "__metadata__":
                 continue
             dt = info["dtype"]
-            if dt not in _ST_DTYPES:
-                name_np = "bfloat16" if dt == "BF16" else dt.lower()
-                raise TypeError(f"data type {name_np!r} not understood")
-            dtype = np.dtype(_ST_DTYPES[dt])
+            if dt == "BF16":
+                dtype = np.dtype("<u2")
+            elif dt in _ST_DTYPES:
+                dtype = np.dtype(_ST_DTYPES[dt])
+            else:
+                raise TypeError(f"data type {dt.lower()!r} not understood")
             shape = tuple(int(d) for d in info["shape"])
             begin, end = (int(x) for x in info["data_offsets"])
             count = int(np.prod(shape))
@@ -78,6 +84,9 @@ def read_safetensors(path: str) -> Dict[str, np.ndarray]:
             arr = np.fromfile(f, dtype=dtype, count=count)
             if arr.size != count:
                 raise ValueError(f"{path}: tensor {name!r} is truncated")
+            if dt == "BF16":
+                # The upper half of an f32: shift the 16 bits into place.
+                arr = (arr.astype("<u4") << 16).view("<f4")
             out[name] = arr.reshape(shape)
     return out
 

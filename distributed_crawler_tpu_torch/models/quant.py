@@ -8,9 +8,15 @@ consumes.  `quantize_encoder_params` rewrites the projections:
     layers_i/{attn/attn_out, mlp/mlp_up, mlp/mlp_down}/kernel
                                           → kernel_q int8 [in,out] + scale
 
+    layers_i/moe/experts_{up,down}/kernel [E,in,out]
+                                          → experts_*/kernel_q int8 + scale
+                                            [E,out] (per expert and output
+                                            channel)
+
 with the biases kept (as f32), and under ``int8_static`` a calibrated
-scalar ``a_scale`` beside each.  Embeddings, LayerNorms and the head pass
-through.  Switch-MoE expert kernels wait with MoE and raise.
+scalar ``a_scale`` beside each projection but the experts, which stay
+dynamic.  Embeddings, LayerNorms, the MoE router and the head pass
+through.
 """
 
 from __future__ import annotations
@@ -25,11 +31,11 @@ from ..ops.quant import quant_scale, quantize_weights
 _PROJ_MODULES = ("attn_out", "mlp_up", "mlp_down")
 
 
-def _quantize(kernel: Any) -> Dict[str, np.ndarray]:
-    """A flax kernel (contracting axis 0) → ``kernel_q`` and ``scale``."""
+def _quantize(kernel: Any, contract_axis: int = 0) -> Dict[str, np.ndarray]:
+    """A flax kernel → ``kernel_q`` and ``scale``."""
     w_q, scale = quantize_weights(
         torch.from_numpy(np.array(kernel, dtype=np.float32)),
-        contract_axis=0)
+        contract_axis=contract_axis)
     return {"kernel_q": w_q.numpy(), "scale": scale.numpy()}
 
 
@@ -80,9 +86,6 @@ def quantize_encoder_params(params: Mapping[str, Any],
             continue
         layer = {k: dict(v) if isinstance(v, Mapping) else v
                  for k, v in layer.items()}
-        if "moe" in layer:
-            raise NotImplementedError(
-                "int8 Switch-MoE experts are not ported yet")
         attn = layer.get("attn")
         if isinstance(attn, dict) and "qkv/kernel" in attn:
             q = _quantize(attn.pop("qkv/kernel"))
@@ -107,6 +110,14 @@ def quantize_encoder_params(params: Mapping[str, Any],
                     if absmax is not None:
                         out["a_scale"] = _act_scale(absmax)
                     holder[mod_name] = out
+        moe = layer.get("moe")
+        if isinstance(moe, dict):
+            # Expert kernels [E, in, out] contract their middle axis.
+            for kname in ("experts_up/kernel", "experts_down/kernel"):
+                if kname in moe:
+                    q = _quantize(moe.pop(kname), contract_axis=1)
+                    moe[kname + "_q"] = q["kernel_q"]
+                    moe[kname.replace("/kernel", "/scale")] = q["scale"]
         enc[name] = layer
 
     if enc_key:
@@ -129,16 +140,19 @@ def calibrate_activation_scales(model: torch.nn.Module, ids: torch.Tensor,
     if not model.cfg.calibrate:
         raise ValueError("calibrate_activation_scales needs a model built "
                          "with calibrate=True")
-    layers = model.encoder.layers
-    for layer in layers:
-        layer.attn.absmax.clear()
-        layer.mlp.absmax.clear()
+    # A MoE layer's experts record nothing (the reference's SwitchMoE
+    # sows no abs-max), so its entry holds the attention only.
+    holders = [{name: getattr(layer, name) for name in ("attn", "mlp")
+                if hasattr(layer, name)} for layer in model.encoder.layers]
+    for held in holders:
+        for mod in held.values():
+            mod.absmax.clear()
     model(ids, mask)
     return {"encoder": {
         f"layers_{i}": {
-            "attn": {k: v.cpu().numpy() for k, v in layer.attn.absmax.items()},
-            "mlp": {k: v.cpu().numpy() for k, v in layer.mlp.absmax.items()},
-        } for i, layer in enumerate(layers)}}
+            name: {k: v.cpu().numpy() for k, v in mod.absmax.items()}
+            for name, mod in held.items()}
+        for i, held in enumerate(holders)}}
 
 
 def quantized_size_bytes(params: Mapping[str, Any]) -> int:

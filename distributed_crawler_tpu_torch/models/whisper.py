@@ -403,13 +403,21 @@ class TextDecoder(nn.Module):
                 ) -> torch.Tensor:
         """Teacher forcing: tokens [B, T] -> logits [B, T, V]."""
         t = tokens.shape[1]
-        x = self.embed_tokens[tokens.long()] + self.embed_positions[:t][None]
+        x = (self.embed_tokens[self._vocab_index(tokens)]
+             + self.embed_positions[:t][None])
         x = x.to(self.cfg.adtype)
         causal = torch.tril(torch.ones((t, t), dtype=torch.bool,
                                        device=x.device))[None, None]
         for layer in self.layers:
             x = layer(x, xa, causal)
         return self._logits(x)
+
+    def _vocab_index(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Token ids clamped into the table, as JAX's gather clamps them: a
+        special token past a small vocabulary reads the last row.  On the
+        card an index out of range would be a device-side assert that
+        leaves the process's CUDA context unusable."""
+        return tokens.long().clamp(0, self.embed_tokens.shape[0] - 1)
 
     def init_cache(self, batch: int) -> Cache:
         c = self.cfg
@@ -426,7 +434,7 @@ class TextDecoder(nn.Module):
              cross_kvs: Cache) -> Tuple[torch.Tensor, Cache]:
         """token_t [B, 1] at position ``pos`` -> (logits [B, V], cache);
         the cache tensors are updated in place."""
-        x = (self.embed_tokens[token_t.long()]
+        x = (self.embed_tokens[self._vocab_index(token_t)]
              + self.embed_positions[pos][None, None])
         x = x.to(self.cfg.adtype)
         mask = causal_step_mask(self.cfg.n_text_ctx, pos, x.device)

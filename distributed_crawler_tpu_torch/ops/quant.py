@@ -1,9 +1,9 @@
 """Int8 projections: symmetric quantization and int8×int8→int32 products.
 
-The counterpart of `distributed_crawler_tpu/ops/quant.py` (dense and fused
-QKV; the Switch-MoE expert products wait with MoE), on the same grid so
-that the int8 values, the scales and the int32 accumulators are equal to
-the reference's bit for bit:
+The counterpart of `distributed_crawler_tpu/ops/quant.py` (dense, fused
+QKV and the Switch-MoE expert products), on the same grid so that the int8
+values, the scales and the int32 accumulators are equal to the reference's
+bit for bit:
 
 - **weights**: per-output-channel symmetric int8, quantized once when the
   engine starts (`models/quant.quantize_encoder_params`);
@@ -15,12 +15,12 @@ the reference's bit for bit:
   ``acc * a_scale * w_scale``, then the f32 bias, then the cast.
 
 Weights are stored ``[out, in]`` (``nn.Linear``'s layout; the reference's
-flax kernels are ``[in, out]``).  The product is :func:`int8_matmul`: one
-``torch._int_mm`` call.  It is XLA's in the reference, not a Pallas
-kernel, so a library call carries it.  On the card that call goes to
-cuBLASLt, which takes only more than 16 rows and k, n multiples of 8: a
-shape it refuses raises here, before any launch; nothing falls back to a
-dequantized float product.
+flax kernels are ``[in, out]``), expert weights ``[E, out, in]``.  The
+product is :func:`int8_matmul`: one ``torch._int_mm`` call.  It is XLA's
+in the reference, not a Pallas kernel, so a library call carries it.  On
+the card that call goes to cuBLASLt, which takes only more than 16 rows
+and k, n multiples of 8: a shape it refuses raises here, before any
+launch; nothing falls back to a dequantized float product.
 """
 
 from __future__ import annotations
@@ -139,3 +139,35 @@ def int8_qkv(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                      None if bias is None else bias.reshape(-1),
                      out_dtype=out_dtype, a_scale=a_scale)
     return out.view(*x.shape[:-1], 3, h)
+
+
+def int8_experts_up(x: torch.Tensor, w_q: torch.Tensor,
+                    w_scale: torch.Tensor,
+                    out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Switch-MoE up projection, int8: ``[..., h]`` → ``[..., E, m]`` for
+    every expert.  w_q is ``[E, m, h]`` int8, w_scale ``[E, m]``.  The
+    activations quantize per token over h; one int8 product against all
+    ``E*m`` output channels."""
+    e, m, h = w_q.shape
+    out = int8_dense(x, w_q.reshape(e * m, h), w_scale.reshape(e * m),
+                     out_dtype=out_dtype)
+    return out.view(*x.shape[:-1], e, m)
+
+
+def int8_experts_down(hid: torch.Tensor, w_q: torch.Tensor,
+                      w_scale: torch.Tensor,
+                      out_dtype: torch.dtype = torch.bfloat16
+                      ) -> torch.Tensor:
+    """Switch-MoE down projection, int8: ``[..., E, m]`` → ``[..., E, h]``.
+    w_q is ``[E, h, m]`` int8, w_scale ``[E, h]``.  The activations
+    re-quantize per (token, expert) over m; one int8 product per expert."""
+    e, h, m = w_q.shape
+    lead = hid.shape[:-2]
+    h_q, h_scale = quantize_activations(hid.reshape(-1, e, m))
+    out = torch.empty((h_q.shape[0], e, h), dtype=out_dtype,
+                      device=hid.device)
+    for i in range(e):
+        acc = int8_matmul(h_q[:, i], w_q[i])
+        out[:, i] = dequantize(acc, h_scale[:, i], w_scale[i], None,
+                               out_dtype)
+    return out.view(*lead, e, h)

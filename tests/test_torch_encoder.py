@@ -203,19 +203,20 @@ class TestLoader:
 
 
 @pytest.mark.parametrize("change, err", [
-    ({"n_experts": 4}, NotImplementedError),
+    ({"n_experts": 4, "moe_dispatch": "capacity", "quant": "int8"},
+     ValueError),
     ({"quant": "int8", "calibrate": True}, ValueError),
     ({"quant": "int8_static", "calibrate": True}, ValueError),
     ({"quant": "int4"}, ValueError),
 ])
 def test_waiting_features_raise(change, err):
-    """Switch-MoE still waits; the int8 and calibration configs are held
-    to the reference's ``validate()``: the same configs raise there."""
+    """Configs the reference's ``validate()`` refuses raise here too:
+    capacity dispatch with int8 experts, int8 with calibration, an unknown
+    quant mode."""
     with pytest.raises(err):
         tenc.EmbedderClassifier(dataclasses.replace(tenc.TINY_TEST, **change))
-    if err is ValueError:
-        with pytest.raises(ValueError):
-            dataclasses.replace(jenc.TINY_TEST, **change).validate()
+    with pytest.raises(err):
+        dataclasses.replace(jenc.TINY_TEST, **change).validate()
 
 
 def test_remat_is_accepted_and_ignored():

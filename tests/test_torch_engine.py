@@ -220,13 +220,13 @@ class TestConfig:
     @pytest.mark.parametrize("field, value", [
         ("pretrained_dir", "/nonexistent"), ("checkpoint_dir", "/x"),
         ("param_dtype", "no_such_dtype"), ("quantize", "int4"),
-        ("moe_dispatch", "capacity")])
+        ("moe_dispatch", "sparse")])
     def test_waiting_fields_raise(self, field, value):
-        """``checkpoint_dir`` and ``moe_dispatch`` still wait; a ported
-        field set wrong raises the exception type the reference's engine
-        raises for the same config."""
+        """``checkpoint_dir`` still waits; a ported field set wrong raises
+        the exception type the reference's engine raises for the same
+        config."""
         cfg = {**CFG, field: value}
-        if field in ("checkpoint_dir", "moe_dispatch"):
+        if field == "checkpoint_dir":
             expected = NotImplementedError
         else:
             with pytest.raises(Exception) as ref:
@@ -238,6 +238,28 @@ class TestConfig:
             teng.InferenceEngine(teng.EngineConfig(**cfg),
                                  registry=MetricsRegistry(), device="cpu")
         assert type(got.value) is expected
+
+    @pytest.mark.parametrize("pretrained", [False, True])
+    def test_capacity_with_quantize_raises_before_any_load(
+            self, monkeypatch, pretrained):
+        """The reference refuses ``capacity`` with ``quantize`` from the
+        config alone; so does the port, before reading a checkpoint or
+        drawing a weight."""
+        cfg = {**CFG, "moe_dispatch": "capacity", "quantize": "int8"}
+        if pretrained:
+            cfg["pretrained_dir"] = "/nonexistent"
+        with pytest.raises(ValueError, match="capacity"):
+            jeng.InferenceEngine(jeng.EngineConfig(**cfg),
+                                 registry=JaxRegistry())
+
+        def no_weights(*a, **k):
+            raise AssertionError("weights were loaded")
+
+        monkeypatch.setattr(teng, "random_tree", no_weights)
+        monkeypatch.setattr(teng, "_load_pretrained", no_weights)
+        with pytest.raises(ValueError, match="capacity"):
+            teng.InferenceEngine(teng.EngineConfig(**cfg),
+                                 registry=MetricsRegistry(), device="cpu")
 
     def test_mesh_raises(self):
         with pytest.raises(NotImplementedError):
@@ -298,6 +320,7 @@ def _assert_mode_results_match(a, b):
 def checkpoints(tmp_path_factory):
     import tests.test_hf_convert as hf_tests
     from tests.test_hf_convert import make_roberta_state, write_checkpoint
+    from tests.test_torch_hf_convert import write_bf16_checkpoint
 
     # The states draw from test_hf_convert's module RNG (seed 42, `:33`):
     # start it where a fresh process has it, so the checkpoints do not
@@ -312,6 +335,11 @@ def checkpoints(tmp_path_factory):
             "encoder_only": write_checkpoint(
                 tmp_path_factory.mktemp("enc"), make_roberta_state(False),
                 fmt="bin"),
+            # Every tensor stored as BF16, as many published checkpoints
+            # ship.
+            "bf16": write_bf16_checkpoint(
+                tmp_path_factory.mktemp("bf16"),
+                make_roberta_state(True, "roberta.")),
         }
     finally:
         hf_tests.RNG.bit_generator.state = saved
@@ -328,6 +356,7 @@ def _ref_probe(jcfg, je):
 @pytest.mark.parametrize("name, extra", [
     ("pretrained", dict(pretrained_dir="head")),
     ("pretrained_encoder_only", dict(pretrained_dir="encoder_only")),
+    ("pretrained_bf16_checkpoint", dict(pretrained_dir="bf16")),
     ("pretrained_int8", dict(pretrained_dir="head", quantize="int8")),
     ("pretrained_bf16_int8_static",
      dict(pretrained_dir="encoder_only", param_dtype="bfloat16",
@@ -382,6 +411,55 @@ def test_serving_modes_match(checkpoints, monkeypatch, caplog, name, extra):
                 "a_scale"]
             np.testing.assert_allclose(float(ta), float(ja), rtol=rtol)
     texts = _texts(8, n=11)
+    for pack in (False, True):
+        _assert_mode_results_match(te.run(texts, pack=pack),
+                                   je.run(texts, pack=pack))
+
+
+@pytest.mark.parametrize("extra", [
+    dict(moe_dispatch="dense"),
+    dict(moe_dispatch="capacity"),
+    dict(moe_dispatch="capacity", param_dtype="bfloat16"),
+    dict(moe_dispatch="dense", quantize="int8"),
+    dict(quantize="int8_static", param_dtype="bfloat16"),
+], ids=lambda d: "-".join(f"{v}" for v in d.values()))
+def test_moe_serving_matches(monkeypatch, extra):
+    """A Switch-MoE config (TINY_TEST widths, 4 experts) added to both
+    packages' registries, as a deployment adds one: the port's engine on
+    the reference's f32 tree against the reference's engine.  Under
+    ``param_dtype`` the router's f32 weights are rounded as the
+    reference's cast rounds them."""
+    import dataclasses
+
+    from distributed_crawler_tpu.models import encoder as jenc
+    from distributed_crawler_tpu_torch.models import encoder as tenc
+
+    monkeypatch.setitem(jeng.MODEL_REGISTRY, "tiny_moe", dataclasses.replace(
+        jenc.TINY_TEST, n_experts=4))
+    monkeypatch.setitem(teng.MODEL_REGISTRY, "tiny_moe", dataclasses.replace(
+        tenc.TINY_TEST, n_experts=4))
+    cfg = {**MODE_CFG, "model": "tiny_moe", "n_labels": 5, **extra}
+    jcfg = jeng.EngineConfig(**cfg)
+    je = jeng.InferenceEngine(jcfg, registry=JaxRegistry())
+    float_cfg = {k: v for k, v in cfg.items()
+                 if k not in ("quantize", "param_dtype")}
+    params = jax.tree.map(np.asarray, jeng.InferenceEngine(
+        jeng.EngineConfig(**float_cfg), registry=JaxRegistry()).params)
+    monkeypatch.setattr(teng, "calibration_probe",
+                        lambda *a, **k: _ref_probe(jcfg, je))
+    te = teng.InferenceEngine(teng.EngineConfig(**cfg), params=params,
+                              registry=MetricsRegistry(), device="cpu")
+    assert dataclasses.asdict(te.ecfg) == dataclasses.asdict(je.ecfg)
+    assert te.ecfg.moe_dispatch == cfg.get("moe_dispatch", "dense")
+    router = te.model.encoder.layers[0].moe.router.weight
+    assert router.dtype == torch.float32
+    if "param_dtype" in cfg:
+        assert torch.equal(router, router.to(torch.bfloat16).float())
+        jr = je.params["params"]["encoder"]["layers_0"]["moe"]["router"][
+            "kernel"]
+        np.testing.assert_array_equal(
+            router.detach().numpy().T, np.asarray(jr.astype(np.float32)))
+    texts = _texts(9, n=11)
     for pack in (False, True):
         _assert_mode_results_match(te.run(texts, pack=pack),
                                    je.run(texts, pack=pack))

@@ -159,11 +159,11 @@ def test_safetensors_reader_equals_library(tmp_path):
         assert a.flags.writeable
 
 
-@pytest.mark.parametrize("code, width", [("BF16", 2), ("F8_E4M3", 1)])
+@pytest.mark.parametrize("code, width", [("F8_E4M3", 1)])
 def test_safetensors_reader_raises_where_library_does(tmp_path, code, width):
-    """Types numpy has no dtype for.  The library is asked in a process
-    without JAX: importing JAX registers ``bfloat16`` with numpy (through
-    ml_dtypes), after which the library reads BF16."""
+    """Types numpy has no dtype for, which the library refuses too.  The
+    library is asked in a process without JAX, as the port's machine has
+    none."""
     path = str(tmp_path / "x.safetensors")
     _write_raw(path, [("x", code, (2, 3), bytes(6 * width))])
     code_lib = ("from safetensors.numpy import load_file\n"
@@ -178,8 +178,35 @@ def test_safetensors_reader_raises_where_library_does(tmp_path, code, width):
     assert lib_error, "the library read it"
     with pytest.raises(TypeError):
         thf.read_safetensors(path)
-    if code == "BF16":
-        assert lib_error == "TypeError"
+
+
+def write_bf16_checkpoint(tmp_path, state):
+    """`write_checkpoint`'s layout with every tensor stored as BF16 (JAX
+    is imported here, so numpy knows ml_dtypes' ``bfloat16``)."""
+    import jax.numpy as jnp
+
+    return write_checkpoint(tmp_path, {k: v.astype(jnp.bfloat16)
+                                       for k, v in state.items()})
+
+
+@pytest.mark.parametrize("with_head", [True, False])
+def test_bf16_checkpoint_converts_as_the_reference(tmp_path, with_head):
+    """A BF16 checkpoint: the port's reader widens each tensor to f32 at
+    once, the reference's converter keeps BF16 leaves that its engine
+    widens later.  As f32, the trees are equal exactly, and every value
+    is a bf16 value."""
+    path = write_bf16_checkpoint(tmp_path,
+                                 make_roberta_state(with_head, "roberta."))
+    raw = thf.load_state_dict(path)
+    assert {a.dtype for a in raw.values()} == {np.dtype(np.float32)}
+    for a in raw.values():
+        assert not (a.view(np.uint32) & 0xFFFF).any()
+    arch = "embedder_classifier" if with_head else "embedder"
+    tcfg, tparams = thf.load_hf_encoder(path, arch=arch)
+    jcfg, jparams = jhf.load_hf_encoder(path, arch=arch)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert_trees_equal(tparams, jax.tree.map(
+        lambda a: np.asarray(a, dtype=np.float32), jparams))
 
 
 def test_safetensors_reader_rejects_bad_offsets(tmp_path):

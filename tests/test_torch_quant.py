@@ -206,6 +206,53 @@ class TestProducts:
                                       np.asarray(jacc))
         _assert_out_close(out, ref, out_dtype)
 
+    @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+    def test_int8_experts_up_and_down(self, out_dtype):
+        """The MoE expert products: the int32 accumulators exactly, the
+        dequantized outputs as `_assert_out_close` states."""
+        rng = np.random.default_rng(6)
+        e, h, m = 4, 32, 48
+        x = rng.standard_normal((2, 9, h)).astype(np.float32)
+        w_up = np.stack([_kernel(10 + i, (h, m)) for i in range(e)])
+        w_dn = np.stack([_kernel(20 + i, (m, h)) for i in range(e)])
+        jup, sup = jq.quantize_weights(jnp.asarray(w_up), contract_axis=1)
+        jdn, sdn = jq.quantize_weights(jnp.asarray(w_dn), contract_axis=1)
+        dt_j, dt_t = getattr(jnp, out_dtype), getattr(torch, out_dtype)
+        # The port's expert layout: [E, out, in].
+        tup = torch.from_numpy(np.array(jup).transpose(0, 2, 1).copy())
+        tdn = torch.from_numpy(np.array(jdn).transpose(0, 2, 1).copy())
+        ref_up = jq.int8_experts_up(jnp.asarray(x), jup, sup, out_dtype=dt_j)
+        got_up = tq.int8_experts_up(torch.from_numpy(x), tup,
+                                    torch.from_numpy(np.array(sup)),
+                                    out_dtype=dt_t)
+        assert tuple(got_up.shape) == (2, 9, e, m)
+        _assert_out_close(got_up, ref_up, out_dtype)
+        # The down product from the same (reference) input on both sides.
+        hid = np.array(ref_up.astype(jnp.float32))
+        ref_dn = jq.int8_experts_down(jnp.asarray(hid).astype(dt_j), jdn,
+                                      sdn, out_dtype=dt_j)
+        got_dn = tq.int8_experts_down(torch.from_numpy(hid).to(dt_t), tdn,
+                                      torch.from_numpy(np.array(sdn)),
+                                      out_dtype=dt_t)
+        assert tuple(got_dn.shape) == (2, 9, e, h)
+        _assert_out_close(got_dn, ref_dn, out_dtype)
+        # The int32 accumulators of both products.
+        jxq, _ = jq.quantize_activations(jnp.asarray(x))
+        jacc = jnp.einsum("blh,ehm->blem", jxq, jup,
+                          preferred_element_type=jnp.int32)
+        tacc = tq.int8_matmul(torch.from_numpy(np.array(jxq)).view(-1, h),
+                              tup.reshape(e * m, h))
+        np.testing.assert_array_equal(tacc.view(2, 9, e, m).numpy(),
+                                      np.asarray(jacc))
+        jhq, _ = jq.quantize_activations(jnp.asarray(hid).astype(dt_j))
+        jacc = jnp.einsum("blem,emh->bleh", jhq, jdn,
+                          preferred_element_type=jnp.int32)
+        thq = torch.from_numpy(np.array(jhq)).view(-1, e, m)
+        for i in range(e):
+            np.testing.assert_array_equal(
+                tq.int8_matmul(thq[:, i], tdn[i]).view(2, 9, h).numpy(),
+                np.asarray(jacc)[:, :, i])
+
     def test_int8_matmul_rejects(self):
         a = torch.zeros((4, 8), dtype=torch.int8)
         with pytest.raises(TypeError):
@@ -287,11 +334,34 @@ class TestTree:
         assert tmq.quantized_size_bytes(np_params) == \
             jmq.quantized_size_bytes(params)
 
-    def test_moe_tree_raises(self, tiny):
-        _, _, np_params, _, _, _ = tiny
-        tree = {"params": {"encoder": {"layers_0": {"moe": {}}}}}
-        with pytest.raises(NotImplementedError):
-            tmq.quantize_encoder_params(tree)
+    @pytest.mark.parametrize("static", [False, True])
+    def test_moe_tree_equal(self, static):
+        """The MoE branch: expert kernels per (expert, output channel), the
+        router untouched; under ``int8_static`` only the attention takes
+        calibrated scales (the reference's experts sow no abs-max)."""
+        cfg = dataclasses.replace(jenc.TINY_TEST, n_experts=4, n_labels=5)
+        ids = np.arange(4, 4 + 2 * 16, dtype=np.int32).reshape(2, 16)
+        mask = np.ones(ids.shape, bool)
+        params = jenc.EmbedderClassifier(cfg).init(
+            jax.random.PRNGKey(1), jnp.asarray(ids), jnp.asarray(mask))
+        calib = None
+        if static:
+            calib = jmq.calibrate_activation_scales(
+                jenc.EmbedderClassifier(dataclasses.replace(
+                    cfg, calibrate=True)), params, jnp.asarray(ids),
+                jnp.asarray(mask))
+        ref = _np(jmq.quantize_encoder_params(params, act_scales=calib))
+        got = tmq.quantize_encoder_params(
+            _np(params), act_scales=None if calib is None else _np(calib))
+        assert_trees_equal(got, ref)
+        moe = got["params"]["encoder"]["layers_1"]["moe"]
+        assert sorted(moe) == ["experts_down/kernel_q", "experts_down/scale",
+                               "experts_up/kernel_q", "experts_up/scale",
+                               "router"]
+        assert moe["experts_up/scale"].shape == (4, cfg.mlp_dim)
+        assert moe["experts_down/scale"].shape == (4, cfg.hidden)
+        attn = got["params"]["encoder"]["layers_1"]["attn"]
+        assert ("qkv/a_scale" in attn) == static
 
     def test_calibration_agrees(self, tiny):
         cfg, _, np_params, calib, ids, _ = tiny

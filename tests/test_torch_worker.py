@@ -7,6 +7,7 @@ package's `TPUWorker` on the same params and batches (labels equal,
 embeddings and scores within 1e-5 abs / 1e-4 rel, f32 throughout).
 """
 
+import dataclasses
 import json
 import time
 
@@ -340,6 +341,77 @@ class TestCodecAndBus:
         assert bus.stats() == {"published": {"a": 1, "b": 1},
                                "delivered": {"a": 1},
                                "dead_lettered": {"total": 1}}
+
+    @pytest.mark.parametrize("hints, redeliveries, delay", [
+        ([0.05, 5.0], 3, 0.0),        # a hint, then one past the 2 s cap
+        ([0.05, None, 5.0], 2, 0.3),  # no hint: the fixed delay; dead-letter
+        ([None, None], 3, 0.0),       # no hint, no delay: no sleep at all
+    ])
+    def test_retry_after_hints_match_reference(self, monkeypatch, hints,
+                                               redeliveries, delay):
+        """A handler raising with ``retry_after_s`` through both buses,
+        ``time.sleep`` recorded: the same waits, deliveries, dead letters
+        and ``resilience_retries_total`` increments."""
+        from distributed_crawler_tpu.utils.metrics import REGISTRY as JREG
+
+        from distributed_crawler_tpu_torch.utils.metrics import REGISTRY
+
+        class Hinted(RuntimeError):
+            def __init__(self, hint):
+                super().__init__(f"retry after {hint}")
+                if hint is not None:
+                    self.retry_after_s = hint
+
+        def run(bus_cls, registry):
+            topic = f"hinted-{len(hints)}-{redeliveries}"
+            counter = registry.counter("resilience_retries_total").labels(
+                op=f"bus.inmemory.{topic}")
+            before = counter.value
+            sleeps, calls = [], []
+            monkeypatch.setattr(time, "sleep", sleeps.append)
+
+            def handler(payload):
+                calls.append(payload)
+                if len(calls) <= len(hints):
+                    raise Hinted(hints[len(calls) - 1])
+
+            bus = bus_cls(max_redeliveries=redeliveries, retry_delay_s=delay)
+            bus.subscribe(topic, handler)
+            bus.publish(topic, {"n": 1})
+            monkeypatch.undo()
+            return (sleeps, len(calls), bus.stats(),
+                    [(t, p) for t, p, _ in bus.dead_letters],
+                    counter.value - before)
+
+        got, want = run(InMemoryBus, REGISTRY), run(JaxBus, JREG)
+        assert got == want
+        assert max(got[0], default=0.0) <= 2.0
+        assert got[4] == min(len(hints), redeliveries)
+
+    @pytest.mark.parametrize("policy, attempt, hint", [
+        ({}, 0, None),
+        ({}, 5, None),                                  # capped at 2 s
+        ({"jitter": 0.0, "multiplier": 1.0}, 3, None),
+        ({}, 1, 7.5),                                   # a hint wins
+        ({"retry_after_cap_s": 2.0}, 0, 45.0),          # ... capped
+        ({}, 0, "soon"),                                # unreadable hint
+    ])
+    def test_retry_policy_delays_match_reference(self, policy, attempt,
+                                                 hint):
+        from distributed_crawler_tpu.utils import resilience as jres
+
+        from distributed_crawler_tpu_torch.utils import resilience as tres
+
+        exc = RuntimeError("x")
+        if hint is not None:
+            exc.retry_after_s = hint
+        ours, ref = tres.RetryPolicy(**policy), jres.RetryPolicy(**policy)
+        assert ours.delay_s(attempt, exc, rng=lambda: 0.25) == \
+            ref.delay_s(attempt, exc, rng=lambda: 0.25)
+        assert [f.name for f in dataclasses.fields(ours)] == \
+            [f.name for f in dataclasses.fields(ref)]
+        assert dataclasses.asdict(tres.RetryPolicy()) == \
+            dataclasses.asdict(jres.RetryPolicy())
 
     def test_undecodable_dropped_and_async_drain(self):
         bus = InMemoryBus(sync=False)
