@@ -99,6 +99,33 @@ JSON line each:
    weight is read.  Times per bucket: each dispatch's forward, FLOPs,
    achieved TFLOP/s and peak memory, XLM-R-base's dense-MLP forward beside
    them, layer 0's MoE against the dense MLP; posts/s per dispatch.
+10. slice.ops — the workers' operations layer at full width: E5-small
+   (phase 4's configuration, its engine on the worker's registry) through
+   `TPUWorker` with every knob on (``metrics_port``, heartbeats and span
+   export every 0.5 s, SLO budgets of 0.001 ms so they breach,
+   ``profile_on_slow_ms`` 0.001 so the first slow batch starts a
+   torch.profiler capture, ``stall_warn_s`` 30), its result frames folded
+   by `ClusterWorker` (k 16, buckets 64/256, its own metrics port), then
+   Whisper-small at the published widths (random weights from ``--seed``,
+   no checkpoint file) through `ASRWorker` on two generated one-window
+   WAVs.  Checks: /healthz; /metrics parsed (``tpu_engine_mfu``,
+   ``tpu_engine_bucket_flops`` for every served (bucket, path),
+   ``slo_breach_total{slo="batch_p95"}`` >= 1); /status (8 batches);
+   /costs (one analytic row per served (bucket, path) with the analytic
+   FLOPs, this card's peak); /traces (every batch); /clusters; every
+   heartbeat's device memory within the card, an idle beat's within
+   64 MiB of ``memory_allocated``; span batches covering every batch; the
+   automatic capture's chrome trace naming ``flash_fwd_sm90_kernel`` and a
+   /profile capture answering 200; ``stop()`` announcing and ``kill()``
+   silent; 12 sm90 launches per dispatch; ``0 < mfu <= 1`` and
+   ``mfu_busy <= 1.05`` on the text, cluster and ASR paths; the stall
+   watchdog on a step that spins the card with ``torch.cuda._sleep`` (one
+   stall counted, exit code 17 at the seam, a ``stall_exit`` bundle).
+   Times: posts/s with every knob on against every knob off (alternating,
+   ten runs each, each run's time inside the engine and the longest wait
+   between result frames), MFU per path, the meter's achieved FLOP/s per bucket
+   against phase 4's CUDA-event forward, the host cost of one heartbeat
+   and one span export.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``.  Any failed phase raises and exits
@@ -120,10 +147,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = "distributed_crawler_tpu_torch"
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
-# memory bytes/s, dense bf16 tensor-core FLOP/s, f32 FLOP/s outside the
-# tensor cores.  The card's own power limit is printed beside every time.
+# memory bytes/s, f32 FLOP/s outside the tensor cores, and (set in main()
+# from the port's `utils/costmodel.PEAK_BF16_FLOPS`, its one home) dense
+# bf16 tensor-core FLOP/s.  The card's own power limit is printed beside
+# every time.
 H100_BYTES_PER_S = 3.35e12
-H100_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+H100_SXM_NAME = "NVIDIA H100 80GB HBM3"
+H100_PEAK_FLOPS = {"float32": 67e12}
 # Exponentials per second in the special function units of one H100 SXM:
 # the figure the FlashAttention-3 paper gives (Shah et al. 2024, section
 # 3.1: 3.9 TFLOPS of exponential against 989 TFLOPS of bf16 matmul).
@@ -722,9 +752,9 @@ def phase_slice(torch, np, seed, smi):
          seconds=served["seconds"], posts_per_s=served["posts_per_s"],
          p50_batch_latency_ms=served["p50_ms"],
          dispatch_latencies=served["latencies"], card=smi)
-    time_engine(torch, engine, smi, model=cfg.model)
+    engine_rows = time_engine(torch, engine, smi, model=cfg.model)
     return {"launches": served["launches_by_path"],
-            "dispatches": served["dispatches"]}
+            "dispatches": served["dispatches"], "engine_rows": engine_rows}
 
 
 # -- phase 6: XLM-R-base from a local HF checkpoint, int8 -------------------
@@ -2284,31 +2314,6 @@ def moe_config():
                    moe_capacity_factor=MOE_CF)
 
 
-def moe_forward_flops(ecfg, batch, seq, dispatch):
-    """Forward FLOPs of a Switch-MoE encoder: `encoder_forward_flops`
-    without its MLP term, plus per layer the router (2·h·E per token) and
-    the experts' up and down products (4·h·m per token slot): E slots per
-    token for dense dispatch, ``cap·E`` per group of ``g`` tokens for
-    capacity dispatch."""
-    import math
-
-    from distributed_crawler_tpu_torch.utils.costmodel import (
-        encoder_forward_flops,
-    )
-
-    h, m, e = ecfg.hidden, ecfg.mlp_dim, ecfg.n_experts
-    n = batch * seq
-    if dispatch == "capacity":
-        g = min(n, 4096)
-        cap = max(1, int(math.ceil(g / e * ecfg.moe_capacity_factor)))
-        slots = int(math.ceil(n / g)) * e * cap
-    else:
-        slots = n * e
-    per_layer = 2 * n * h * e + 4 * h * m * slots
-    return (encoder_forward_flops(replace(ecfg, mlp_dim=0), batch, seq)
-            + ecfg.n_layers * per_layer)
-
-
 def _moe_inputs(model):
     """Forward hooks that keep each layer's MoE input, its mask, and which
     tokens got an expert's output (capacity dispatch drops the rest)."""
@@ -2806,6 +2811,7 @@ def time_moe(torch, engines, yardstick, smi):
     from distributed_crawler_tpu_torch.utils import cudatime
     from distributed_crawler_tpu_torch.utils.costmodel import (
         encoder_forward_flops,
+        moe_forward_flops,
     )
 
     forward = {name: {r["bucket"]: r for r in time_engine(
@@ -2971,6 +2977,668 @@ def phase_moe(torch, np, device, gen, seed, smi):
     return {"launches": launches, "dispatches": dispatches}
 
 
+# -- phase 10: the workers' operations layer --------------------------------
+OPS_BEAT_S = 0.5            # heartbeat and span-export interval
+OPS_MEMORY_TOL = 64 << 20   # heartbeat device memory vs memory_allocated
+OPS_MFU_BUSY_MAX = 1.05     # the meter's dt is host-measured
+OPS_ASR_SECONDS = (7.0, 19.0)  # two WAVs of one 30 s window each
+# The spin runs well past stall_exit_s: the clock that calibrates it may
+# still be ramping, so the spin can come out shorter than asked.
+OPS_SPIN_S, OPS_SPIN_WARN_S, OPS_SPIN_EXIT_S = 1.0, 0.1, 0.3
+OPS_PAIRS = 10              # knobs-on/knobs-off run pairs
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_get(url):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=60) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+class StatusTap:
+    """Status messages on ``TOPIC_WORKER_STATUS``, each with
+    ``torch.cuda.memory_allocated()`` read as it arrives: on a synchronous
+    bus that is the heartbeat thread, right after its snapshot."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.rows = []
+
+    def __call__(self, d):
+        self.rows.append((d, self.torch.cuda.memory_allocated()))
+
+    def of(self, worker_id, start=0):
+        return [(d, m) for d, m in self.rows[start:]
+                if d["worker_id"] == worker_id]
+
+    def wait_beat(self, worker_id, timeout_s=30.0):
+        """The next heartbeat of ``worker_id`` from now on."""
+        start = len(self.rows)
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            got = [r for r in self.of(worker_id, start)
+                   if r[0]["message_type"] == "heartbeat"]
+            if got:
+                return got[0]
+            time.sleep(0.01)
+        raise Fail(f"no heartbeat from {worker_id} in {timeout_s} s")
+
+
+def check_beats(tap, worker_id, idle_beat, worker_type):
+    """Every heartbeat's device list within the card; the idle beat's
+    ``bytes_in_use`` within OPS_MEMORY_TOL of memory_allocated."""
+    beats = [(d, m) for d, m in tap.of(worker_id)
+             if d["message_type"] == "heartbeat"]
+    check(beats, f"no heartbeats from {worker_id}")
+    worst = 0
+    for d, mem in beats:
+        check(d["worker_type"] == worker_type,
+              f"{worker_id} beats as {d['worker_type']}")
+        devs = d["resource_usage"].get("device_memory") or []
+        check(devs, f"{worker_id}: a heartbeat without device memory")
+        for dev in devs:
+            check(0 < dev["bytes_in_use"] <= dev["bytes_limit"],
+                  f"{worker_id}: device memory {dev}")
+        worst = max(worst, abs(devs[0]["bytes_in_use"] - mem))
+    d, mem = idle_beat
+    diff = abs(d["resource_usage"]["device_memory"][0]["bytes_in_use"] - mem)
+    check(diff <= OPS_MEMORY_TOL,
+          f"{worker_id}: heartbeat memory off memory_allocated by {diff} B")
+    return {"beats": len(beats), "idle_memory_diff_bytes": diff,
+            "max_memory_diff_bytes": worst,
+            "bytes_in_use": d["resource_usage"]["device_memory"][0][
+                "bytes_in_use"],
+            "bytes_limit": d["resource_usage"]["device_memory"][0][
+                "bytes_limit"]}
+
+
+def check_efficiency(name, eff, peak_source):
+    check(eff and 0 < eff["mfu"] <= 1
+          and eff["mfu_busy"] <= OPS_MFU_BUSY_MAX,
+          f"{name}: efficiency {eff}")
+    check(eff["peak_source"] == peak_source,
+          f"{name}: peak {eff['peak_source']} for {peak_source}")
+    return {k: eff[k] for k in ("mfu", "mfu_busy", "achieved_flops_per_s",
+                                "goodput_tokens_per_s", "batches",
+                                "window_s", "peak_source")}
+
+
+def ops_tpu_config(knobs, worker_id, **extra):
+    """The text worker's operations knobs: all on, or all off."""
+    from distributed_crawler_tpu_torch.inference.worker import (
+        TPUWorkerConfig,
+    )
+
+    on = dict(metrics_port=free_port(), heartbeat_s=OPS_BEAT_S,
+              span_export_interval_s=OPS_BEAT_S, slo_batch_p95_ms=0.001,
+              slo_queue_wait_ms=0.001, slo_batch_age_ms=0.001,
+              stall_warn_s=30.0)
+    off = dict(metrics_port=0, heartbeat_s=3600.0, span_export_interval_s=0,
+               stall_warn_s=0.0)
+    return TPUWorkerConfig(worker_id=worker_id, pack=True, coalesce_batches=4,
+                           **(on if knobs else off), **extra)
+
+
+def run_text(engine, bus, worker, batches, results):
+    """Publish ``batches`` and wait for their result frames; returns the
+    seconds from the first publish to the last frame."""
+    from distributed_crawler_tpu_torch.bus import TOPIC_INFERENCE_BATCHES
+
+    n0 = len(results)
+    t0 = time.perf_counter()
+    for b in batches:
+        bus.publish(TOPIC_INFERENCE_BATCHES, b.to_dict())
+    deadline = time.monotonic() + 300
+    while len(results) < n0 + len(batches) and time.monotonic() < deadline:
+        time.sleep(0.002)
+    seconds = time.perf_counter() - t0
+    check(worker.drain(timeout_s=60.0), "tpu worker did not drain")
+    check(len(results) == n0 + len(batches),
+          f"{len(results) - n0} result frames for {len(batches)} batches")
+    return seconds
+
+
+class SpinningEngine:
+    """A stub engine whose step spins the card with ``torch.cuda._sleep``
+    and then waits for it, as a wedged device step would hold the feed
+    thread."""
+
+    def __init__(self, torch, seconds):
+        import types
+
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        torch.cuda._sleep(10_000_000)   # let the clock ramp up first
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        end.synchronize()
+        self.cycles = int(10_000_000 / start.elapsed_time(end)
+                          * seconds * 1e3)
+        self.torch = torch
+        self.cfg = types.SimpleNamespace(model="spin")
+        self.tokenizer = types.SimpleNamespace(
+            encode_batch=lambda texts: [[1, 2]] * len(texts))
+
+    def run_tokenized(self, toks, pack=False):
+        self.torch.cuda._sleep(self.cycles)
+        self.torch.cuda.synchronize()
+        return [{"embedding": [0.0], "label": 0, "scores": [1.0]}
+                for _ in toks]
+
+    def run(self, texts, pack=False):
+        return self.run_tokenized([[1]] * len(texts), pack=pack)
+
+
+def check_stall_watchdog(torch, dump):
+    """A step that really spins the card past stall_warn_s and
+    stall_exit_s: the watchdog counts one stall, writes the ``stall_exit``
+    bundle, and reaches the exit seam with code 17 while the feed thread
+    waits on the card."""
+    from distributed_crawler_tpu_torch.bus import InMemoryBus, RecordBatch
+    from distributed_crawler_tpu_torch.inference.worker import (
+        STALL_EXIT_CODE,
+        TPUWorker,
+        TPUWorkerConfig,
+    )
+    from distributed_crawler_tpu_torch.utils.metrics import MetricsRegistry
+
+    engine = SpinningEngine(torch, OPS_SPIN_S)
+    bus = InMemoryBus(sync=True)
+    worker = TPUWorker(bus, engine, cfg=TPUWorkerConfig(
+        worker_id="smoke-ops-stall", heartbeat_s=3600.0,
+        span_export_interval_s=0, stall_warn_s=OPS_SPIN_WARN_S,
+        stall_exit_s=OPS_SPIN_EXIT_S), registry=MetricsRegistry())
+    codes = []
+    worker._exit_fn = codes.append
+    before = set(os.listdir(dump))
+    for i in range(2):
+        worker._handle_payload(RecordBatch.from_records(
+            [{"post_uid": f"spin{i}", "description": "x"}],
+            crawl_id="smoke-ops").to_dict())
+    t0 = time.perf_counter()
+    worker.start()
+    try:
+        check(worker.drain(timeout_s=60.0), "stall worker did not drain")
+    finally:
+        worker.stop()
+        bus.close()
+    took = time.perf_counter() - t0
+    bundles = sorted(n for n in set(os.listdir(dump)) - before
+                     if n.startswith("postmortem_") and "stall_exit" in n)
+    check(took >= OPS_SPIN_EXIT_S,
+          f"the spinning step took {took} s, not past stall_exit_s")
+    check(worker.m_stalls.value == 1,
+          f"{worker.m_stalls.value} stalls counted")
+    check(codes == [STALL_EXIT_CODE] == [17], f"exit codes {codes}")
+    check(len(bundles) == 1, f"stall_exit bundles {bundles}")
+    with open(os.path.join(dump, bundles[0])) as f:
+        kinds = {e["kind"] for e in json.load(f)["flight"]}
+    check("device_stall" in kinds, f"bundle events {sorted(kinds)}")
+    return {"step_s": took, "stalls": worker.m_stalls.value,
+            "exit_codes": codes, "bundle": bundles[0]}
+
+
+def check_profile(dump, url, before):
+    """The automatic capture (the first capture directory not in
+    ``before``) has a chrome trace naming the sm90 kernel; a /profile
+    capture answers 200, or 409 while an automatic one runs (then once
+    more after it ends)."""
+    from distributed_crawler_tpu_torch.utils import profiling
+
+    def new_dirs():
+        return sorted((n for n in os.listdir(dump)
+                       if n.startswith("profile_") and n not in before),
+                      key=lambda n: int(n.rsplit("_", 1)[1]))
+
+    deadline = time.monotonic() + 120
+    while (not new_dirs() or profiling.PROFILER.active) \
+            and time.monotonic() < deadline:
+        time.sleep(0.05)
+    check(new_dirs(), "no automatic profiler capture")
+    auto = new_dirs()[0]
+    with open(os.path.join(dump, auto, profiling.TRACE_FILE)) as f:
+        events = json.load(f).get("traceEvents", [])
+    sm90 = [e for e in events
+            if "flash_fwd_sm90_kernel" in str(e.get("name", ""))]
+    check(sm90, f"{auto}: no flash_fwd_sm90_kernel among {len(events)} "
+                f"events")
+    codes = []
+    for _ in range(2):
+        code, body = http_get(url + "/profile?seconds=0.3")
+        codes.append(code)
+        if code != 409:
+            break
+        while profiling.PROFILER.active and time.monotonic() < deadline:
+            time.sleep(0.05)
+    check(codes[-1] == 200 and json.loads(body)["ok"],
+          f"/profile answered {codes}: {body[:200]!r}")
+    return {"auto_capture": auto, "events": len(events),
+            "sm90_kernel_events": len(sm90), "profile_route": codes,
+            "captures": profiling.PROFILER.captures}
+
+
+def check_text_http(engine, url, batches, served_keys):
+    """The text worker's routes: /healthz, /metrics (parsed), /status,
+    /costs, /traces."""
+    from distributed_crawler_tpu_torch.utils.costmodel import (
+        encoder_forward_flops,
+    )
+    from distributed_crawler_tpu_torch.utils.exposition import (
+        parse_exposition,
+    )
+
+    code, body = http_get(url + "/healthz")
+    check(code == 200 and body == b"ok\n", f"/healthz {code} {body!r}")
+    code, body = http_get(url + "/metrics")
+    check(code == 200, f"/metrics {code}")
+    samples = parse_exposition(body.decode())
+    names = {s.name for s in samples}
+    check("tpu_engine_mfu" in names, "tpu_engine_mfu not on /metrics")
+    flops = {(int(s.labels["bucket"]), s.labels["path"]): s.value
+             for s in samples
+             if s.name == "tpu_engine_bucket_flops" and s.labels}
+    check(set(flops) == served_keys,
+          f"bucket FLOPs for {sorted(flops)}, served {sorted(served_keys)}")
+    breaches = [s.value for s in samples if s.name == "slo_breach_total"
+                and s.labels == {"slo": "batch_p95"}]
+    check(breaches and breaches[0] >= 1, f"slo_breach_total {breaches}")
+    code, body = http_get(url + "/status")
+    status = json.loads(body)
+    check(code == 200 and status["processed_batches"] == len(batches),
+          f"/status {code} {status}")
+    code, body = http_get(url + "/costs")
+    costs = json.loads(body)
+    check(code == 200, f"/costs {code}")
+    rows = {(r["bucket"], r["path"]): r for r in costs["costs"]}
+    check(set(rows) == served_keys,
+          f"cost rows {sorted(rows)}, served {sorted(served_keys)}")
+    for (bucket, _), r in rows.items():
+        want = encoder_forward_flops(engine.ecfg, BATCH, bucket)
+        check(r["source"] == "analytic" and r["flops"] == want
+              and flops[(bucket, r["path"])] == want,
+              f"cost row {r} against {want}")
+    code, body = http_get(url + "/traces")
+    check(code == 200, f"/traces {code}")
+    traced = {t["trace_id"] for t in json.loads(body)["traces"]}
+    missing = [b.trace_id for b in batches if b.trace_id not in traced]
+    check(not missing, f"/traces lacks batches {missing}")
+    return {"metrics_samples": len(samples), "bucket_flops": len(flops),
+            "slo_breach_batch_p95": breaches[0], "cost_rows": len(rows),
+            "traces": len(traced), "efficiency": costs["efficiency"]}
+
+
+def per_bucket_meter(engine, engine_rows):
+    """The meter's achieved FLOP/s per text bucket (summed FLOPs over
+    summed dispatch-to-readback seconds of that bucket's records) against
+    the CUDA-event forward time `time_engine` measured at the bucket."""
+    from distributed_crawler_tpu_torch.utils.costmodel import (
+        encoder_forward_flops,
+    )
+
+    forward = {r["bucket"]: r["forward_ms"] for r in engine_rows}
+    out = []
+    for bucket in MAIN_BUCKETS:
+        flops = encoder_forward_flops(engine.ecfg, BATCH, bucket)
+        recs = [r for r in engine.meter._records if r[2] == flops]
+        if not recs:
+            continue
+        meter = sum(r[2] for r in recs) / sum(r[1] for r in recs)
+        event = flops / (forward[bucket] * 1e-3)
+        out.append({"bucket": bucket, "records": len(recs),
+                    "meter_flop_per_s": meter,
+                    "meter_ms_per_batch": sum(r[1] for r in recs)
+                    / len(recs) * 1e3,
+                    "cuda_event_forward_ms": forward[bucket],
+                    "cuda_event_flop_per_s": event,
+                    "meter_over_event": meter / event})
+    return out
+
+
+def heartbeat_cost(worker, probe, reps=20):
+    """Host ms of one heartbeat's work (SLO tick, telemetry snapshot,
+    queue sample, breach and tenant maps, registry self-sample, the
+    message's JSON), and of one span export by ``probe`` (an exporter made
+    before the served run, so it ships that whole run), on the calling
+    thread."""
+    from distributed_crawler_tpu_torch.bus import StatusMessage
+
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        worker._slo.evaluate()
+        msg = StatusMessage.new(worker.cfg.worker_id, "heartbeat", "idle",
+                                worker_type="tpu")
+        msg.resource_usage = worker._telemetry.snapshot()
+        msg.resource_usage["queue"] = {"depth_time_weighted":
+                                       worker._depth.sample()}
+        msg.resource_usage["slo_breaches"] = worker._slo.snapshot()
+        msg.resource_usage["tenants"] = worker._tenant_ledger().snapshot()
+        worker._ts_sampler.sample()
+        json.dumps(msg.to_dict())
+    beat_ms = (time.perf_counter() - t0) / reps * 1e3
+    t0 = time.perf_counter()
+    spans, _ = probe.collect()
+    json.dumps([s.to_dict() for s in spans])
+    return {"heartbeat_host_ms": beat_ms, "span_export_host_ms":
+            (time.perf_counter() - t0) * 1e3, "spans_exported": len(spans)}
+
+
+def knobs_on_off(engine, reg, batches):
+    """posts/s of the same engine and traffic through a `TPUWorker` with
+    every operations knob on against every knob off, in OPS_PAIRS
+    alternating pairs.  Each run also splits its wall time into the feed
+    thread's time inside ``engine.run_tokenized`` (spans) and the rest,
+    and keeps the longest wait between two result frames, so a slow run
+    shows whether the engine or something beside it took the time."""
+    import statistics
+
+    from distributed_crawler_tpu_torch.bus import (
+        TOPIC_INFERENCE_RESULTS,
+        InMemoryBus,
+    )
+    from distributed_crawler_tpu_torch.inference.worker import TPUWorker
+    from distributed_crawler_tpu_torch.utils import trace
+
+    runs = []
+    for i in range(2 * OPS_PAIRS):
+        knobs = i % 2 == 0
+        rbus = InMemoryBus(sync=True)
+        arrivals = []
+        rbus.subscribe(TOPIC_INFERENCE_RESULTS,
+                       lambda _d, a=arrivals: a.append(time.perf_counter()))
+        worker = TPUWorker(rbus, engine, cfg=ops_tpu_config(
+            knobs, f"smoke-ops-{'on' if knobs else 'off'}",
+            profile_on_slow_ms=60_000.0 if knobs else 0.0), registry=reg)
+        worker.start()
+        engine.meter.reset()
+        wall0 = time.time()
+        try:
+            t0 = time.perf_counter()
+            seconds = run_text(engine, rbus, worker, batches, arrivals)
+            eff = engine.efficiency_snapshot()
+        finally:
+            worker.stop()
+        engine_s = sum(sp.duration_s for sp in trace.TRACER.spans()
+                       if sp.name == "engine.run_tokenized"
+                       and sp.start_wall >= wall0)
+        gaps = [b - a for a, b in zip([t0] + arrivals, arrivals)]
+        runs.append({"knobs": "on" if knobs else "off", "seconds": seconds,
+                     "posts_per_s": len(batches) * BATCH / seconds,
+                     "engine_s": engine_s, "outside_engine_s":
+                     seconds - engine_s, "max_frame_gap_s": max(gaps),
+                     "mfu": eff["mfu"], "mfu_busy": eff["mfu_busy"]})
+    rates = {k: [r["posts_per_s"] for r in runs if r["knobs"] == k]
+             for k in ("on", "off")}
+    return {"runs": runs, "pairs": OPS_PAIRS, "posts_per_s_median": {
+        k: statistics.median(v) for k, v in rates.items()},
+        "posts_per_s_range": {k: [min(v), max(v)]
+                              for k, v in rates.items()},
+        "slowest_run": min(runs, key=lambda r: r["posts_per_s"])}
+
+
+def ops_asr(torch, np, bus, tap, seed, dump, peak_source):
+    """Whisper-small at the published widths (random weights from the
+    seed, no checkpoint file) through `ASRWorker` with heartbeats and span
+    export on: two generated WAVs of one window each."""
+    import wave
+
+    from distributed_crawler_tpu_torch.bus import (
+        TOPIC_TRANSCRIPTS,
+        AudioBatchMessage,
+        AudioRef,
+    )
+    from distributed_crawler_tpu_torch.inference.asr import ASRPipeline
+    from distributed_crawler_tpu_torch.media.worker import (
+        ASRWorker,
+        ASRWorkerConfig,
+    )
+    from distributed_crawler_tpu_torch.models import whisper as wh
+    from distributed_crawler_tpu_torch.models.hf_convert import (
+        convert_whisper,
+        whisper_config_from_hf,
+    )
+    from distributed_crawler_tpu_torch.ops import attention
+    from distributed_crawler_tpu_torch.utils.metrics import MetricsRegistry
+
+    t0 = time.perf_counter()
+    cfg = whisper_config_from_hf(WHISPER_HF_CONFIG)
+    check(cfg == wh.WHISPER_SMALL, f"not whisper-small's widths: {cfg}")
+    tree = {"params": convert_whisper(dict(whisper_state(np, seed)), cfg)}
+    pipeline = ASRPipeline(wh.Whisper(cfg), tree, batch_size=8,
+                           registry=MetricsRegistry())
+    del tree
+    pipeline.warmup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 10)
+    msgs = []
+    for i, seconds in enumerate(OPS_ASR_SECONDS):
+        n = int(seconds * 16_000)
+        pcm = (0.2 * np.sin(2 * np.pi * (150 + 100 * i) * np.arange(n)
+                            / 16_000) + 0.03 * rng.standard_normal(n))
+        path = os.path.join(dump, f"ops_voice_{i}.wav")
+        with wave.open(path, "wb") as wf:
+            wf.setnchannels(1)
+            wf.setsampwidth(2)
+            wf.setframerate(16_000)
+            wf.writeframes((np.clip(pcm, -1, 1) * 32767).astype(
+                np.int16).tobytes())
+        msgs.append(AudioBatchMessage.new(
+            [AudioRef(media_id=f"ops{i}", path=path, channel_name="smoke")],
+            crawl_id="smoke-ops"))
+    transcripts = []
+    bus.subscribe(TOPIC_TRANSCRIPTS, transcripts.append)
+    worker = ASRWorker(bus, pipeline, cfg=ASRWorkerConfig(
+        worker_id="smoke-ops-asr", heartbeat_s=OPS_BEAT_S,
+        span_export_interval_s=OPS_BEAT_S, slo_asr_batch_p95_ms=0.001),
+        registry=MetricsRegistry())
+    for m in msgs:
+        worker._handle_payload(m.to_dict())
+    attention.flash_attention.launches = 0
+    by_path = attention.flash_attention.launches_by_path
+    for p in by_path:
+        by_path[p] = 0
+    dispatches0 = pipeline.timeline.snapshot().get("batches_total", 0)
+    t0 = time.perf_counter()
+    worker.start()
+    try:
+        check(worker.drain(timeout_s=300.0), "asr worker did not drain")
+        seconds = time.perf_counter() - t0
+        launches = dict(by_path)
+        eff = pipeline.efficiency_snapshot()
+        idle = tap.wait_beat("smoke-ops-asr")
+    finally:
+        worker.stop()
+    dispatches = pipeline.timeline.snapshot()["batches_total"] - dispatches0
+    check(len(transcripts) == len(msgs)
+          and all(t["windows"] == 1 and not t["error"] for t in transcripts),
+          f"transcripts {[(t['media_id'], t['windows'], t['error']) for t in transcripts]}")
+    check(launches == {"sm90": cfg.n_audio_layer * dispatches,
+                       "mma_sync": 0, "simt": 0},
+          f"asr launches {launches} for {dispatches} dispatches")
+    return {"setup_s": setup_s, "seconds": seconds, "dispatches": dispatches,
+            "launches": launches,
+            "efficiency": check_efficiency("asr", eff, peak_source),
+            "beats": check_beats(tap, "smoke-ops-asr", idle, "asr"),
+            "costs": pipeline.cost_snapshot()["costs"]}
+
+
+def phase_ops(torch, np, seed, smi, engine_rows):
+    """E5-small served through `TPUWorker` with every operations knob on,
+    its embeddings folded by `ClusterWorker`, and Whisper-small through
+    `ASRWorker`, with heartbeats, span export, the metrics routes, SLO
+    budgets, the profiler and the stall watchdog checked on the card."""
+    import tempfile
+
+    from distributed_crawler_tpu_torch.bus import (
+        TOPIC_INFERENCE_RESULTS,
+        TOPIC_SPANS,
+        TOPIC_WORKER_STATUS,
+        InMemoryBus,
+        RecordBatch,
+    )
+    from distributed_crawler_tpu_torch.cluster import (
+        ClusterWorker,
+        ClusterWorkerConfig,
+    )
+    from distributed_crawler_tpu_torch.inference.engine import (
+        EngineConfig,
+        InferenceEngine,
+    )
+    from distributed_crawler_tpu_torch.inference.worker import TPUWorker
+    from distributed_crawler_tpu_torch.ops import attention
+    from distributed_crawler_tpu_torch.utils import flight, profiling, trace
+    from distributed_crawler_tpu_torch.utils.costmodel import (
+        peak_flops,
+    )
+    from distributed_crawler_tpu_torch.utils.metrics import MetricsRegistry
+
+    t_phase = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    peak_source = peak_flops(kind, "cuda")[1]
+    check(peak_source != "unknown", f"no bf16 peak for {kind!r}")
+    dump = tempfile.mkdtemp(prefix="dct_ops_")
+    profiling.configure(dump_dir=dump)
+    flight.RECORDER.reset()
+    flight.configure(dump_dir=dump)
+    trace.TRACER.reset()
+    # The first profiler session of a process pays the profiler's own
+    # start-up: take it here, so the automatic capture starts at once.
+    t0 = time.perf_counter()
+    first = profiling.capture(0.05)
+    check(first["ok"], f"profiler warmup capture: {first}")
+    profiler_warmup_s = time.perf_counter() - t0
+    captured_before = set(os.listdir(dump))
+
+    t0 = time.perf_counter()
+    reg = MetricsRegistry()
+    engine = InferenceEngine(EngineConfig(model="e5_small", batch_size=BATCH,
+                                          seed=seed), registry=reg)
+    check(engine.device.type == "cuda", f"engine on {engine.device}")
+    check((engine.ecfg.vocab_size, engine.ecfg.hidden,
+           engine.ecfg.n_layers) == (250037, 384, 12),
+          f"not E5-small's full width: {engine.ecfg}")
+    bus = InMemoryBus(sync=True)
+    tap = StatusTap(torch)
+    bus.subscribe(TOPIC_WORKER_STATUS, tap)
+    span_batches, results = [], []
+    bus.subscribe(TOPIC_SPANS, span_batches.append)
+    bus.subscribe(TOPIC_INFERENCE_RESULTS, results.append)
+    cw = ClusterWorker(bus, provider=DictProvider(), cfg=ClusterWorkerConfig(
+        worker_id="smoke-ops-cluster", k=CLUSTER_K, buckets=CLUSTER_BUCKETS,
+        metrics_port=free_port(), heartbeat_s=OPS_BEAT_S,
+        span_export_interval_s=OPS_BEAT_S), registry=MetricsRegistry())
+    check(cw.engine.device.type == "cuda", f"cluster on {cw.engine.device}")
+    tpu = TPUWorker(bus, engine, cfg=ops_tpu_config(
+        True, "smoke-ops-tpu", profile_on_slow_ms=0.001), registry=reg)
+    tpu_url = f"http://127.0.0.1:{tpu.cfg.metrics_port}"
+    cluster_url = f"http://127.0.0.1:{cw.cfg.metrics_port}"
+    cw.start()
+    tpu.warmup()
+    torch.cuda.synchronize()
+    tpu.start()
+    setup_s = time.perf_counter() - t0
+
+    rng = np.random.default_rng(seed + 10)
+    batches = [RecordBatch.from_records(
+        synthetic_posts(np, rng, BATCH, i * BATCH), crawl_id="smoke-ops")
+        for i in range(8)]
+    attention.flash_attention.launches = 0
+    by_path = attention.flash_attention.launches_by_path
+    for p in by_path:
+        by_path[p] = 0
+    dispatches0 = engine.m_latency.count
+    probe = trace.SpanExporter(name_prefixes=("tpu_worker.", "engine."))
+    try:
+        auto_s = run_text(engine, bus, tpu, batches, results)
+        launches = dict(by_path)
+        dispatches = engine.m_latency.count - dispatches0
+        text_eff = engine.efficiency_snapshot()
+        deadline = time.monotonic() + 120
+        while cw.get_status()["processed_batches"] < len(batches) \
+                and time.monotonic() < deadline:
+            time.sleep(0.01)
+        check(cw.drain(timeout_s=60.0), "cluster worker did not drain")
+        cluster_eff = cw.engine.efficiency_snapshot()
+        served = {(s.attrs["bucket"], "packed" if s.attrs.get("packed")
+                   else "unpacked") for s in trace.TRACER.spans()
+                  if s.name == "engine.compute"}
+        idle_tpu = tap.wait_beat("smoke-ops-tpu")
+        idle_cluster = tap.wait_beat("smoke-ops-cluster")
+        http = check_text_http(engine, tpu_url, batches, served)
+        code, body = http_get(cluster_url + "/clusters")
+        clusters = json.loads(body)
+        check(code == 200 and clusters["k"] == CLUSTER_K
+              and clusters["vectors"] == len(batches) * BATCH,
+              f"/clusters {code} {str(clusters)[:300]}")
+        profile = check_profile(dump, tpu_url, captured_before)
+        beat_cost = heartbeat_cost(tpu, probe)
+    finally:
+        tpu.stop()
+    check(launches == {"sm90": engine.ecfg.n_layers * dispatches,
+                       "mma_sync": 0, "simt": 0},
+          f"launches {launches} for {dispatches} dispatches (12 each, sm90)")
+    stops = [d for d, _ in tap.of("smoke-ops-tpu")
+             if d["message_type"] == "worker_stopping"]
+    check(len(stops) == 1 and stops[0]["status"] == "offline",
+          f"stop() announced {stops}")
+    n_cluster = len(tap.of("smoke-ops-cluster"))
+    cw.kill()
+    cw.stop()   # after kill(): silent, closes the metrics server
+    check(len(tap.of("smoke-ops-cluster")) == n_cluster,
+          "kill() published a status")
+    shipped = {s["trace_id"] for m in span_batches
+               if m["worker_id"] == "smoke-ops-tpu" for s in m["spans"]}
+    missing = [b.trace_id for b in batches if b.trace_id not in shipped]
+    check(not missing, f"span batches lack batches {missing}")
+    beats = {"tpu": check_beats(tap, "smoke-ops-tpu", idle_tpu, "tpu"),
+             "cluster": check_beats(tap, "smoke-ops-cluster", idle_cluster,
+                                    "cluster")}
+    efficiency = {"text": check_efficiency("text", text_eff, peak_source),
+                  "cluster": check_efficiency("cluster", cluster_eff,
+                                              peak_source)}
+    emit("slice.ops", setup_s=setup_s, profiler_warmup_s=profiler_warmup_s,
+         posts=len(batches) * BATCH,
+         dispatches=dispatches, kernel_launches_by_path=launches,
+         launches_per_dispatch=launches["sm90"] / dispatches,
+         served=sorted(served), http=http, clusters_vectors=clusters[
+             "vectors"], profile=profile, heartbeats=beats,
+         span_batches=len(span_batches), stop_announced=True,
+         kill_silent=True, card=smi)
+
+    asr = ops_asr(torch, np, bus, tap, seed, dump, peak_source)
+    beats["asr"] = asr["beats"]
+    efficiency["asr"] = asr["efficiency"]
+    stall = check_stall_watchdog(torch, dump)
+    emit("slice.ops.asr", dispatches=asr["dispatches"],
+         kernel_launches_by_path=asr["launches"], seconds=asr["seconds"],
+         setup_s=asr["setup_s"], heartbeats=asr["beats"], card=smi)
+    emit("slice.ops.watchdog", **stall, card=smi)
+
+    runs = knobs_on_off(engine, reg, batches)
+    meter = per_bucket_meter(engine, engine_rows)
+    profiling.configure(dump_dir="")
+    flight.configure(dump_dir="")
+    emit("times.ops", auto_capture_run={
+        "seconds": auto_s, "posts_per_s": len(batches) * BATCH / auto_s},
+        **runs, efficiency=efficiency, meter_by_bucket=meter,
+        **beat_cost, phase_s=time.perf_counter() - t_phase, card=smi)
+    return {"launches": {p: launches[p] + asr["launches"][p]
+                         for p in attention.PATHS}}
+
+
 KERNEL_SOURCES = {"sm90": "flash_attention_sm90.cu",
                   "mma_sync": "flash_attention.cu",
                   "simt": "flash_attention.cu"}
@@ -3025,6 +3693,9 @@ def main() -> int:
 
     from distributed_crawler_tpu_torch import kernels
     from distributed_crawler_tpu_torch.ops import attention
+    from distributed_crawler_tpu_torch.utils.costmodel import peak_flops
+
+    H100_PEAK_FLOPS["bfloat16"] = peak_flops(H100_SXM_NAME, "cuda")[0]
 
     t_all = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
@@ -3053,7 +3724,9 @@ def main() -> int:
     asr = phase_asr(torch, np, attention, device, args.seed, smi)
     clus = phase_cluster(torch, np, attention, device, gen, args.seed, smi)
     moe = phase_moe(torch, np, device, gen, args.seed, smi)
-    launches = {p: sum(ph["launches"][p] for ph in (e5, xlmr, asr, clus, moe))
+    ops = phase_ops(torch, np, args.seed, smi, e5["engine_rows"])
+    launches = {p: sum(ph["launches"][p]
+                       for ph in (e5, xlmr, asr, clus, moe, ops))
                 for p in attention.PATHS}
     print(json.dumps({"kernels": [
         kernel_entry(path, rows, worst, launches)

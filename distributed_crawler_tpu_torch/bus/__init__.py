@@ -1,5 +1,5 @@
-"""Bus layer of the port: `RecordBatch`, the media and cluster envelopes,
-topics, the in-memory bus."""
+"""Bus layer of the port: `RecordBatch`, the media, cluster, status and
+span envelopes, topics, the in-memory bus."""
 
 from .codec import RecordBatch
 from .inmemory import InMemoryBus
@@ -9,10 +9,14 @@ from .messages import (
     TOPIC_INFERENCE_BATCHES,
     TOPIC_INFERENCE_RESULTS,
     TOPIC_MEDIA_BATCHES,
+    TOPIC_SPANS,
     TOPIC_TRANSCRIPTS,
+    TOPIC_WORKER_STATUS,
     AudioBatchMessage,
     AudioRef,
     ClusterUpdateMessage,
+    SpanBatchMessage,
+    StatusMessage,
     TranscriptMessage,
     new_trace_id,
     normalize_tenant,
@@ -20,8 +24,9 @@ from .messages import (
 
 __all__ = [
     "AudioBatchMessage", "AudioRef", "ClusterUpdateMessage",
-    "DEFAULT_TENANT", "InMemoryBus", "RecordBatch", "TOPIC_CLUSTERS",
-    "TOPIC_INFERENCE_BATCHES", "TOPIC_INFERENCE_RESULTS",
-    "TOPIC_MEDIA_BATCHES", "TOPIC_TRANSCRIPTS", "TranscriptMessage",
+    "DEFAULT_TENANT", "InMemoryBus", "RecordBatch", "SpanBatchMessage",
+    "StatusMessage", "TOPIC_CLUSTERS", "TOPIC_INFERENCE_BATCHES",
+    "TOPIC_INFERENCE_RESULTS", "TOPIC_MEDIA_BATCHES", "TOPIC_SPANS",
+    "TOPIC_TRANSCRIPTS", "TOPIC_WORKER_STATUS", "TranscriptMessage",
     "new_trace_id", "normalize_tenant",
 ]

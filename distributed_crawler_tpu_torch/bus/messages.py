@@ -1,13 +1,16 @@
-"""Bus constants and the media and cluster envelopes the serving slices
-need, copied from the reference's `distributed_crawler_tpu/bus/
-messages.py`.  The message types, topic strings and dict field names are a
-wire contract and must stay identical: a frame published by either package
-decodes in the other."""
+"""Bus constants and the envelopes the serving slices need — media,
+cluster, worker status and span export — copied from the reference's
+`distributed_crawler_tpu/bus/messages.py`.  The message types, topic
+strings and dict field names are a wire contract and must stay identical:
+a frame published by either package decodes in the other, so a port
+worker's heartbeat reaches the reference's fleet view and its span batches
+the reference's trace collector."""
 
 from __future__ import annotations
 
 import secrets
 import string
+import time
 from dataclasses import dataclass, field
 from datetime import datetime, timezone
 from typing import Any, Dict, List, Optional
@@ -16,11 +19,24 @@ from typing import Any, Dict, List, Optional
 # the module here and read its functions at call time.
 from . import codec
 
+MSG_HEARTBEAT = "heartbeat"
+MSG_WORKER_STARTED = "worker_started"
+MSG_WORKER_STOPPING = "worker_stopping"
 MSG_AUDIO_BATCH = "audio_batch"
 MSG_TRANSCRIPT = "transcript"
+# A bounded batch of finished spans one worker ships for cross-process
+# trace assembly.
+MSG_SPAN_BATCH = "span_batch"
 # The cluster worker's periodic centroid-state announcement.
 MSG_CLUSTER_UPDATE = "cluster_update"
 
+WORKER_ACTIVE = "active"
+WORKER_IDLE = "idle"
+WORKER_BUSY = "busy"
+WORKER_ERROR = "error"
+WORKER_OFFLINE = "offline"
+
+TOPIC_WORKER_STATUS = "worker-status"
 TOPIC_INFERENCE_BATCHES = "tpu-inference-batches"
 TOPIC_INFERENCE_RESULTS = "tpu-inference-results"
 # Audio refs bound for the ASR worker, and the transcripts it sends back.
@@ -29,6 +45,9 @@ TOPIC_TRANSCRIPTS = "tpu-transcripts"
 # Cluster summaries after each checkpoint (fan-out; a missed update costs
 # the frontier's prioritisation freshness only).
 TOPIC_CLUSTERS = "tpu-clusters"
+# Span batches (fan-out like worker-status; a missed batch costs one
+# trace's completeness, never correctness).
+TOPIC_SPANS = "tpu-spans"
 
 # Frames without a tenant label decode to this documented default.
 DEFAULT_TENANT = "default"
@@ -316,6 +335,149 @@ class ClusterUpdateMessage:
             underpopulated=[int(c) for c in (d.get("underpopulated") or [])],
             channel_clusters={str(ch): int(c) for ch, c in
                               (d.get("channel_clusters") or {}).items()},
+            timestamp=codec.parse_time(d.get("timestamp")),
+            trace_id=d.get("trace_id", "") or "",
+        )
+
+
+# -- worker status -----------------------------------------------------------
+@dataclass
+class StatusMessage:
+    """Worker heartbeat/status.  ``worker_type`` is ``"tpu"``, ``"asr"``
+    or ``"cluster"`` for the serving workers; ``resource_usage`` carries
+    the telemetry snapshot (`utils/telemetry.py`)."""
+
+    message_type: str = MSG_HEARTBEAT
+    worker_id: str = ""
+    status: str = WORKER_IDLE
+    worker_type: str = "crawl"
+    current_work: Optional[str] = None
+    queue_length: int = 0
+    resource_usage: Dict[str, Any] = field(default_factory=dict)
+    tasks_processed: int = 0
+    tasks_success: int = 0
+    tasks_error: int = 0
+    timestamp: Optional[datetime] = None
+    uptime_s: float = 0.0
+    trace_id: str = ""
+
+    @classmethod
+    def new(cls, worker_id: str, message_type: str, status: str,
+            tasks_processed: int = 0, tasks_success: int = 0,
+            tasks_error: int = 0, uptime_s: float = 0.0,
+            worker_type: str = "crawl") -> "StatusMessage":
+        return cls(message_type=message_type, worker_id=worker_id,
+                   status=status, worker_type=worker_type,
+                   tasks_processed=tasks_processed,
+                   tasks_success=tasks_success, tasks_error=tasks_error,
+                   timestamp=codec.utcnow(), uptime_s=uptime_s,
+                   trace_id=new_trace_id())
+
+    def validate(self) -> None:
+        if not self.worker_id:
+            raise ValueError("status message WorkerID cannot be empty")
+        if self.message_type not in (MSG_HEARTBEAT, MSG_WORKER_STARTED,
+                                     MSG_WORKER_STOPPING):
+            raise ValueError(f"invalid message type: {self.message_type}")
+        if self.status not in (WORKER_ACTIVE, WORKER_IDLE, WORKER_BUSY,
+                               WORKER_ERROR, WORKER_OFFLINE):
+            raise ValueError(f"invalid status: {self.status}")
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "message_type": self.message_type,
+            "worker_id": self.worker_id,
+            "status": self.status,
+            "worker_type": self.worker_type,
+            "current_work": self.current_work,
+            "queue_length": self.queue_length,
+            "resource_usage": self.resource_usage,
+            "tasks_processed": self.tasks_processed,
+            "tasks_success": self.tasks_success,
+            "tasks_error": self.tasks_error,
+            "timestamp": _opt_time(self.timestamp),
+            # "uptime" is the reference's compatibility alias.
+            "uptime_s": self.uptime_s,
+            "uptime": self.uptime_s,
+            "trace_id": self.trace_id,
+        }
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "StatusMessage":
+        return cls(
+            message_type=d.get("message_type", MSG_HEARTBEAT),
+            worker_id=d.get("worker_id", "") or "",
+            status=d.get("status", WORKER_IDLE) or WORKER_IDLE,
+            worker_type=d.get("worker_type", "crawl") or "crawl",
+            current_work=d.get("current_work"),
+            queue_length=int(d.get("queue_length") or 0),
+            resource_usage=dict(d.get("resource_usage") or {}),
+            tasks_processed=int(d.get("tasks_processed") or 0),
+            tasks_success=int(d.get("tasks_success") or 0),
+            tasks_error=int(d.get("tasks_error") or 0),
+            timestamp=codec.parse_time(d.get("timestamp")),
+            uptime_s=float(d.get("uptime_s", d.get("uptime")) or 0.0),
+            trace_id=d.get("trace_id", "") or "",
+        )
+
+
+# -- span export (`utils/trace.SpanExporter`) --------------------------------
+@dataclass
+class SpanBatchMessage:
+    """A bounded batch of finished spans on ``TOPIC_SPANS``.
+
+    ``spans`` holds `utils.trace.Span.to_dict()` rows, their
+    ``start_wall`` on the sender's clock (``sent_wall`` lets a collector
+    estimate the offset); ``dropped`` counts spans not shipped since the
+    previous batch."""
+
+    message_type: str = MSG_SPAN_BATCH
+    worker_id: str = ""
+    sent_wall: float = 0.0              # sender epoch at publish
+    spans: List[Dict[str, Any]] = field(default_factory=list)
+    dropped: int = 0
+    timestamp: Optional[datetime] = None
+    trace_id: str = ""
+
+    @classmethod
+    def new(cls, worker_id: str, spans: List[Dict[str, Any]],
+            dropped: int = 0) -> "SpanBatchMessage":
+        return cls(worker_id=worker_id, sent_wall=time.time(),
+                   spans=list(spans), dropped=int(dropped),
+                   timestamp=codec.utcnow(), trace_id=new_trace_id())
+
+    def validate(self) -> None:
+        if self.message_type != MSG_SPAN_BATCH:
+            raise ValueError(
+                f"invalid span batch message type: {self.message_type}")
+        if not self.worker_id:
+            raise ValueError("span batch worker_id cannot be empty")
+        for s in self.spans:
+            if not isinstance(s, dict) or not s.get("name") \
+                    or not s.get("trace_id"):
+                raise ValueError(
+                    "span batch rows need at least name + trace_id")
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "message_type": self.message_type,
+            "worker_id": self.worker_id,
+            "sent_wall": self.sent_wall,
+            "spans": self.spans,
+            "dropped": self.dropped,
+            "timestamp": _opt_time(self.timestamp),
+            "trace_id": self.trace_id,
+        }
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "SpanBatchMessage":
+        return cls(
+            message_type=d.get("message_type", MSG_SPAN_BATCH),
+            worker_id=d.get("worker_id", "") or "",
+            sent_wall=float(d.get("sent_wall") or 0.0),
+            spans=[s for s in (d.get("spans") or [])
+                   if isinstance(s, dict)],
+            dropped=int(d.get("dropped") or 0),
             timestamp=codec.parse_time(d.get("timestamp")),
             trace_id=d.get("trace_id", "") or "",
         )

@@ -18,8 +18,11 @@ the reference's JSON layout, so a checkpoint of either engine resumes in
 the other.
 
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``.
-The mesh, the cost table and the efficiency meter wait for a later slice;
-the first-dispatch counter per bucket and the device timeline are kept.
+Each bucket's step is priced at its first dispatch
+(`utils/costmodel.kmeans_step_flops`, ``path="cluster"``) and every step
+feeds an `EfficiencyMeter` whose tokens are embedding rows, so its
+goodput is the assignment rate; `cost_snapshot()` is the engine half of
+``/costs``.  The mesh waits for a later slice.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import torch
 
 from ..device import resolve_device
 from ..models import clustering
+from ..utils.costmodel import CostModel, EfficiencyMeter, kmeans_step_flops
 from ..utils.metrics import REGISTRY, MetricsRegistry
 from ..utils.occupancy import DeviceTimeline
 
@@ -126,17 +130,25 @@ class ClusterEngine:
         self.m_compile_miss = registry.counter(
             "tpu_engine_compile_cache_misses_total",
             "first dispatches by bucket and path")
+        # path="cluster": the meter's gauges become labelled children, so
+        # a text engine on the same registry keeps its unlabelled series.
+        self.costs = CostModel(registry=registry)
+        self.meter = EfficiencyMeter(registry=registry, path="cluster",
+                                     device=self.device)
         # Dispatch to readback per step: the card's busy share and the
         # bubbles between the steps of one feed stream.
         self.timeline = DeviceTimeline(registry=registry, path="cluster")
 
-    def _program(self, bucket: int) -> None:
+    def _program(self, bucket: int, dim: int) -> None:
         with self._lock:
             first = bucket not in self._programs
             self._programs.add(bucket)
         if first:
             self.m_compile_miss.labels(bucket=str(bucket),
                                        path="cluster").inc()
+            self.costs.capture(bucket, "cluster",
+                               kmeans_step_flops(self.cfg.k, dim, bucket),
+                               batch=bucket, seq=dim)
 
     def _bucket_for(self, rows: int) -> int:
         for b in self._buckets:
@@ -220,7 +232,7 @@ class ClusterEngine:
         padded[:rows] = x
         mask = np.zeros((bucket,), dtype=np.float32)
         mask[:rows] = 1.0
-        self._program(bucket)
+        self._program(bucket, self.dim)
         t0 = time.perf_counter()
         xd = torch.from_numpy(padded).to(self.device)
         md = torch.from_numpy(mask).to(self.device)
@@ -230,7 +242,10 @@ class ClusterEngine:
         # before the caller commits them.
         host_assigns = assigns[:rows].cpu().tolist()
         host_inertia = inertia.item()
-        self.timeline.record(t0, time.perf_counter())
+        t1 = time.perf_counter()
+        self.timeline.record(t0, t1)
+        self.meter.record(t1 - t0, self.costs.flops_for(bucket, "cluster"),
+                          real_tokens=rows, slot_tokens=bucket)
         return new_centroids, new_counts, host_assigns, host_inertia
 
     def assign_only(self, vectors: Sequence[Sequence[float]]) -> List[int]:
@@ -260,7 +275,7 @@ class ClusterEngine:
                               device=self.device)
         dummy_n = torch.zeros((k,), dtype=torch.float32, device=self.device)
         for bucket in self._buckets:
-            self._program(bucket)
+            self._program(bucket, dim)
             x = torch.zeros((bucket, dim), dtype=torch.float32,
                             device=self.device)
             mask = torch.ones((bucket,), dtype=torch.float32,
@@ -367,3 +382,25 @@ class ClusterEngine:
             programs = sorted(self._programs)
         return {"programs_cluster": programs, "misses_total": total,
                 "misses": misses}
+
+    def efficiency_snapshot(self) -> Dict[str, Any]:
+        """Rolling MFU/goodput map for heartbeats; {} before the first
+        step."""
+        return self.meter.snapshot()
+
+    def occupancy_snapshot(self) -> Dict[str, Any]:
+        """The heartbeat's occupancy map; it also refreshes the
+        path="cluster" busy/overlap gauges."""
+        return self.timeline.snapshot()
+
+    def cost_snapshot(self) -> Dict[str, Any]:
+        """The engine half of the /costs body."""
+        return {
+            "model": f"kmeans-k{self.cfg.k}",
+            "k": self.cfg.k,
+            "dim": self.dim,
+            "buckets": list(self._buckets),
+            "n_devices": 1,
+            "costs": self.costs.snapshot(),
+            "efficiency": self.meter.snapshot(),
+        }

@@ -15,9 +15,11 @@ Transcripts are token ids; ``detokenize`` turns them into text when the
 checkpoint directory has tokenizer files.
 
 The pipeline runs on ``cuda`` unless the caller passes ``device="cpu"``.
-The cost table and the efficiency meter wait for a later slice; the
-window counters, the first-dispatch counter per bucket, the device
-timeline and the ``asr.transcribe`` span are kept.
+Each window bucket is priced at its first dispatch
+(`utils/costmodel.whisper_forward_flops`, ``path="asr"``) and every
+recorded dispatch feeds the `EfficiencyMeter` (encoder positions are its
+tokens: real windows against dispatched slots) and the `DeviceTimeline`;
+`cost_snapshot()` is the ``/costs`` body.
 """
 
 from __future__ import annotations
@@ -38,9 +40,11 @@ from ..models.whisper import (
     SAMPLE_RATE,
     Whisper,
     audio_window_samples,
-    transcribe_features,
+    transcribe_features_with_steps,
 )
 from ..utils import trace
+from ..utils.costmodel import CostModel, EfficiencyMeter, \
+    whisper_forward_flops
 from ..utils.metrics import REGISTRY, MetricsRegistry
 from ..utils.occupancy import DeviceTimeline
 
@@ -164,6 +168,10 @@ class ASRPipeline:
             else default_window_buckets(batch_size)
         self.chunker = AudioChunker(self.window_samples,
                                     buckets=self.window_buckets)
+        # Cost rows share the text engine's metric families, told apart
+        # by path="asr".
+        self.costs = CostModel(registry=registry)
+        self.meter = EfficiencyMeter(registry=registry, device=self.device)
         # The ASR dispatch is synchronous (tokens are read back in the same
         # call), so the timeline's busy fraction and bubbles say whether
         # the decode kept the card fed between bucketed batches.
@@ -205,17 +213,30 @@ class ASRPipeline:
         if first:
             self.m_compile_miss.labels(bucket=str(bucket),
                                        path="asr").inc()
+            self.costs.capture(
+                bucket, "asr",
+                whisper_forward_flops(self.model.cfg, bucket, self.max_len),
+                batch=bucket, seq=self.model.cfg.n_audio_ctx)
         t0 = time.perf_counter()
         with trace.span("asr.transcribe", bucket=bucket, windows=real):
             placed = torch.from_numpy(
                 np.ascontiguousarray(audio_batch, np.float32)).to(self.device)
             with torch.inference_mode():
-                tokens = transcribe_features(self.model, placed,
-                                             max_len=max_len or self.max_len)
+                tokens, steps = transcribe_features_with_steps(
+                    self.model, placed, max_len=max_len or self.max_len)
             tokens = tokens.cpu().numpy()
         dt = time.perf_counter() - t0
         if record:  # warmup must not score as busy time
             self.timeline.record(t0, t0 + dt)
+            # The cost row prices the full ``max_len`` decode, as the
+            # reference's does; the meter is charged the steps that ran,
+            # since the decode stops once every row has emitted EOT.
+            # Goodput unit: encoder positions, real windows against the
+            # dispatched slots.
+            ctx = self.model.cfg.n_audio_ctx
+            self.meter.record(
+                dt, whisper_forward_flops(self.model.cfg, bucket, steps + 1),
+                real * ctx, bucket * ctx)
             self.m_windows.inc(real)
             self.m_pad_windows.inc(bucket - real)
         return tokens
@@ -274,3 +295,25 @@ class ASRPipeline:
             programs = sorted(self._seen_buckets)
         return {"programs_asr": programs, "misses_total": total,
                 "misses": misses}
+
+    def efficiency_snapshot(self) -> Dict[str, Any]:
+        return self.meter.snapshot()
+
+    def occupancy_snapshot(self) -> Dict[str, Any]:
+        """The heartbeat's occupancy map; it also refreshes the
+        path="asr" busy/overlap gauges."""
+        return self.timeline.snapshot()
+
+    def cost_snapshot(self) -> Dict[str, Any]:
+        """The /costs body: the Whisper program rows, the rolling
+        efficiency window and the device occupancy."""
+        return {
+            "model": "whisper",
+            "batch_size": self.batch_size,
+            "window_buckets": list(self.window_buckets),
+            "window_samples": self.window_samples,
+            "decode_len": self.max_len,
+            "costs": self.costs.snapshot(),
+            "efficiency": self.meter.snapshot(),
+            "occupancy": self.timeline.snapshot(),
+        }

@@ -18,6 +18,12 @@ from a local HF checkpoint (``pretrained_dir``), from the caller
 last.  Two draws cannot follow JAX's PRNG; each is a module-level function
 a test can replace: `init_head` (the head of an encoder-only checkpoint)
 and `calibration_probe` (the ids ``int8_static`` calibrates on).
+
+Each (bucket, path) program is priced at its first dispatch
+(`utils/costmodel.forward_flops`: the reference's analytic count for a
+dense encoder, `moe_forward_flops` for one with experts), and every batch
+read back feeds the `EfficiencyMeter` and the `DeviceTimeline` with the
+same dispatch-to-host interval; `cost_snapshot()` is the ``/costs`` body.
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ from ..ops.padding import (
     pack_rows,
 )
 from ..utils import trace
+from ..utils.costmodel import CostModel, EfficiencyMeter, forward_flops
 from ..utils.metrics import REGISTRY, MetricsRegistry
 from ..utils.occupancy import DeviceTimeline
 from .tokenizer import HashingTokenizer, Tokenizer, from_pretrained_dir
@@ -148,6 +155,7 @@ class InferenceEngine:
         if cfg.moe_dispatch:
             self.ecfg = replace(self.ecfg, moe_dispatch=cfg.moe_dispatch)
         self._rows = cfg.batch_size
+        self.n_devices = 1
         self.tokenizer = tokenizer or HashingTokenizer(self.ecfg.vocab_size)
         self.bucket_spec = BucketSpec(
             tuple(b for b in cfg.buckets if b <= self.ecfg.max_len))
@@ -173,6 +181,12 @@ class InferenceEngine:
         self.m_compile_miss = registry.counter(
             "tpu_engine_compile_cache_misses_total",
             "first dispatches by bucket and path")
+        # Cost rows per (bucket, path), captured at the first dispatch, and
+        # the rolling goodput/MFU window fed per device batch with the
+        # timeline's interval: the /costs body and the heartbeats'
+        # efficiency map.
+        self.costs = CostModel(registry=registry)
+        self.meter = EfficiencyMeter(registry=registry, device=self.device)
         self.timeline = DeviceTimeline(registry=registry, path="text")
         self.model = self._build_model(params)
 
@@ -236,6 +250,19 @@ class InferenceEngine:
         if bucket not in steps:
             self.m_compile_miss.labels(bucket=str(bucket), path=path).inc()
             steps.add(bucket)
+            self.costs.capture(bucket, path,
+                               forward_flops(self.ecfg, self._rows, bucket),
+                               batch=self._rows, seq=bucket)
+
+    def _account(self, t0: float, bucket: int, path: str,
+                 real_tokens: int) -> None:
+        """One device batch read back: its dispatch-to-host interval into
+        the timeline, the latency histogram and the efficiency meter."""
+        dt = time.perf_counter() - t0
+        self.timeline.record(t0, t0 + dt)
+        self.m_latency.observe(dt)
+        self.meter.record(dt, self.costs.flops_for(bucket, path),
+                          real_tokens, self._rows * bucket)
 
     def compile_cache_stats(self) -> Dict[str, Any]:
         """Which (bucket, path) programs were dispatched, and the
@@ -253,6 +280,31 @@ class InferenceEngine:
             "misses_total": total,
             "misses": misses,
         }
+
+    def cost_snapshot(self) -> Dict[str, Any]:
+        """The /costs body: per-(bucket, path) cost rows, the rolling
+        efficiency window and the device occupancy."""
+        return {
+            "model": self.cfg.model,
+            "batch_size": self.cfg.batch_size,
+            "rows_per_dispatch": self._rows,
+            "n_devices": self.n_devices,
+            "mesh": None,
+            "buckets": list(self.bucket_spec.lengths),
+            "costs": self.costs.snapshot(),
+            "efficiency": self.meter.snapshot(),
+            "occupancy": self.timeline.snapshot(),
+        }
+
+    def efficiency_snapshot(self) -> Dict[str, Any]:
+        """Rolling MFU/goodput map for heartbeats; {} before the first
+        batch."""
+        return self.meter.snapshot()
+
+    def occupancy_snapshot(self) -> Dict[str, Any]:
+        """Device-occupancy map for heartbeats; it also refreshes the
+        busy/overlap gauges between scrapes."""
+        return self.timeline.snapshot()
 
     def _place(self, arrays: Sequence[np.ndarray]) -> List[torch.Tensor]:
         """Host arrays -> device tensors; on CUDA through pinned buffers
@@ -328,14 +380,13 @@ class InferenceEngine:
                       ) -> List[Dict[str, Any]]:
         results: List[Optional[Dict[str, Any]]] = [None] * len(token_lists)
         rows = self._rows
-        pending: Optional[tuple] = None  # (chunk, emb, logits, event, t0)
+        pending: Optional[tuple] = None  # (chunk, emb, logits, event, t0,
+        #                                  bucket, real_tokens)
 
-        def materialize(chunk, emb, logits, event, t0):
+        def materialize(chunk, emb, logits, event, t0, bucket, real_tokens):
             with trace.span("engine.unpack", rows=len(chunk)):
                 emb_np, logits_np = self._readback(emb, logits, event)
-                dt = time.perf_counter() - t0
-                self.timeline.record(t0, t0 + dt)
-                self.m_latency.observe(dt)
+                self._account(t0, bucket, "unpacked", real_tokens)
                 self.m_posts.inc(len(chunk))
                 self.m_padding.inc(rows - len(chunk))
                 scores = _softmax_np(logits_np)
@@ -352,6 +403,7 @@ class InferenceEngine:
                     ids, mask = pack_batch(
                         [token_lists[i] for i in chunk],
                         BucketSpec((bucket,)), batch_pad_to=rows)
+                real_tokens = int(mask.sum())
                 with trace.span("engine.device_put", bucket=bucket):
                     placed = self._place((ids, mask))
                 self._program(bucket, "unpacked")
@@ -361,7 +413,8 @@ class InferenceEngine:
                     emb, logits, event = self._dispatch(placed)
                 if pending is not None:
                     materialize(*pending)
-                pending = (chunk, emb, logits, event, t0)
+                pending = (chunk, emb, logits, event, t0, bucket,
+                           real_tokens)
         if pending is not None:
             materialize(*pending)
         return results  # type: ignore[return-value]
@@ -390,15 +443,14 @@ class InferenceEngine:
         rows = self._rows
         n_seg = self.cfg.pack_max_segments
         pending: Optional[tuple] = None  # (slots, used, emb, logits, event,
-        #                                  t0)
+        #                                  t0, bucket, real_tokens)
 
-        def materialize(slots, used_rows, emb, logits, event, t0):
+        def materialize(slots, used_rows, emb, logits, event, t0, bucket,
+                        real_tokens):
             with trace.span("engine.unpack", segments=len(slots),
                             rows=used_rows):
                 emb_np, logits_np = self._readback(emb, logits, event)
-                dt = time.perf_counter() - t0
-                self.timeline.record(t0, t0 + dt)
-                self.m_latency.observe(dt)
+                self._account(t0, bucket, "packed", real_tokens)
                 self.m_posts.inc(len(slots))
                 self.m_packed.inc(len(slots))
                 self.m_padding.inc(rows - used_rows)
@@ -429,6 +481,7 @@ class InferenceEngine:
                 slots = [(r - start, s, orig)
                          for r in range(start, end)
                          for s, orig in enumerate(packed.assignments[r])]
+                real_tokens = int(arrays[1].sum())
                 with trace.span("engine.device_put", bucket=bucket,
                                 packed=True):
                     placed = self._place(arrays)
@@ -440,7 +493,8 @@ class InferenceEngine:
                         placed, n_segments=n_seg)
                 if pending is not None:
                     materialize(*pending)
-                pending = (slots, used, emb, logits, event, t0)
+                pending = (slots, used, emb, logits, event, t0, bucket,
+                           real_tokens)
         if pending is not None:
             materialize(*pending)
         return results  # type: ignore[return-value]
@@ -468,7 +522,10 @@ class InferenceEngine:
                     else [[1] * (b - 1)])
             for m in modes:
                 self.run_tokenized(toks, pack=m)
+        # The cost rows stay; the warmup's intervals leave the occupancy
+        # and efficiency windows, which start clean for live serving.
         self.timeline.reset()
+        self.meter.reset()
 
 
 def random_tree(ecfg: EncoderConfig, seed: int) -> Dict[str, Any]:

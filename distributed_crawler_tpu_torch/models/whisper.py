@@ -480,6 +480,15 @@ def greedy_decode(model: Whisper, mel: torch.Tensor,
     """mel [B, F, M] -> token ids [B, max_len] int32, EOT-padded: ``sot``,
     then ``max_len - 1`` decode steps, the prompt forced while ``pos + 1 <
     3``; after EOT a row emits EOT."""
+    return greedy_decode_with_steps(model, mel, max_len)[0]
+
+
+def greedy_decode_with_steps(model: Whisper, mel: torch.Tensor,
+                             max_len: Optional[int] = None
+                             ) -> Tuple[torch.Tensor, int]:
+    """`greedy_decode`'s tokens and the decode steps it ran: ``max_len -
+    1``, or fewer when every row has emitted EOT (checked every
+    ``_FINISHED_CHECK_STEPS`` steps)."""
     cfg = model.cfg
     max_len = max_len or cfg.n_text_ctx
     batch = mel.shape[0]
@@ -491,6 +500,7 @@ def greedy_decode(model: Whisper, mel: torch.Tensor,
     out[:, 0] = cfg.sot_token
     token = out[:, :1].long()
     finished = torch.zeros(batch, dtype=torch.bool, device=mel.device)
+    steps = 0
     for pos in range(max_len - 1):
         logits, cache = model.decode_step(token, pos, cache, cross_kvs)
         if pos + 1 < len(prompt):
@@ -502,10 +512,11 @@ def greedy_decode(model: Whisper, mel: torch.Tensor,
         finished = finished | (nxt == cfg.eot_token)
         out[:, pos + 1] = nxt
         token = nxt[:, None]
+        steps = pos + 1
         # Once every row has finished, the rest of ``out`` is EOT already.
-        if (pos + 1) % _FINISHED_CHECK_STEPS == 0 and bool(finished.all()):
+        if steps % _FINISHED_CHECK_STEPS == 0 and bool(finished.all()):
             break
-    return out
+    return out, steps
 
 
 def audio_window_samples(cfg: WhisperConfig) -> int:
@@ -517,7 +528,14 @@ def audio_window_samples(cfg: WhisperConfig) -> int:
 def transcribe_features(model: Whisper, audio: torch.Tensor,
                         max_len: Optional[int] = None) -> torch.Tensor:
     """waveform [B, T] -> token ids [B, L]: frontend, encoder, greedy."""
+    return transcribe_features_with_steps(model, audio, max_len)[0]
+
+
+def transcribe_features_with_steps(model: Whisper, audio: torch.Tensor,
+                                   max_len: Optional[int] = None
+                                   ) -> Tuple[torch.Tensor, int]:
+    """`transcribe_features`'s tokens and the decode steps it ran."""
     cfg = model.cfg
     audio = pad_or_trim(audio, audio_window_samples(cfg))
     mel = log_mel_spectrogram(audio, n_mels=cfg.n_mels)
-    return greedy_decode(model, mel, max_len=max_len)
+    return greedy_decode_with_steps(model, mel, max_len=max_len)

@@ -1,25 +1,67 @@
-"""In-process metrics registry: counters, gauges, latency histograms.
+"""In-process metrics: counters, gauges, latency histograms, and the
+worker's HTTP endpoint.
 
-The registry part of the reference's `distributed_crawler_tpu/utils/
-metrics.py`, with the same metric names and label semantics (they are a
-contract with dashboards and the load gate).  Text exposition and the HTTP
-server wait for a later slice.
+The reference's `distributed_crawler_tpu/utils/metrics.py`, with the same
+metric names, label semantics, Prometheus text exposition and routes (they
+are a contract with dashboards, `tools/perfreport.py`, `tools/
+postmortem.py` and the orchestrator's fleet view):
+
+- `MetricsRegistry` and its `Counter`, `Gauge` and `Histogram` families,
+  ``.labels(...)`` children, and ``expose()``;
+- the late-bound providers behind ``/status``, ``/costs`` and
+  ``/clusters``, registered by the worker once it exists;
+- `serve_metrics`: ``/healthz``, ``/metrics``, ``/traces``, ``/status``,
+  ``/costs``, ``/profile``, ``/clusters`` and ``/timeseries`` on a daemon
+  thread.  The orchestrator's routes (``/dtraces``, ``/dlq``, ``/alerts``,
+  ``/shards``, ``/autoscaler``, ``/tenants``, ``/cluster``, ``/logs``)
+  answer 404: no orchestrator runs in the port.
 """
 
 from __future__ import annotations
 
+import bisect
+import json
 import threading
-from typing import Dict, List, Tuple
+import time
+from dataclasses import dataclass, field
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Dict, List, Optional, Tuple
+from urllib.parse import parse_qs
+
+# Latency buckets in seconds: 1 ms .. 60 s, roughly log-spaced.
+DEFAULT_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+                   0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0)
 
 LabelKey = Tuple[Tuple[str, str], ...]
+
+
+def _escape_help(help_: str) -> str:
+    """Prometheus HELP escaping: a backslash or newline in the help text
+    would corrupt the exposition."""
+    return help_.replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def _escape_label_value(value: str) -> str:
+    return (value.replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
 
 
 def _label_key(kv: Dict[str, object]) -> LabelKey:
     return tuple(sorted((k, str(v)) for k, v in kv.items()))
 
 
+def _label_str(items: LabelKey,
+               extra: Optional[Tuple[str, str]] = None) -> str:
+    parts = [f'{k}="{_escape_label_value(v)}"' for k, v in items]
+    if extra is not None:
+        parts.append(f'{extra[0]}="{_escape_label_value(extra[1])}"')
+    return "{" + ",".join(parts) + "}" if parts else ""
+
+
 class _LabeledMixin:
-    """``.labels(bucket="32")``-style children, created once and cached."""
+    """``.labels(bucket="32")``-style children, created once and cached.
+    The parent owns the HELP/TYPE header and an always-exposed unlabeled
+    series; each label set adds one ``name{k="v"} value`` series."""
 
     _label_items: LabelKey = ()
 
@@ -48,9 +90,17 @@ class _LabeledMixin:
 
     def series(self) -> list:
         """[(labels_dict, value)] for the parent and every labeled child
-        (Counter/Gauge)."""
+        (Counter/Gauge): the programmatic read heartbeats use."""
         return [(dict(m._label_items), m._read())
                 for m in [self] + self._child_snapshot()]
+
+    def _expose_values(self, kind: str) -> str:
+        lines = [f"# HELP {self.name} {_escape_help(self.help)}",
+                 f"# TYPE {self.name} {kind}"]
+        for m in [self] + self._child_snapshot():
+            lines.append(f"{self.name}{_label_str(m._label_items)} "
+                         f"{m._read()}")
+        return "\n".join(lines) + "\n"
 
 
 class Counter(_LabeledMixin):
@@ -71,6 +121,9 @@ class Counter(_LabeledMixin):
     def value(self) -> float:
         return self._read()
 
+    def expose(self) -> str:
+        return self._expose_values("counter")
+
 
 class Gauge(_LabeledMixin):
     def __init__(self, name: str, help_: str = ""):
@@ -90,12 +143,20 @@ class Gauge(_LabeledMixin):
     def value(self) -> float:
         return self._read()
 
+    def expose(self) -> str:
+        return self._expose_values("gauge")
+
 
 class Histogram(_LabeledMixin):
-    """Observation count plus a bounded window of recent observations."""
+    """Bucketed histogram plus a bounded window of recent observations."""
 
-    def __init__(self, name: str, help_: str = "", window: int = 4096):
+    def __init__(self, name: str, help_: str = "",
+                 buckets: Tuple[float, ...] = DEFAULT_BUCKETS,
+                 window: int = 4096):
         self.name, self.help = name, help_
+        self.buckets = tuple(sorted(buckets))
+        self._counts = [0] * (len(self.buckets) + 1)
+        self._sum = 0.0
         self._n = 0
         self._window: List[float] = []
         self._window_cap = window
@@ -103,10 +164,13 @@ class Histogram(_LabeledMixin):
         self._children: Dict[LabelKey, "Histogram"] = {}
 
     def _make_child(self) -> "Histogram":
-        return Histogram(self.name, self.help, self._window_cap)
+        return Histogram(self.name, self.help, self.buckets,
+                         self._window_cap)
 
     def observe(self, value: float) -> None:
         with self._lock:
+            self._counts[bisect.bisect_left(self.buckets, value)] += 1
+            self._sum += value
             self._n += 1
             self._window.append(value)
             if len(self._window) > self._window_cap:
@@ -123,6 +187,32 @@ class Histogram(_LabeledMixin):
         with self._lock:
             return self._n
 
+    def _series_lines(self, items: LabelKey) -> List[str]:
+        # One atomic snapshot: a concurrent observe() between the bucket
+        # walk and the _count line would expose disagreeing totals.
+        with self._lock:
+            counts = list(self._counts)
+            total, n = self._sum, self._n
+        lines = []
+        cum = 0
+        for bound, c in zip(self.buckets, counts):
+            cum += c
+            lines.append(f"{self.name}_bucket"
+                         f"{_label_str(items, ('le', str(bound)))} {cum}")
+        cum += counts[-1]
+        lines.append(f"{self.name}_bucket"
+                     f"{_label_str(items, ('le', '+Inf'))} {cum}")
+        lines.append(f"{self.name}_sum{_label_str(items)} {total}")
+        lines.append(f"{self.name}_count{_label_str(items)} {n}")
+        return lines
+
+    def expose(self) -> str:
+        lines = [f"# HELP {self.name} {_escape_help(self.help)}",
+                 f"# TYPE {self.name} histogram"]
+        for m in [self] + self._child_snapshot():
+            lines.extend(m._series_lines(m._label_items))
+        return "\n".join(lines) + "\n"
+
 
 class MetricsRegistry:
     def __init__(self):
@@ -135,9 +225,10 @@ class MetricsRegistry:
     def gauge(self, name: str, help_: str = "") -> Gauge:
         return self._get_or_make(name, lambda: Gauge(name, help_), Gauge)
 
-    def histogram(self, name: str, help_: str = "") -> Histogram:
-        return self._get_or_make(name, lambda: Histogram(name, help_),
-                                 Histogram)
+    def histogram(self, name: str, help_: str = "",
+                  buckets: Tuple[float, ...] = DEFAULT_BUCKETS) -> Histogram:
+        return self._get_or_make(
+            name, lambda: Histogram(name, help_, buckets), Histogram)
 
     def _get_or_make(self, name, factory, cls):
         with self._lock:
@@ -149,5 +240,184 @@ class MetricsRegistry:
                                  f"{type(m).__name__}")
             return m
 
+    def expose(self) -> str:
+        with self._lock:
+            metrics = list(self._metrics.values())
+        return "".join(m.expose() for m in metrics)
+
 
 REGISTRY = MetricsRegistry()
+
+# Late-bound JSON providers: the metrics server can start before the
+# worker exists, so the worker registers its maps once constructed.
+# ``clear_*`` unregisters only a provider that is still the active one,
+# so a stopping component never yanks one registered after it.
+_providers: Dict[str, object] = {"status": None, "costs": None,
+                                 "clusters": None}
+
+
+def _set(kind: str, fn) -> None:
+    _providers[kind] = fn
+
+
+def _clear(kind: str, fn) -> None:
+    if _providers[kind] == fn:
+        _providers[kind] = None
+
+
+def set_status_provider(fn) -> None:
+    """Register the zero-arg dict provider served at /status (None
+    clears)."""
+    _set("status", fn)
+
+
+def clear_status_provider(fn) -> None:
+    _clear("status", fn)
+
+
+def set_costs_provider(fn) -> None:
+    """Register the zero-arg dict provider served at /costs (None
+    clears)."""
+    _set("costs", fn)
+
+
+def clear_costs_provider(fn) -> None:
+    _clear("costs", fn)
+
+
+def set_clusters_provider(fn) -> None:
+    """Register the zero-arg dict provider served at /clusters (None
+    clears)."""
+    _set("clusters", fn)
+
+
+def clear_clusters_provider(fn) -> None:
+    _clear("clusters", fn)
+
+
+def clusters_snapshot():
+    """The active /clusters body, or None without a provider: the flight
+    recorder puts it in postmortem bundles."""
+    fn = _providers["clusters"]
+    if fn is None:
+        return None
+    try:
+        return fn()
+    except Exception as e:
+        return {"error": str(e)}
+
+
+def _query_limit(query: Dict[str, List[str]]) -> int:
+    try:
+        return int(query.get("limit", ["0"])[0])
+    except (ValueError, TypeError):
+        return 0
+
+
+def _query_float(query: Dict[str, List[str]], key: str) -> float:
+    try:
+        return float((query.get(key) or ["0"])[0])
+    except (ValueError, TypeError):
+        return 0.0
+
+
+class _Handler(BaseHTTPRequestHandler):
+    registry: MetricsRegistry = REGISTRY
+    providers: Dict[str, object] = {}   # this server's own, over globals
+
+    def do_GET(self):  # noqa: N802 (http.server API)
+        path = self.path.split("?", 1)[0].rstrip("/")
+        query = parse_qs(self.path.partition("?")[2])
+        code, ctype = 200, "application/json"
+        kind = {"/status": "status", "/costs": "costs",
+                "/clusters": "clusters"}.get(path)
+        provider = self.providers.get(kind) or _providers.get(kind) \
+            if kind else None
+        if path in ("", "/health", "/healthz"):
+            body, ctype = b"ok\n", "text/plain"
+        elif path == "/metrics":
+            body = self.registry.expose().encode("utf-8")
+            ctype = "text/plain; version=0.0.4"
+        elif path == "/traces":
+            # Completed traces (spans grouped by trace_id, newest first);
+            # ?limit=N caps the trace count.
+            from . import trace
+
+            body = json.dumps(trace.TRACER.export(
+                limit=_query_limit(query)), default=str).encode("utf-8")
+        elif provider is not None:
+            try:
+                body = json.dumps(provider(), default=str).encode("utf-8")
+            except Exception as e:
+                # Visible to status-code monitors, one response per
+                # request.
+                code = 500
+                body = json.dumps({"error": str(e)}).encode("utf-8")
+        elif path == "/profile":
+            # One bounded torch.profiler capture at a time, process-wide;
+            # this request's thread blocks for the window.
+            from . import profiling
+
+            result = profiling.capture(
+                (query.get("seconds") or ["1"])[0])
+            code = int(result.pop("code", 200 if result.get("ok") else 500))
+            body = json.dumps(result).encode("utf-8")
+        elif path == "/timeseries":
+            # The process's rolling series; ?series= filters by name or
+            # exact key, ?window= downsamples, ?since= bounds history.
+            from . import timeseries
+
+            try:
+                body = json.dumps(timeseries.STORE.snapshot(
+                    series=(query.get("series") or [""])[0] or None,
+                    window_s=_query_float(query, "window"),
+                    since_s=_query_float(query, "since")),
+                    default=str).encode("utf-8")
+            except Exception as e:
+                code = 500
+                body = json.dumps({"error": str(e)}).encode("utf-8")
+        else:
+            self.send_response(404)
+            self.end_headers()
+            return
+        self.send_response(code)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def log_message(self, *args):  # silence request logging
+        pass
+
+
+def serve_metrics(port: int, registry: MetricsRegistry = REGISTRY,
+                  providers: Optional[Dict[str, object]] = None
+                  ) -> ThreadingHTTPServer:
+    """Serve the routes above on 127.0.0.1 from a daemon thread; returns
+    the server (``.shutdown()`` stops it).  Port 0 picks a free port
+    (``server.server_address[1]``).  ``providers`` maps ``"status"``,
+    ``"costs"`` or ``"clusters"`` to this server's own provider, so two
+    workers in one process each serve their own maps; without one a route
+    uses the provider registered through ``set_*_provider``."""
+    handler = type("Handler", (_Handler,), {
+        "registry": registry, "providers": dict(providers or {})})
+    server = ThreadingHTTPServer(("127.0.0.1", port), handler)
+    threading.Thread(target=server.serve_forever, daemon=True,
+                     name="metrics-http").start()
+    return server
+
+
+@dataclass
+class Timer:
+    """Context manager observing elapsed seconds into a histogram."""
+
+    histogram: Histogram
+    _start: float = field(default=0.0, init=False)
+
+    def __enter__(self):
+        self._start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.histogram.observe(time.perf_counter() - self._start)
+        return False

@@ -471,7 +471,7 @@ def test_clusters_body_and_update_messages():
     assert body["vectors"] == 6
     assert body["checkpoint"]["written"] >= 1
     assert isinstance(body["inertia"], list)
-    assert "assign_vectors_per_s" not in body
+    assert body["assign_vectors_per_s"] > 0
     assert updates, "a checkpoint announces a ClusterUpdateMessage"
     msg = decode_message(updates[-1])
     assert isinstance(msg, jmsg.ClusterUpdateMessage)
