@@ -126,6 +126,27 @@ JSON line each:
    between result frames), MFU per path, the meter's achieved FLOP/s per bucket
    against phase 4's CUDA-event forward, the host cost of one heartbeat
    and one span export.
+11. slice.cli — the CLI's device modes (`distributed_crawler_tpu_torch/
+   cli.py`) at full width, from its flags and defaults: `_build_tpu_worker`
+   (E5-small, buckets 64-512, batch 256, the in-memory bus) serving eight
+   batches of 256 posts, its JSONL writeback against the same engine's
+   unpacked results (2e-2; labels off a 5e-2 margin); ``python3 -m
+   distributed_crawler_tpu_torch.cli --mode tpu-worker`` as a process of
+   its own (start to /healthz, /status, /metrics, /costs and /logs, SIGTERM
+   giving 130 and a postmortem bundle with a ``logs`` section), which
+   where ``grpc`` imports also hosts the broker (``--bus-serve``): the same
+   batches published into it through `RemoteBus`, its rows checked as
+   before, one heartbeat's card memory read back (a ``cli.grpc`` line
+   says which) and the process's own attention launches and dispatches
+   read from its /metrics (``attention_kernel_launches_total{path}``); ``mode=transcribe`` over phase 7's checkpoint and WAV tree
+   (plus a non-WAV file named ``.wav``) against phase 7's
+   `transcribe_files`; ``mode=cluster`` on 2048 text rows through E5-large
+   (k 8, 25 iterations) against `fit` on the same engine's `embed`, and on
+   16,384 x 1024 embedding rows (seconds split into reading, fitting and
+   writing); `_build_asr_worker` and `_build_cluster_worker` at the CLI's
+   defaults on one audio batch and on step 1's result stream.  Every
+   attention launch on sm90: 12 per E5-small or Whisper dispatch, 24 per
+   E5-large dispatch.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``.  Any failed phase raises and exits
@@ -140,6 +161,7 @@ import logging
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 
@@ -754,7 +776,8 @@ def phase_slice(torch, np, seed, smi):
          dispatch_latencies=served["latencies"], card=smi)
     engine_rows = time_engine(torch, engine, smi, model=cfg.model)
     return {"launches": served["launches_by_path"],
-            "dispatches": served["dispatches"], "engine_rows": engine_rows}
+            "dispatches": served["dispatches"], "engine_rows": engine_rows,
+            "posts_per_s": served["posts_per_s"]}
 
 
 # -- phase 6: XLM-R-base from a local HF checkpoint, int8 -------------------
@@ -1568,11 +1591,10 @@ def time_asr(torch, wh, attention, pipeline, smi, served_ms):
     return rows, kernel_rows
 
 
-def phase_asr(torch, np, attention, device, seed, smi):
+def phase_asr(torch, np, attention, device, seed, smi, work):
     """Whisper-small from a synthetic HF checkpoint at the published widths,
-    served bf16 through `ASRPipeline.from_pretrained` and `ASRWorker`."""
-    import tempfile
-
+    served bf16 through `ASRPipeline.from_pretrained` and `ASRWorker`.  The
+    checkpoint and the WAV tree stay under ``work`` for phase 11."""
     from distributed_crawler_tpu_torch.bus import AudioBatchMessage, AudioRef
     from distributed_crawler_tpu_torch.inference.asr import ASRPipeline
     from distributed_crawler_tpu_torch.models import whisper as wh
@@ -1581,61 +1603,62 @@ def phase_asr(torch, np, attention, device, seed, smi):
     )
     from distributed_crawler_tpu_torch.utils.metrics import MetricsRegistry
 
-    with tempfile.TemporaryDirectory(prefix="whisper_ckpt_") as root:
-        ckpt = os.path.join(root, "ckpt")
-        os.makedirs(ckpt)
-        t0 = time.perf_counter()
-        with open(os.path.join(ckpt, "config.json"), "w") as f:
-            json.dump(WHISPER_HF_CONFIG, f)
-        write_safetensors(os.path.join(ckpt, "model.safetensors"),
-                          whisper_state(np, seed))
-        write_s = time.perf_counter() - t0
-        ckpt_bytes = os.path.getsize(os.path.join(ckpt, "model.safetensors"))
-        media = os.path.join(root, "media")
-        os.makedirs(media)
-        files = write_audio_traffic(np, media, seed)
+    root = os.path.join(work, "asr")
+    ckpt = os.path.join(root, "ckpt")
+    os.makedirs(ckpt)
+    t0 = time.perf_counter()
+    with open(os.path.join(ckpt, "config.json"), "w") as f:
+        json.dump(WHISPER_HF_CONFIG, f)
+    write_safetensors(os.path.join(ckpt, "model.safetensors"),
+                      whisper_state(np, seed))
+    write_s = time.perf_counter() - t0
+    ckpt_bytes = os.path.getsize(os.path.join(ckpt, "model.safetensors"))
+    media = os.path.join(root, "media")
+    os.makedirs(media)
+    files = write_audio_traffic(np, media, seed)
 
-        t0 = time.perf_counter()
-        pipeline = ASRPipeline.from_pretrained(ckpt, batch_size=8,
-                                               registry=MetricsRegistry())
-        init_s = time.perf_counter() - t0
-        cfg = pipeline.model.cfg
-        check(pipeline.device.type == "cuda",
-              f"pipeline on {pipeline.device}")
-        check(cfg == wh.WHISPER_SMALL, f"not whisper-small's widths: {cfg}")
-        check(pipeline.window_buckets == ASR_BUCKETS,
-              f"window buckets {pipeline.window_buckets}")
-        check(pipeline.max_len == cfg.n_text_ctx == 448,
-              f"decode length {pipeline.max_len}")
-        check(pipeline.detokenize is None, "a detokenizer without files")
-        t0 = time.perf_counter()
-        pipeline.warmup()
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
-        emit("slice.asr.setup", checkpoint_bytes=ckpt_bytes,
-             checkpoint_write_s=write_s, pipeline_init_s=init_s,
-             warmup_s=warm_s, programs=pipeline.compile_cache_stats(),
-             files=[[os.path.basename(p), s] for p, s in files])
+    t0 = time.perf_counter()
+    pipeline = ASRPipeline.from_pretrained(ckpt, batch_size=8,
+                                           registry=MetricsRegistry())
+    init_s = time.perf_counter() - t0
+    cfg = pipeline.model.cfg
+    check(pipeline.device.type == "cuda",
+          f"pipeline on {pipeline.device}")
+    check(cfg == wh.WHISPER_SMALL, f"not whisper-small's widths: {cfg}")
+    check(pipeline.window_buckets == ASR_BUCKETS,
+          f"window buckets {pipeline.window_buckets}")
+    check(pipeline.max_len == cfg.n_text_ctx == 448,
+          f"decode length {pipeline.max_len}")
+    check(pipeline.detokenize is None, "a detokenizer without files")
+    t0 = time.perf_counter()
+    pipeline.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    emit("slice.asr.setup", checkpoint_bytes=ckpt_bytes,
+         checkpoint_write_s=write_s, pipeline_init_s=init_s,
+         warmup_s=warm_s, programs=pipeline.compile_cache_stats(),
+         files=[[os.path.basename(p), s] for p, s in files])
 
-        paths = [p for p, _ in files]
-        cuts = (0, 2, 5, 7, len(paths))  # 4 batches of 2-3 files
-        msgs = [AudioBatchMessage.new(
-            [AudioRef(media_id=f"m{i:02d}", path=paths[i],
-                      channel_name="smoke") for i in range(lo, hi)],
-            crawl_id="smoke-asr") for lo, hi in zip(cuts, cuts[1:])]
-        served = serve_audio(pipeline, msgs)
-        launches, dispatches = served["launches"], served["dispatches"]
-        check(dispatches > 0, "no encoder dispatch on the ASR path")
-        check(launches == {"sm90": cfg.n_audio_layer * dispatches,
-                           "mma_sync": 0, "simt": 0},
-              f"launches by path {launches} for {dispatches} dispatches: "
-              f"expected {cfg.n_audio_layer} sm90 per dispatch")
-        windows = check_transcripts(np, pipeline, msgs, files, served)
-        audio_s = sum(s for _, s in files if s is not None)
-        window0 = pipeline.chunker.chunk_files([paths[0]]).windows[:1]
-        two = pipeline.chunker.chunk_files(paths[-1:]).windows[:2]
-        served_ms = dispatch_ms_by_bucket()
-        _, tree = load_hf_whisper(ckpt)
+    paths = [p for p, _ in files]
+    cuts = (0, 2, 5, 7, len(paths))  # 4 batches of 2-3 files
+    msgs = [AudioBatchMessage.new(
+        [AudioRef(media_id=f"m{i:02d}", path=paths[i],
+                  channel_name="smoke") for i in range(lo, hi)],
+        crawl_id="smoke-asr") for lo, hi in zip(cuts, cuts[1:])]
+    served = serve_audio(pipeline, msgs)
+    launches, dispatches = served["launches"], served["dispatches"]
+    check(dispatches > 0, "no encoder dispatch on the ASR path")
+    check(launches == {"sm90": cfg.n_audio_layer * dispatches,
+                       "mma_sync": 0, "simt": 0},
+          f"launches by path {launches} for {dispatches} dispatches: "
+          f"expected {cfg.n_audio_layer} sm90 per dispatch")
+    windows = check_transcripts(np, pipeline, msgs, files, served)
+    audio_s = sum(s for _, s in files if s is not None)
+    window0 = pipeline.chunker.chunk_files([paths[0]]).windows[:1]
+    two = pipeline.chunker.chunk_files(paths[-1:]).windows[:2]
+    served_ms = dispatch_ms_by_bucket()
+    transcribe = expected_cli_transcripts(pipeline, media, files)
+    _, tree = load_hf_whisper(ckpt)
     mel0 = wh.log_mel_spectrogram(torch.from_numpy(window0),
                                   n_mels=cfg.n_mels)
     vs_cpu = check_asr_against_cpu(torch, wh, cfg, tree, mel0, device)
@@ -1670,7 +1693,27 @@ def phase_asr(torch, np, attention, device, seed, smi):
     del pipeline
     torch.cuda.empty_cache()
     return {"launches": launches, "dispatches": dispatches,
-            "kernel_rows": kernel_rows}
+            "kernel_rows": kernel_rows, "ckpt": ckpt, "media": media,
+            "transcribe": transcribe, "files": files}
+
+
+def expected_cli_transcripts(pipeline, media, files):
+    """What ``mode=transcribe`` must write for this tree (phase 11): the
+    WAV files plus a copy of the non-WAV file under a ``.wav`` name, in
+    the order the CLI walks them, through `transcribe_files` on this
+    pipeline (the CLI's defaults: batch 8, window buckets 1/2/4/8)."""
+    bad = next(p for p, sec in files if sec is None)
+    with open(bad, "rb") as src, \
+            open(os.path.join(media, "not_a_wav.wav"), "wb") as dst:
+        dst.write(src.read())
+    paths = sorted(os.path.join(media, n) for n in os.listdir(media)
+                   if n.endswith(".wav"))
+    t0 = time.perf_counter()
+    results = pipeline.transcribe_files(paths)
+    return {"seconds": time.perf_counter() - t0,
+            "rows": [{"path": os.path.relpath(r.path, media),
+                      "tokens": r.tokens, "windows": r.windows,
+                      "error": r.error} for r in results]}
 
 
 # -- phase 8: E5-large embeddings clustered on the card ---------------------
@@ -3639,6 +3682,627 @@ def phase_ops(torch, np, seed, smi, engine_rows):
                          for p in attention.PATHS}}
 
 
+# -- phase 11: the CLI's device modes ----------------------------------------
+# Step 1's tolerances are phase 4's: served (packed) embeddings against the
+# same engine's unpacked `embed` within 2e-2; labels equal where the top-2
+# score gap exceeds 5e-2.
+CLI_EMB_TOL, CLI_LABEL_MARGIN = 2e-2, 5e-2
+CLI_BATCHES = 8
+CLI_CLUSTER_K, CLI_CLUSTER_ITERS, CLI_CLUSTER_POSTS = 8, 25, 2048
+CLI_EMB_ROWS, CLI_EMB_DIM = 16384, 1024
+# The cluster result against the port's `fit` on the same rows.
+CLI_INERTIA_RTOL = 1e-4
+
+
+def zero_launches(attention):
+    attention.flash_attention.launches = 0
+    for p in attention.flash_attention.launches_by_path:
+        attention.flash_attention.launches_by_path[p] = 0
+
+
+def read_launches(attention):
+    return dict(attention.flash_attention.launches_by_path)
+
+
+def check_sm90_only(launches, per_dispatch, dispatches, what):
+    check(dispatches > 0, f"{what}: no device dispatch")
+    check(launches == {"sm90": per_dispatch * dispatches, "mma_sync": 0,
+                       "simt": 0},
+          f"{what}: launches by path {launches} for {dispatches} "
+          f"dispatches (expected {per_dispatch} sm90 per dispatch)")
+
+
+def cli_resolve(argv):
+    from distributed_crawler_tpu_torch import cli
+
+    return cli.resolve_config(cli.build_parser().parse_args(argv), env={})
+
+
+def cli_main(argv):
+    """``cli.main(argv)`` with its summary line captured; returns (rc,
+    the last stdout line as JSON or None, seconds)."""
+    import contextlib
+    import io
+
+    from distributed_crawler_tpu_torch import cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv, env={})
+    seconds = time.perf_counter() - t0
+    lines = out.getvalue().strip().splitlines()
+    return rc, (json.loads(lines[-1]) if lines else None), seconds
+
+
+def result_rows(store, crawl_id, batches):
+    """The tpu-worker's JSONL writeback, one file per batch, in batch
+    order."""
+    rows = []
+    for b in batches:
+        path = os.path.join(store, "inference", crawl_id, "batches",
+                            f"{b.batch_id}.jsonl")
+        check(os.path.exists(path), f"no results file for {b.batch_id}")
+        with open(path, encoding="utf-8") as f:
+            got = [json.loads(line) for line in f]
+        check([r["post_uid"] for r in got]
+              == [r["post_uid"] for r in b.records],
+              f"batch {b.batch_id}: rows {len(got)} for "
+              f"{len(b.records)} posts, or out of order")
+        rows += got
+    return rows
+
+
+def check_rows_against(np, rows, want):
+    """Rows against the engine's unpacked results on the same texts."""
+    emb = np.asarray([r["embedding"] for r in rows], np.float64)
+    w_emb = np.asarray([r["embedding"] for r in want], np.float64)
+    err = float(np.abs(emb - w_emb).max())
+    check(err <= CLI_EMB_TOL, f"embeddings off the engine's by {err}")
+    scores = np.asarray([r["scores"] for r in want])
+    top2 = np.sort(scores, axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > CLI_LABEL_MARGIN
+    labels = np.asarray([r["label"] for r in rows])
+    w_labels = np.asarray([r["label"] for r in want])
+    check(bool((labels[clear] == w_labels[clear]).all()),
+          "labels differ where the top score is clear")
+    return {"rows": len(rows), "emb_max_abs_err": err, "tol": CLI_EMB_TOL,
+            "labels_compared": int(clear.sum()),
+            "label_margin": CLI_LABEL_MARGIN}
+
+
+def cli_tpu_worker(torch, np, attention, work, seed, smi, phase4_posts_s):
+    """Step 1: `_build_tpu_worker` from the CLI's defaults, eight batches
+    of 256 posts on its in-memory bus, the JSONL writeback checked."""
+    from distributed_crawler_tpu_torch import cli
+    from distributed_crawler_tpu_torch.bus import (
+        TOPIC_INFERENCE_BATCHES,
+        TOPIC_INFERENCE_RESULTS,
+        RecordBatch,
+    )
+
+    store = os.path.join(work, "cli_tpu")
+    cfg, r = cli_resolve(["--mode", "tpu-worker", "--infer-batch-size",
+                          str(BATCH), "--storage-root", store,
+                          "--crawl-id", "smoke-cli",
+                          "--worker-id", "chip-smoke-cli"])
+    t0 = time.perf_counter()
+    worker = cli._build_tpu_worker(cfg, r)
+    build_s = time.perf_counter() - t0
+    engine = worker.engine
+    ecfg = engine.ecfg
+    check(engine.device.type == "cuda", f"engine on {engine.device}")
+    check((ecfg.vocab_size, ecfg.hidden, ecfg.n_layers, ecfg.n_heads)
+          == (250037, 384, 12, 12), f"not E5-small's full width: {ecfg}")
+    check(engine.bucket_spec.lengths == (64, 128, 256, 512)
+          and engine.cfg.batch_size == BATCH,
+          f"not the CLI's defaults: {engine.cfg}")
+    t0 = time.perf_counter()
+    worker.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    frames = []
+    worker.bus.subscribe(TOPIC_INFERENCE_RESULTS, frames.append)
+    rng = np.random.default_rng(seed + 11)
+    batches = [RecordBatch.from_records(
+        synthetic_posts(np, rng, BATCH, i * BATCH), crawl_id="smoke-cli")
+        for i in range(CLI_BATCHES)]
+    worker.start()
+    zero_launches(attention)
+    d0 = engine.m_latency.count
+    t_start = time.perf_counter()
+    try:
+        for b in batches:
+            worker.bus.publish(TOPIC_INFERENCE_BATCHES, b.to_dict())
+        deadline = time.monotonic() + 600
+        while len(frames) < len(batches) and time.monotonic() < deadline:
+            time.sleep(0.005)
+        t_end = time.perf_counter()
+        check(worker.drain(timeout_s=60.0), "cli tpu-worker did not drain")
+    finally:
+        worker.stop()
+        worker.bus.close()
+    launches = read_launches(attention)
+    dispatches = engine.m_latency.count - d0
+    check_sm90_only(launches, ecfg.n_layers, dispatches, "cli tpu-worker")
+    check(len(frames) == len(batches), f"{len(frames)} result frames")
+    rows = result_rows(store, "smoke-cli", batches)
+    texts = [t for b in batches for t in b.texts()]
+    want = engine.run(texts)
+    vs_engine = check_rows_against(np, rows, want)
+    n_posts = len(rows)
+    posts_s = n_posts / (t_end - t_start)
+    emit("cli.tpu_worker", posts=n_posts, batches=len(batches),
+         dispatches=dispatches, kernel_launches_by_path=launches,
+         launches_per_dispatch=launches["sm90"] / dispatches,
+         vs_engine_embed=vs_engine, build_s=build_s, warmup_s=warm_s)
+    emit("times.cli", step="tpu-worker", posts=n_posts,
+         seconds=t_end - t_start, posts_per_s=posts_s,
+         phase4_posts_per_s=phase4_posts_s, card=smi)
+    return {"launches": launches, "batches": batches, "want": want,
+            "frames": frames, "warmup_s": warm_s, "posts_per_s": posts_s,
+            "n_layers": ecfg.n_layers}
+
+
+def wait_http_200(url, proc, timeout_s):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        check(proc.poll() is None, f"the CLI process exited {proc.returncode}")
+        try:
+            if http_get(url)[0] == 200:
+                return
+        except OSError:
+            pass
+        time.sleep(0.1)
+    raise Fail(f"{url} did not answer 200 in {timeout_s} s")
+
+
+def proc_counts(url):
+    """A CLI process's attention launches by path and its engine's
+    dispatches, read from its /metrics: both live in its memory only."""
+    code, body = http_get(url + "/metrics")
+    check(code == 200, f"/metrics answered {code}")
+    launches = dict.fromkeys(KERNEL_SOURCES, 0)
+    dispatches = 0
+    for line in body.decode().splitlines():
+        name, _, value = line.rpartition(" ")
+        if name.startswith('attention_kernel_launches_total{path="'):
+            launches[name.split('"')[1]] = int(float(value))
+        elif name == "tpu_inference_batch_seconds_count":
+            dispatches = int(float(value))
+    return launches, dispatches
+
+
+def cli_process(np, work, tpu, smi):
+    """Steps 2 and 6: ``python3 -m distributed_crawler_tpu_torch.cli --mode
+    tpu-worker`` as a process of its own.  Where ``grpc`` imports, the
+    process also hosts the broker (``--bus-serve``): a `RemoteBus` here
+    publishes step 1's batches into it and reads its heartbeats, the only
+    way out of the process; the routes, /logs and the SIGTERM bundle are
+    checked either way."""
+    import glob
+    import signal
+
+    try:
+        import grpc  # noqa: F401
+        grpc_ok = True
+    except ImportError:
+        grpc_ok = False
+    emit("cli.grpc", available=grpc_ok,
+         runs=("the worker process hosts the broker; batches and "
+               "heartbeats over RemoteBus" if grpc_ok else
+               "not run: no grpc on this machine, so no batch is published "
+               "into the worker process and no heartbeat is read"))
+    store = os.path.join(work, "cli_proc")
+    dump = os.path.join(work, "cli_dump")
+    port = free_port()
+    argv = [sys.executable, "-m", f"{PACKAGE}.cli", "--mode", "tpu-worker",
+            "--metrics-port", str(port), "--dump-dir", dump,
+            "--storage-root", store, "--crawl-id", "smoke-cli",
+            "--worker-id", "chip-smoke-proc", "--log-json",
+            # Clamped to 1 s with a WARNING: the process warns, so its
+            # /logs and bundle carry a record.
+            "--telemetry-interval", "0.5"]
+    bus_address = ""
+    if grpc_ok:
+        bus_address = f"127.0.0.1:{free_port()}"
+        argv += ["--bus-serve", "--bus-address", bus_address]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + [p for p in [env.get("PYTHONPATH", "")] if p])
+    log_path = os.path.join(work, "cli_process.log")
+    url = f"http://127.0.0.1:{port}"
+    out = {"grpc": grpc_ok}
+    with open(log_path, "w", encoding="utf-8") as log:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=log,
+                                stderr=subprocess.STDOUT)
+        try:
+            wait_http_200(url + "/healthz", proc, 600)
+            out["start_to_healthz_s"] = time.perf_counter() - t0
+            for route in ("/status", "/metrics", "/costs", "/logs"):
+                code, body = http_get(url + route)
+                check(code == 200, f"{route} answered {code}")
+            logs = json.loads(http_get(url + "/logs")[1])["records"]
+            check(any("clamped" in r["message"] for r in logs),
+                  f"/logs without the clamp warning: {logs}")
+            warm_launches, d0 = proc_counts(url)
+            check(warm_launches["sm90"] > 0
+                  and warm_launches["mma_sync"] == warm_launches["simt"] == 0,
+                  f"the process's warmup launches by path {warm_launches}")
+            launches = dict.fromkeys(KERNEL_SOURCES, 0)
+            if grpc_ok:
+                out.update(cli_process_bus(np, bus_address, store, tpu))
+                after, d1 = proc_counts(url)
+                launches = {p: after[p] - warm_launches[p] for p in after}
+                check_sm90_only(launches, tpu["n_layers"], d1 - d0,
+                                "cli process over gRPC")
+                out.update(dispatches=d1 - d0)
+            out.update(warmup_launches_by_path=warm_launches,
+                       kernel_launches_by_path=launches)
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(log_path, encoding="utf-8") as f:
+        lines = f.read().splitlines()
+    check(rc == 130, f"SIGTERM gave exit code {rc}: {lines[-20:]}")
+    warm = [json.loads(ln)["warmup_s"] for ln in lines
+            if ln.startswith("{") and '"warmup done"' in ln]
+    check(len(warm) == 1, "no 'warmup done' line from the process")
+    bundles = glob.glob(os.path.join(dump, "postmortem_*_sigterm.json"))
+    check(len(bundles) == 1, f"sigterm bundles {bundles}")
+    with open(bundles[0], encoding="utf-8") as f:
+        bundle = json.load(f)
+    records = bundle.get("logs", {}).get("records", [])
+    check(any("clamped" in r["message"] for r in records),
+          "the sigterm bundle has no logs section with the warning")
+    out.update(rc=rc, warmup_s=warm[0], bundle_log_records=len(records),
+               bundle_keys=sorted(bundle))
+    emit("cli.process", **out)
+    emit("times.cli", step="process", start_to_healthz_s=out[
+        "start_to_healthz_s"], warmup_s=warm[0],
+        grpc_posts_per_s=out.get("posts_per_s"), card=smi)
+    return out
+
+
+def cli_process_bus(np, bus_address, store, tpu):
+    """Step 6: step 1's batches published over gRPC into the process;
+    its rows checked as in step 1, and one heartbeat's card memory."""
+    from distributed_crawler_tpu_torch.bus import (
+        TOPIC_INFERENCE_BATCHES,
+        TOPIC_WORKER_STATUS,
+    )
+    from distributed_crawler_tpu_torch.bus.grpc_bus import RemoteBus
+
+    beats = []
+    tap = RemoteBus(bus_address)
+    producer = RemoteBus(bus_address)
+    batches = tpu["batches"]
+    try:
+        tap.subscribe(TOPIC_WORKER_STATUS, beats.append)
+        t0 = time.perf_counter()
+        for b in batches:
+            producer.publish(TOPIC_INFERENCE_BATCHES, b.to_dict())
+        last = os.path.join(store, "inference", "smoke-cli", "batches")
+        deadline = time.monotonic() + 600
+        while time.monotonic() < deadline and len(
+                [n for n in (os.listdir(last) if os.path.isdir(last)
+                             else []) if n.endswith(".jsonl")]) \
+                < len(batches):
+            time.sleep(0.01)
+        seconds = time.perf_counter() - t0
+        rows = result_rows(store, "smoke-cli", batches)
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and not any(
+                b.get("resource_usage", {}).get("device_memory")
+                for b in beats if b.get("message_type") == "heartbeat"):
+            time.sleep(0.05)
+    finally:
+        producer.close()
+        tap.close()
+    heart = [b for b in beats if b.get("message_type") == "heartbeat"
+             and b.get("resource_usage", {}).get("device_memory")]
+    check(heart, f"no heartbeat with card memory in {len(beats)} messages")
+    dev = heart[-1]["resource_usage"]["device_memory"][0]
+    check(0 < dev["bytes_in_use"] <= dev["bytes_limit"],
+          f"heartbeat device memory {dev}")
+    vs_engine = check_rows_against(np, rows, tpu["want"])
+    return {"posts_per_s": len(rows) / seconds, "grpc_seconds": seconds,
+            "vs_step1_engine": vs_engine, "heartbeats": len(heart),
+            "heartbeat_device_memory": dev}
+
+
+class _CountCalls:
+    """Count calls of a method while installed (the dispatches of an
+    engine built inside ``cli.main``)."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name = owner, name
+        self.orig = getattr(owner, name)
+        self.calls = 0
+
+    def __enter__(self):
+        orig = self.orig
+
+        def counted(*a, **k):
+            self.calls += 1
+            return orig(*a, **k)
+
+        setattr(self.owner, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+        return False
+
+
+def cli_transcribe(attention, work, asr, smi):
+    """Step 3: ``main(["--mode", "transcribe", ...])`` over phase 7's WAV
+    tree and checkpoint, against phase 7's `transcribe_files`."""
+    from distributed_crawler_tpu_torch.inference.asr import ASRPipeline
+    from distributed_crawler_tpu_torch.models.whisper import WHISPER_SMALL
+
+    out_path = os.path.join(work, "transcripts.jsonl")
+    zero_launches(attention)
+    with _CountCalls(ASRPipeline, "transcribe_audio") as dispatches:
+        rc, summary, wall = cli_main([
+            "--mode", "transcribe", "--transcribe-input", asr["media"],
+            "--asr-pretrained-dir", asr["ckpt"], "--transcribe-output",
+            out_path, "--storage-root", os.path.join(work, "cli_asr")])
+    launches = read_launches(attention)
+    check(rc == 0, f"transcribe exited {rc}")
+    check_sm90_only(launches, WHISPER_SMALL.n_audio_layer, dispatches.calls,
+                    "cli transcribe")
+    with open(out_path, encoding="utf-8") as f:
+        rows = [json.loads(line) for line in f]
+    want = asr["transcribe"]["rows"]
+    check([r["path"] for r in rows] == [w["path"] for w in want],
+          f"transcript paths {[r['path'] for r in rows]}")
+    for r, w in zip(rows, want):
+        check(r["tokens"] == w["tokens"] and r["windows"] == w["windows"]
+              and bool(r["error"]) == bool(w["error"]),
+              f"{r['path']}: CLI row differs from transcribe_files")
+    bad = [r for r in rows if r["path"] == "not_a_wav.wav"]
+    check(len(bad) == 1 and bad[0]["error"] and not bad[0]["tokens"],
+          f"the non-WAV file's row {bad}")
+    check(summary == {"transcribed": len(rows) - 1, "failed": 1,
+                      "output": out_path}, f"summary {summary}")
+    audio_s = sum(sec for _, sec in asr["files"] if sec is not None)
+    windows = sum(r["windows"] for r in rows)
+    emit("cli.transcribe", rows=len(rows), windows=windows,
+         dispatches=dispatches.calls, kernel_launches_by_path=launches)
+    emit("times.cli", step="transcribe", wall_s=wall, audio_seconds=audio_s,
+         audio_s_per_wall_s=audio_s / wall,
+         phase7_transcribe_files_s=asr["transcribe"]["seconds"], card=smi)
+    return {"launches": launches}
+
+
+def cli_cluster_text(torch, np, attention, work, seed, smi):
+    """Step 4, text rows: ``mode=cluster`` with ``--infer-model e5-large``
+    against the port's `fit` on the same engine's `embed`."""
+    from distributed_crawler_tpu_torch import cli
+    from distributed_crawler_tpu_torch.models.clustering import fit
+
+    rng = np.random.default_rng(seed + 12)
+    posts = synthetic_posts(np, rng, CLI_CLUSTER_POSTS, 0)
+    inp = os.path.join(work, "cluster_text.jsonl")
+    out_path = os.path.join(work, "cluster_text.json")
+    with open(inp, "w", encoding="utf-8") as f:
+        for p in posts:
+            f.write(json.dumps(p) + "\n")
+    engines = []
+    orig = cli._make_engine
+
+    def capture(*a, **k):
+        # The dispatch count so far: the latency histogram is the
+        # registry's, shared with every engine on it.
+        engine = orig(*a, **k)
+        engines.append((engine, engine.m_latency.count))
+        return engine
+
+    cli._make_engine = capture
+    zero_launches(attention)
+    try:
+        rc, summary, wall = cli_main([
+            "--mode", "cluster", "--cluster-input", inp, "--cluster-output",
+            out_path, "--infer-model", "e5-large", "--cluster-k",
+            str(CLI_CLUSTER_K), "--cluster-iters", str(CLI_CLUSTER_ITERS)])
+    finally:
+        cli._make_engine = orig
+    launches = read_launches(attention)
+    check(rc == 0 and len(engines) == 1, f"cluster (text) exited {rc}")
+    engine, d0 = engines[0]
+    ecfg = engine.ecfg
+    check((ecfg.hidden, ecfg.n_layers, ecfg.n_heads) == (1024, 24, 16),
+          f"not E5-large's widths: {ecfg}")
+    dispatches = engine.m_latency.count - d0
+    check_sm90_only(launches, ecfg.n_layers, dispatches, "cli cluster")
+    with open(out_path, encoding="utf-8") as f:
+        result = json.load(f)
+    x = engine.embed([p["description"] for p in posts])
+    ref = fit(torch.as_tensor(x, device=engine.device), CLI_CLUSTER_K,
+              iters=CLI_CLUSTER_ITERS)
+    got = [a["cluster"] for a in result["assignments"]]
+    check([a["post_uid"] for a in result["assignments"]]
+          == [p["post_uid"] for p in posts], "assignment rows")
+    check(got == ref.assignments.cpu().tolist(),
+          "assignments differ from fit on the same engine's embed")
+    rel = abs(result["inertia"] - float(ref.inertia)) / float(ref.inertia)
+    check(rel <= CLI_INERTIA_RTOL, f"inertia off fit's by {rel}")
+    emit("cli.cluster", rows="text", posts=len(posts), k=CLI_CLUSTER_K,
+         dispatches=dispatches, kernel_launches_by_path=launches,
+         inertia=result["inertia"], inertia_rel_err=rel,
+         cluster_sizes=result["cluster_sizes"])
+    emit("times.cli", step="cluster.text", wall_s=wall,
+         seconds=summary["seconds"], card=smi)
+    del engine, engines
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def cli_cluster_embeddings(torch, np, device, work, seed, smi):
+    """Step 4, embedding rows: 16,384 x 1024 seeded unit vectors as the
+    worker writes them (float32 through JSON); the seconds split into
+    reading, `fit` and writing."""
+    from distributed_crawler_tpu_torch.models.clustering import fit
+
+    rng = np.random.default_rng(seed + 13)
+    x = rng.standard_normal((CLI_EMB_ROWS, CLI_EMB_DIM)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    inp = os.path.join(work, "cluster_emb.jsonl")
+    out_path = os.path.join(work, "cluster_emb.json")
+    t0 = time.perf_counter()
+    with open(inp, "w", encoding="utf-8") as f:
+        for i, row in enumerate(x):
+            f.write(json.dumps({"post_uid": f"e{i}",
+                                "embedding": row.tolist()}) + "\n")
+    gen_s = time.perf_counter() - t0
+    # The card's peak during the call, above what earlier phases still
+    # hold: the mode's own memory (the rows on the card, fit's temporaries).
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    rc, summary, wall = cli_main([
+        "--mode", "cluster", "--cluster-input", inp, "--cluster-output",
+        out_path, "--cluster-k", str(CLI_CLUSTER_K), "--cluster-iters",
+        str(CLI_CLUSTER_ITERS)])
+    peak = torch.cuda.max_memory_allocated() - base
+    check(rc == 0, f"cluster (embeddings) exited {rc}")
+    with open(out_path, encoding="utf-8") as f:
+        result = json.load(f)
+    ref = fit(torch.as_tensor(x, device=device), CLI_CLUSTER_K,
+              iters=CLI_CLUSTER_ITERS)
+    got = [a["cluster"] for a in result["assignments"]]
+    check(len(got) == CLI_EMB_ROWS and sum(result["cluster_sizes"])
+          == CLI_EMB_ROWS, "assignment rows")
+    check(got == ref.assignments.cpu().tolist(),
+          "assignments differ from fit on the same rows")
+    rel = abs(result["inertia"] - float(ref.inertia)) / float(ref.inertia)
+    check(rel <= CLI_INERTIA_RTOL, f"inertia off fit's by {rel}")
+    emit("cli.cluster", rows="embedding", n=CLI_EMB_ROWS, dim=CLI_EMB_DIM,
+         k=CLI_CLUSTER_K, inertia=result["inertia"], inertia_rel_err=rel,
+         input_bytes=os.path.getsize(inp))
+    emit("times.cli", step="cluster.embeddings", wall_s=wall,
+         seconds=summary["seconds"], input_write_s=gen_s,
+         input_bytes=os.path.getsize(inp), peak_memory_above_base_bytes=peak,
+         base_memory_bytes=base, card=smi)
+
+
+def cli_asr_and_cluster_workers(np, attention, work, asr, tpu, smi):
+    """Step 5: `_build_asr_worker` and `_build_cluster_worker` from the
+    CLI's defaults, each serving one stream on its in-memory bus."""
+    from distributed_crawler_tpu_torch import cli
+    from distributed_crawler_tpu_torch.bus import (
+        TOPIC_INFERENCE_RESULTS,
+        TOPIC_MEDIA_BATCHES,
+        TOPIC_TRANSCRIPTS,
+        AudioBatchMessage,
+        AudioRef,
+    )
+    from distributed_crawler_tpu_torch.cluster.worker import (
+        iter_assignments,
+    )
+    from distributed_crawler_tpu_torch.media.worker import iter_transcripts
+    from distributed_crawler_tpu_torch.models.whisper import WHISPER_SMALL
+    from distributed_crawler_tpu_torch.state import LocalStorageProvider
+
+    store = os.path.join(work, "cli_workers")
+    cfg, r = cli_resolve(["--mode", "asr-worker", "--asr-pretrained-dir",
+                          asr["ckpt"], "--storage-root", store,
+                          "--crawl-id", "smoke-cli-asr"])
+    worker = cli._build_asr_worker(cfg, r)
+    check(worker.pipeline.device.type == "cuda"
+          and worker.pipeline.window_buckets == ASR_BUCKETS,
+          f"asr-worker pipeline {worker.pipeline.window_buckets}")
+    shortest = sorted((sec, p) for p, sec in asr["files"]
+                      if sec is not None)[:2]
+    msg = AudioBatchMessage.new(
+        [AudioRef(media_id=f"cli{i}", path=p, channel_name="smoke")
+         for i, (_, p) in enumerate(shortest)], crawl_id="smoke-cli-asr")
+    got = []
+    worker.bus.subscribe(TOPIC_TRANSCRIPTS, got.append)
+    worker.warmup()
+    worker.start()
+    zero_launches(attention)
+    d0 = worker.pipeline.timeline.snapshot().get("batches_total", 0)
+    t0 = time.perf_counter()
+    try:
+        worker.bus.publish(TOPIC_MEDIA_BATCHES, msg.to_dict())
+        deadline = time.monotonic() + 300
+        while len(got) < len(msg.refs) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        asr_s = time.perf_counter() - t0
+        check(worker.drain(timeout_s=60.0), "asr-worker did not drain")
+    finally:
+        worker.stop()
+        worker.bus.close()
+    launches = read_launches(attention)
+    dispatches = worker.pipeline.timeline.snapshot().get(
+        "batches_total", 0) - d0
+    check_sm90_only(launches, WHISPER_SMALL.n_audio_layer, dispatches,
+                    "cli asr-worker")
+    rows = list(iter_transcripts(LocalStorageProvider(store),
+                                 "smoke-cli-asr"))
+    check(sorted(r["media_id"] for r in rows)
+          == sorted(ref.media_id for ref in msg.refs) and len(got) == 2,
+          f"transcripts {[r.get('media_id') for r in rows]}")
+
+    cfg, r = cli_resolve(["--mode", "cluster-worker", "--storage-root",
+                          store])
+    cworker = cli._build_cluster_worker(cfg, r)
+    check(cworker.engine.cfg.k == 16
+          and tuple(cworker.engine.cfg.buckets) == (64, 256)
+          and cworker.engine.device.type == "cuda",
+          f"cluster-worker engine {cworker.engine.cfg}")
+    cworker.warmup()
+    cworker.start()
+    posts = [rec["post_uid"] for b in tpu["batches"] for rec in b.records]
+    sink = LocalStorageProvider(store)
+    t0 = time.perf_counter()
+    try:
+        for frame in tpu["frames"]:
+            cworker.bus.publish(TOPIC_INFERENCE_RESULTS, frame)
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline and len(
+                list(iter_assignments(sink, "smoke-cli"))) < len(posts):
+            time.sleep(0.05)
+        cluster_s = time.perf_counter() - t0
+        check(cworker.drain(timeout_s=60.0), "cluster-worker did not drain")
+    finally:
+        cworker.stop()
+        cworker.bus.close()
+    assigned = list(iter_assignments(sink, "smoke-cli"))
+    check(sorted(a["post_uid"] for a in assigned) == sorted(posts)
+          and all(0 <= a["cluster"] < 16 for a in assigned),
+          f"{len(assigned)} assignment rows for {len(posts)} posts")
+    emit("cli.workers", asr_transcripts=len(rows),
+         asr_dispatches=dispatches, kernel_launches_by_path=launches,
+         cluster_assignments=len(assigned))
+    emit("times.cli", step="asr-worker+cluster-worker", asr_s=asr_s,
+         cluster_s=cluster_s, card=smi)
+    return {"launches": launches}
+
+
+def phase_cli(torch, np, attention, device, work, seed, smi, e5, asr):
+    """Phase 11: the CLI's device modes on the card, at full width."""
+    t0 = time.perf_counter()
+    tpu = cli_tpu_worker(torch, np, attention, work, seed, smi,
+                         e5["posts_per_s"])
+    proc = cli_process(np, work, tpu, smi)
+    tr = cli_transcribe(attention, work, asr, smi)
+    text = cli_cluster_text(torch, np, attention, work, seed, smi)
+    cli_cluster_embeddings(torch, np, device, work, seed, smi)
+    workers = cli_asr_and_cluster_workers(np, attention, work, asr, tpu, smi)
+    launches = {p: tpu["launches"][p] + proc["kernel_launches_by_path"][p]
+                + sum(step["launches"][p] for step in (tr, text, workers))
+                for p in attention.PATHS}
+    emit("slice.cli", seconds=time.perf_counter() - t0,
+         kernel_launches_by_path=launches, grpc=proc["grpc"])
+    return {"launches": launches}
+
+
 KERNEL_SOURCES = {"sm90": "flash_attention_sm90.cu",
                   "mma_sync": "flash_attention.cu",
                   "simt": "flash_attention.cu"}
@@ -3716,17 +4380,23 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(args.seed)
+    # Phase 7's checkpoint and WAV tree, kept for phase 11.
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     worst = phase_kernel(torch, attention, device, gen)
     e5 = phase_slice(torch, np, args.seed, smi)
     rows = phase_kernel_times(torch, np, attention, device, gen, args.seed,
                               smi)
     xlmr = phase_xlmr(torch, np, attention, device, gen, args.seed, smi)
-    asr = phase_asr(torch, np, attention, device, args.seed, smi)
+    asr = phase_asr(torch, np, attention, device, args.seed, smi,
+                    work.name)
     clus = phase_cluster(torch, np, attention, device, gen, args.seed, smi)
     moe = phase_moe(torch, np, device, gen, args.seed, smi)
     ops = phase_ops(torch, np, args.seed, smi, e5["engine_rows"])
+    cli_ = phase_cli(torch, np, attention, device, work.name, args.seed, smi,
+                     e5, asr)
+    work.cleanup()
     launches = {p: sum(ph["launches"][p]
-                       for ph in (e5, xlmr, asr, clus, moe, ops))
+                       for ph in (e5, xlmr, asr, clus, moe, ops, cli_))
                 for p in attention.PATHS}
     print(json.dumps({"kernels": [
         kernel_entry(path, rows, worst, launches)

@@ -17,9 +17,14 @@ so each module has an obvious counterpart:
 - `media/` — the audio chunker and `ASRWorker`;
 - `cluster/` — online spherical k-means (`ClusterEngine`) and
   `ClusterWorker`, the consumer of the embedding stream;
-- `bus/` — `RecordBatch` and the in-memory bus the worker serves from;
-- `utils/` — metrics registry, span tracing, device timeline, FLOP
-  counts.
+- `bus/` — `RecordBatch`, the in-memory bus the workers serve from, and
+  the gRPC bus between processes (`bus/grpc_bus.py`, wire-compatible with
+  the reference's);
+- `utils/` — metrics registry, span tracing, structured logging, device
+  timeline, FLOP counts;
+- `cli.py`, `config/`, `state/` — the command line of the device modes
+  (``python -m distributed_crawler_tpu_torch.cli --mode tpu-worker``),
+  its config precedence and the workers' results sink.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (`device.resolve_device`).

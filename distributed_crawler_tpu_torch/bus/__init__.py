@@ -1,5 +1,6 @@
 """Bus layer of the port: `RecordBatch`, the media, cluster, status and
-span envelopes, topics, the in-memory bus."""
+span envelopes, topics, the in-memory bus.  The gRPC bus between
+processes is `bus.grpc_bus` (it imports ``grpc`` only when used)."""
 
 from .codec import RecordBatch
 from .inmemory import InMemoryBus

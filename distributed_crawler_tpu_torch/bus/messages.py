@@ -37,6 +37,11 @@ WORKER_ERROR = "error"
 WORKER_OFFLINE = "offline"
 
 TOPIC_WORKER_STATUS = "worker-status"
+# The crawler's work queue and scheduled-job commands: no port worker
+# consumes them, but a broker the port hosts (``--mode bus``) queues them
+# for the reference's crawl workers, as the reference's broker does.
+TOPIC_WORK_QUEUE = "crawl-work-queue"
+TOPIC_JOBS = "job-commands"
 TOPIC_INFERENCE_BATCHES = "tpu-inference-batches"
 TOPIC_INFERENCE_RESULTS = "tpu-inference-results"
 # Audio refs bound for the ASR worker, and the transcripts it sends back.

@@ -1,0 +1,1016 @@
+"""The port's command line: the device modes of the reference's CLI.
+
+    python -m distributed_crawler_tpu_torch.cli --mode tpu-worker ...
+
+The reference's `distributed_crawler_tpu/cli.py`, for the modes that run
+on the card and the broker between processes:
+
+- ``tpu-worker``: embed+classify RecordBatches from the bus (`TPUWorker`);
+- ``asr-worker``: transcribe AudioBatchMessages (`ASRWorker`);
+- ``cluster-worker``: online k-means over the result stream
+  (`ClusterWorker`);
+- ``transcribe``: Whisper over a tree of ``.wav`` files, one JSONL row per
+  file;
+- ``cluster``: k-means `fit` over embedding rows, or text rows embedded on
+  the fly;
+- ``bus``: a dedicated gRPC broker.
+
+The flags, their ``CRAWLER_*`` environment variables and the YAML config
+keys are the reference's, resolved through the same precedence (flags >
+env > config file > defaults; `config/precedence.py`).  The crawler's
+modes run from the reference's CLI; here they exit 2 and say so.  Every
+feature that is not ported yet exits 2 with a message that names where it
+waits in ROADMAP.md, never silently ignored.
+
+The engines run on the card.  ``main(..., device="cpu")`` is for
+in-process callers (the tests); it is not a flag.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import sys
+import time
+from typing import Callable, List, Optional
+
+from .config.crawler import CrawlerConfig, generate_crawl_id
+from .config.precedence import ConfigResolver
+from .utils.structlog import setup_logging
+
+logger = logging.getLogger("dct.cli")
+
+VERSION = "distributed_crawler_tpu_torch v0.1.0"
+DEVICE_MODES = ("tpu-worker", "asr-worker", "cluster-worker", "transcribe",
+                "cluster", "bus")
+# The reference CLI's other modes: the crawler's half, and training.
+CRAWLER_MODES = ("standalone", "launch", "orchestrator", "worker", "job",
+                 "job-submit", "train-head", "dc-gateway", "gen-code")
+_WORKER_MODES = ("tpu-worker", "asr-worker", "cluster-worker")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The device modes' flags, each as the reference declares it.
+    Defaults are None so the resolver can tell "set" from "default"."""
+    p = argparse.ArgumentParser(
+        prog="dct-torch",
+        description="distributed_crawler_tpu_torch: the crawler's device "
+                    "modes (inference, ASR, clustering, the bus) on one "
+                    "NVIDIA card")
+    a = p.add_argument
+    a("--config", default=None, help="config file (default: ./config.yaml)")
+    a("--log-level", default=None, help="trace|debug|info|warn|error")
+    a("--log-json", action="store_const", const=True, default=None)
+    a("--mode", default=None,
+      help="tpu-worker | asr-worker | cluster-worker | transcribe | "
+           "cluster | bus (the crawler's modes run from "
+           "distributed_crawler_tpu.cli)")
+    a("--worker-id", default=None, help="worker identifier (worker modes)")
+    a("--storage-root", default=None)
+    a("--crawl-id", default=None)
+    a("--crawl-label", default=None)
+    a("--platform", default=None, help="telegram | youtube")
+    a("--object-store", default=None,
+      help="remote blob target (not ported: results land under "
+           "--storage-root)")
+    a("--bus-address", default=None,
+      help="gRPC bus address, e.g. 127.0.0.1:50551 (needs grpcio; empty "
+           "= in-process bus)")
+    a("--bus-spool-dir", default=None,
+      help="broker WAL spool directory (not ported)")
+    a("--bus-shard-addresses", default=None,
+      help="comma-separated broker shard addresses (not ported)")
+    a("--bus-shards", type=int, default=None,
+      help="expected shard count (not ported)")
+    a("--bus-ack-timeout-s", type=float, default=None,
+      help="seconds a pulled frame may stay unacked before the broker "
+           "requeues it (default 300)")
+    a("--bus-max-attempts", type=int, default=None,
+      help="delivery attempts per frame before it is dead-lettered "
+           "(default 5)")
+    a("--metrics-port", type=int, default=None,
+      help="serve /metrics, /healthz, /status, /costs, /logs ... on this "
+           "port (0 = off)")
+    a("--profiler-port", type=int, default=None,
+      help="kept for the reference's configuration; torch has no "
+           "attachable trace server, so a port only logs a warning")
+    a("--trace-buffer", type=int, default=None,
+      help="completed spans kept for /traces (0 disables; default 2048)")
+    a("--slow-trace-ms", type=float, default=None,
+      help="log any span slower than this many ms (0 = off)")
+    a("--dump-dir", default=None,
+      help="write postmortem bundles here on SIGTERM, unhandled exception "
+           "or fatal signal; empty = no dumps")
+    a("--flight-buffer", type=int, default=None,
+      help="flight-recorder events kept for postmortem bundles "
+           "(0 disables; default 512)")
+    a("--telemetry-interval", type=float, default=None,
+      help="seconds between heartbeats in the worker modes (default 30; "
+           "clamped to 1-90)")
+    a("--slo-batch-p95-ms", type=float, default=None,
+      help="SLO budget on the per-batch processing p95 in ms (0 = off)")
+    a("--slo-queue-wait-ms", type=float, default=None,
+      help="SLO budget on the queue-wait p95 in ms (0 = off)")
+    a("--slo-batch-age-ms", type=float, default=None,
+      help="SLO budget on the batch-age p95 in ms (0 = off)")
+    a("--profile-on-slow-ms", type=float, default=None,
+      help="capture a bounded torch.profiler trace into --dump-dir when a "
+           "device batch exceeds this many ms (0 = off)")
+    a("--span-export-interval", type=float, default=None,
+      help="seconds between span exports on the spans topic (0 = off; "
+           "default 15)")
+    a("--span-export-max-spans", type=int, default=None,
+      help="max spans per export batch (default 512)")
+    a("--span-sample-rate", type=float, default=None,
+      help="fraction of traces whose spans are exported (default 1.0)")
+    a("--timeseries-window", type=float, default=None,
+      help="rolling time-series retention in seconds (default 900)")
+    a("--timeseries-max-samples", type=int, default=None,
+      help="samples kept per time series (default 512)")
+    a("--tenant", default=None, help="tenant label (empty = 'default')")
+    a("--bus-serve", action="store_const", const=True, default=None,
+      help="also host the gRPC broker at --bus-address (worker modes)")
+    a("--infer", action="store_const", const=True, default=None,
+      help="the transcript re-entry into the text path (not ported)")
+    a("--infer-model", default=None, help="model registry key")
+    a("--asr-pretrained-dir", default=None,
+      help="local HF Whisper checkpoint dir")
+    a("--transcribe-input", default=None,
+      help="dir scanned recursively for .wav media, or a single file")
+    a("--transcribe-output", default=None,
+      help="transcripts JSONL path (default <input>/transcripts.jsonl)")
+    a("--asr-batch-size", type=int, default=None,
+      help="waveform batch per device dispatch (default 8)")
+    a("--asr-window-buckets", default=None,
+      help="comma-separated window-count buckets of the ASR pipeline "
+           "(default: powers of two up to --asr-batch-size)")
+    a("--asr-max-windows-per-file", type=int, default=None,
+      help="cap on 30 s windows taken from one file (0 = unbounded)")
+    a("--slo-asr-batch-p95-ms", type=float, default=None,
+      help="SLO budget on the ASR worker's per-group p95 in ms (0 = off)")
+    a("--infer-batch-size", type=int, default=None)
+    a("--mesh-data", type=int, default=None,
+      help="data-parallel mesh axis (multi-card serving is not ported)")
+    a("--mesh-seq", type=int, default=None,
+      help="sequence-parallel mesh axis (not ported)")
+    a("--mesh-tensor", type=int, default=None,
+      help="tensor-parallel mesh axis (not ported)")
+    a("--mesh-devices", type=int, default=None,
+      help="devices the serving mesh spans (0 = one card, the only "
+           "layout ported)")
+    a("--infer-attention", default=None,
+      help="attention dispatch: auto | flash (both the kernel on the "
+           "card) | xla (the plain version: CPU only)")
+    a("--infer-moe-dispatch", default=None, choices=["dense", "capacity"],
+      help="Switch-MoE dispatch for MoE checkpoints")
+    a("--infer-param-dtype", default=None,
+      help="cast float params at engine startup (e.g. bfloat16)")
+    a("--infer-quantize", default=None,
+      help="quantize the projection GEMMs ('int8' | 'int8_static')")
+    a("--head-checkpoint", default=None,
+      help="classifier checkpoint dir (not ported: training waits)")
+    a("--cluster-input", default=None,
+      help="JSONL rows with an 'embedding' field or text fields "
+           "(embedded on the fly)")
+    a("--cluster-k", type=int, default=None)
+    a("--cluster-iters", type=int, default=None)
+    a("--cluster-output", default=None, help="output JSON path")
+    a("--cluster-serve", action="store_const", const=True, default=None,
+      help="declare a clustering stage: a serving broker pull-enables the "
+           "result topic, and --no-publish-embeddings is refused")
+    a("--cluster-buckets", nargs="+", type=int, default=None,
+      help="row-count buckets of the k-means mini-batch step "
+           "(default 64 256)")
+    a("--cluster-checkpoint-every", type=int, default=None,
+      help="checkpoint centroids every N committed batches (default 8)")
+    a("--cluster-min-fraction", type=float, default=None,
+      help="under-populated below this fraction of the uniform share "
+           "(default 0.5)")
+    a("--no-publish-embeddings", dest="publish_embeddings",
+      action="store_const", const=False, default=None,
+      help="strip embeddings from published result batches")
+    a("--generate-code", action="store_true",
+      help="the Telegram auth bootstrap (the crawler's half)")
+    a("--version", action="store_true")
+    return p
+
+
+# flag dest -> dotted config key, as the reference maps them.
+_KEY_MAP = {
+    "log_level": "logging.level",
+    "log_json": "logging.json",
+    "mode": "distributed.mode",
+    "worker_id": "distributed.worker_id",
+    "storage_root": "storage.root",
+    "crawl_id": "crawler.crawlid",
+    "crawl_label": "crawler.crawllabel",
+    "platform": "crawler.platform",
+    "object_store": "crawler.object_store_url",
+    "bus_address": "distributed.bus_address",
+    "bus_serve": "distributed.bus_serve",
+    "bus_spool_dir": "bus.spool_dir",
+    "bus_shards": "bus.shards",
+    "bus_shard_addresses": "bus.shard_addresses",
+    "bus_ack_timeout_s": "bus.ack_timeout_s",
+    "bus_max_attempts": "bus.max_attempts",
+    "metrics_port": "observability.metrics_port",
+    "profiler_port": "observability.profiler_port",
+    "trace_buffer": "observability.trace_buffer",
+    "slow_trace_ms": "observability.slow_trace_ms",
+    "dump_dir": "observability.dump_dir",
+    "flight_buffer": "observability.flight_buffer",
+    "telemetry_interval": "observability.telemetry_interval_s",
+    "slo_batch_p95_ms": "observability.slo_batch_p95_ms",
+    "slo_queue_wait_ms": "observability.slo_queue_wait_ms",
+    "slo_batch_age_ms": "observability.slo_batch_age_ms",
+    "profile_on_slow_ms": "observability.profile_on_slow_ms",
+    "span_export_interval": "observability.span_export_interval_s",
+    "span_export_max_spans": "observability.span_export_max_spans",
+    "span_sample_rate": "observability.span_sample_rate",
+    "timeseries_window": "observability.timeseries_window_s",
+    "timeseries_max_samples": "observability.timeseries_max_samples",
+    "tenant": "crawler.tenant",
+    "infer": "inference.enabled",
+    "infer_model": "inference.model",
+    "infer_batch_size": "inference.batch_size",
+    "mesh_data": "parallel.data",
+    "mesh_seq": "parallel.seq",
+    "mesh_tensor": "parallel.tensor",
+    "mesh_devices": "parallel.devices",
+    "infer_attention": "inference.attention",
+    "infer_moe_dispatch": "inference.moe_dispatch",
+    "infer_param_dtype": "inference.param_dtype",
+    "infer_quantize": "inference.quantize",
+    "asr_pretrained_dir": "inference.asr_pretrained_dir",
+    "transcribe_input": "transcribe.input",
+    "transcribe_output": "transcribe.output",
+    "asr_batch_size": "inference.asr_batch_size",
+    "asr_window_buckets": "media.window_buckets",
+    "asr_max_windows_per_file": "media.max_windows_per_file",
+    "slo_asr_batch_p95_ms": "observability.slo_asr_batch_p95_ms",
+    "head_checkpoint": "train.checkpoint_dir",
+    "cluster_input": "cluster.input_file",
+    "cluster_k": "cluster.k",
+    "cluster_iters": "cluster.iters",
+    "cluster_output": "cluster.output_file",
+    "cluster_serve": "cluster.enabled",
+    "cluster_buckets": "cluster.buckets",
+    "cluster_checkpoint_every": "cluster.checkpoint_every_batches",
+    "cluster_min_fraction": "cluster.min_cluster_fraction",
+    "publish_embeddings": "inference.publish_embeddings",
+}
+
+
+class CliConfigError(ValueError):
+    """A user-fixable configuration error raised by a mode runner; main()
+    reports it as ``error: ...`` with exit code 2 instead of a traceback.
+    Distinct from ValueError so real programming errors deep in the
+    serving stack keep their tracebacks."""
+
+
+def resolve_config(args: argparse.Namespace,
+                   env=None) -> "tuple[CrawlerConfig, ConfigResolver]":
+    """Apply the precedence chain and build the device modes' half of the
+    reference's `CrawlerConfig`."""
+    flags = {key: getattr(args, dest) for dest, key in _KEY_MAP.items()}
+    r = ConfigResolver(flags=flags, env=env, config_file=args.config)
+
+    cfg = CrawlerConfig()
+    cfg.storage_root = r.get_str("storage.root", "/tmp/crawl")
+    cfg.crawl_id = r.get_str("crawler.crawlid") or generate_crawl_id()
+    cfg.crawl_label = r.get_str("crawler.crawllabel")
+    cfg.tenant = r.get_str("crawler.tenant")
+    cfg.platform = r.get_str("crawler.platform", "telegram")
+    cfg.object_store_url = r.get_str("crawler.object_store_url", "")
+    inf = cfg.inference
+    inf.enabled = r.get_bool("inference.enabled", False)
+    model = r.get_str("inference.model")
+    if model:
+        inf.embed_model = model
+    batch = r.get_int("inference.batch_size", 0)
+    if batch:
+        inf.batch_size = batch
+    buckets = r.get_list("inference.bucket_sizes")
+    if buckets:
+        inf.bucket_sizes = [int(b) for b in buckets]
+    inf.mesh_data = r.get_int("parallel.data", 0)
+    inf.mesh_seq = r.get_int("parallel.seq", 1)
+    inf.mesh_tensor = r.get_int("parallel.tensor", 1)
+    inf.mesh_devices = r.get_int("parallel.devices", 0)
+    inf.param_dtype = r.get_str("inference.param_dtype", "")
+    inf.quantize = r.get_str("inference.quantize", "")
+    inf.attention = r.get_str("inference.attention", "")
+    inf.moe_dispatch = r.get_str("inference.moe_dispatch", "")
+    inf.pretrained_dir = r.get_str("inference.pretrained_dir",
+                                   inf.pretrained_dir)
+    inf.asr_pretrained_dir = r.get_str("inference.asr_pretrained_dir",
+                                       inf.asr_pretrained_dir)
+    media = cfg.media
+    media.enabled = r.get_bool("media.enabled", False)
+    media.batch_size = r.get_int("media.batch_size", media.batch_size)
+    media.batch_deadline_ms = r.get_int("media.batch_deadline_ms",
+                                        media.batch_deadline_ms)
+    media.window_buckets = [int(b) for b in
+                            r.get_list("media.window_buckets")]
+    media.max_windows_per_file = r.get_int("media.max_windows_per_file",
+                                           media.max_windows_per_file)
+    media.coalesce_batches = r.get_int("media.coalesce_batches",
+                                       media.coalesce_batches)
+    return cfg, r
+
+
+def main(argv: Optional[List[str]] = None, env=None,
+         device=None) -> int:
+    """Run one mode; returns the process exit code.  ``device`` is for
+    in-process callers (``"cpu"`` in the tests); None is the card."""
+    args = build_parser().parse_args(argv)
+    if args.version:
+        print(VERSION)
+        return 0
+    if args.generate_code:
+        args.mode = "gen-code"
+    try:
+        cfg, r = resolve_config(args, env=env)
+    except (ValueError, FileNotFoundError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    mode = r.get_str("distributed.mode", "")
+    if mode not in DEVICE_MODES:
+        print(f"error: {_not_a_device_mode(mode)}", file=sys.stderr)
+        return 2
+    setup_logging(r.get_str("logging.level", "info"),
+                  json_output=r.get_bool("logging.json", False))
+    from .utils import flight, profiling, timeseries, trace
+
+    trace.configure(
+        capacity=r.get_int("observability.trace_buffer", 2048),
+        slow_span_s=r.get_float("observability.slow_trace_ms", 0.0) / 1000.0)
+    # Flight recorder: ring size and config fingerprint always; the crash
+    # hooks arm only with a dump dir.
+    flight.configure(
+        capacity=r.get_int("observability.flight_buffer", 512),
+        fingerprint={"mode": mode,
+                     "worker_id": r.get_str("distributed.worker_id"),
+                     "platform": cfg.platform,
+                     "crawl_id": cfg.crawl_id,
+                     "bus_address": r.get_str("distributed.bus_address")})
+    dump_dir = r.get_str("observability.dump_dir", "")
+    if dump_dir:
+        flight.install(dump_dir)
+    timeseries.configure(
+        max_samples=r.get_int("observability.timeseries_max_samples", 512),
+        window_s=r.get_float("observability.timeseries_window_s", 900.0))
+    # /profile captures land next to the postmortem bundles.
+    profiling.configure(dump_dir=dump_dir)
+    # The serving workers' own start() owns the metrics port; the other
+    # modes serve it here.
+    if mode not in _WORKER_MODES:
+        metrics_port = r.get_int("observability.metrics_port", 0)
+        if metrics_port:
+            from .utils.metrics import serve_metrics
+
+            serve_metrics(metrics_port)
+        profiler_port = r.get_int("observability.profiler_port", 0)
+        if profiler_port:
+            profiling.start_profiler_server(profiler_port)
+    logger.info("starting", extra={"mode": mode, "platform": cfg.platform})
+    try:
+        if mode == "tpu-worker":
+            _run_tpu_worker(cfg, r, device=device)
+        elif mode == "asr-worker":
+            _run_asr_worker(cfg, r, device=device)
+        elif mode == "cluster-worker":
+            _run_cluster_worker(cfg, r, device=device)
+        elif mode == "transcribe":
+            return _run_transcribe(cfg, r, device=device)
+        elif mode == "cluster":
+            return _run_cluster(cfg, r, device=device)
+        else:
+            return _run_bus(r)
+    except CliConfigError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    except KeyboardInterrupt:
+        logger.info("interrupted, shutting down")
+        return 130
+    return 0
+
+
+def _not_a_device_mode(mode: str) -> str:
+    if mode in CRAWLER_MODES or not mode:
+        msg = (f"--mode {mode or 'standalone'} runs from "
+               f"distributed_crawler_tpu.cli (the JAX package's CLI); "
+               f"this CLI runs the device modes {', '.join(DEVICE_MODES)}")
+        if mode == "train-head":
+            msg += ("; training on the card waits for ROADMAP item 8 "
+                    "(training and checkpoints)")
+        return msg
+    return f"unknown execution mode: {mode}"
+
+
+def _heartbeat_interval(r: ConfigResolver) -> float:
+    """The heartbeat period, clamped to 1-90 s: heartbeats are the
+    liveness signal, and a period past the orchestrator's 300 s timeout
+    would flap healthy workers offline."""
+    interval = r.get_float("observability.telemetry_interval_s", 30.0)
+    clamped = min(max(interval, 1.0), 90.0)
+    if clamped != interval:
+        logger.warning(
+            "telemetry interval %.0fs clamped to %.0fs (heartbeats are "
+            "the liveness signal; the orchestrator offlines workers "
+            "silent past worker_timeout_s)", interval, clamped)
+    return clamped
+
+
+def _serve_forever(poll_s: float = 1.0,
+                   running: Optional[Callable[[], bool]] = None) -> None:
+    """Block the main thread while a service's threads run; ``running``
+    ends the loop when it turns False.
+
+    SIGTERM becomes KeyboardInterrupt for the duration, so a supervisor's
+    stop takes the same graceful path as ^C; with a dump dir the flight
+    recorder writes its postmortem bundle first (the teardown may hang).
+    Off the main thread the handler cannot be installed, and the loop
+    runs without it."""
+    import signal
+
+    from .utils import flight
+
+    def _term(_sig, _frm):
+        flight.dump("sigterm")  # no-op without a dump dir
+        raise KeyboardInterrupt
+
+    prev = None
+    installed = False
+    try:
+        prev = signal.signal(signal.SIGTERM, _term)
+        installed = True  # prev may be None: restore keys on installation
+    except ValueError:
+        pass  # not the main thread
+    try:
+        while running is None or running():
+            time.sleep(poll_s)
+    finally:
+        if installed:
+            try:
+                signal.signal(signal.SIGTERM,
+                              prev if prev is not None else signal.SIG_DFL)
+            except ValueError:
+                pass
+
+
+# -- what waits -------------------------------------------------------------
+
+def _refuse_mesh(cfg: CrawlerConfig) -> None:
+    """The serving mesh flags, validated as the reference validates them:
+    at their defaults serving is one card, the only layout the port has;
+    any other layout waits for ROADMAP item 9."""
+    inf = cfg.inference
+    data, seq, tensor, devices = (inf.mesh_data, inf.mesh_seq,
+                                  inf.mesh_tensor, inf.mesh_devices)
+    if devices < -1:
+        raise CliConfigError(
+            f"--mesh-devices must be -1 (all), 0 (off) or a positive "
+            f"count, got {devices}")
+    if data < 0:
+        raise CliConfigError(f"--mesh-data must be >= 0 (0 = auto), "
+                             f"got {data}")
+    for name, v in (("--mesh-seq", seq), ("--mesh-tensor", tensor)):
+        if v < 1:
+            raise CliConfigError(f"{name} must be >= 1, got {v}")
+    if (data, seq, tensor, devices) != (0, 1, 1, 0):
+        raise CliConfigError(
+            f"a serving mesh (--mesh-data {data}, --mesh-seq {seq}, "
+            f"--mesh-tensor {tensor}, --mesh-devices {devices}) waits for "
+            f"ROADMAP item 9 (parallel/ on torch.distributed); the port "
+            f"serves on one card with every mesh flag at its default")
+
+
+def _refuse_multihost() -> None:
+    """``DCT_COORDINATOR`` / ``DCT_NUM_PROCESSES`` / ``DCT_PROCESS_ID``
+    ask for a multi-process run, which waits for ROADMAP item 9."""
+    env = os.environ
+    coordinator = env.get("DCT_COORDINATOR", "").strip()
+    processes = env.get("DCT_NUM_PROCESSES", "").strip() or "1"
+    process_id = env.get("DCT_PROCESS_ID", "").strip() or "0"
+    if coordinator or processes != "1" or process_id != "0":
+        raise CliConfigError(
+            f"multi-process serving (DCT_COORDINATOR={coordinator!r}, "
+            f"DCT_NUM_PROCESSES={processes}, DCT_PROCESS_ID={process_id}) "
+            f"waits for ROADMAP item 9 (parallel/ on torch.distributed); "
+            f"unset them to serve on one card")
+
+
+def _make_provider(cfg: CrawlerConfig):
+    """The workers' results sink: JSONL under the storage root."""
+    if cfg.object_store_url:
+        raise CliConfigError(
+            f"--object-store {cfg.object_store_url!r}: the object-store "
+            f"sink is not ported (ROADMAP Queue 1, after item 7: it waits "
+            f"until a port mode needs it); results land under "
+            f"--storage-root without it")
+    from .state.providers import LocalStorageProvider
+
+    return LocalStorageProvider(cfg.storage_root)
+
+
+# -- the bus ----------------------------------------------------------------
+
+def _make_bus(r: ConfigResolver, serve: bool = False):
+    """No ``--bus-address``: the in-process bus.  With one: a hosted
+    `GrpcBusServer` (``serve``) with the work topics pull-enabled, or a
+    `RemoteBus` client.  The spool, the outbox and the partitioned bus
+    wait for ROADMAP item 7b."""
+    shards = r.get("bus.shard_addresses")
+    if shards or r.get_int("bus.shards", 0) > 1:
+        raise CliConfigError(
+            "--bus-shard-addresses / --bus-shards: the partitioned bus "
+            "waits for ROADMAP item 7b (bus durability and partitioning); "
+            "use one --bus-address")
+    address = r.get_str("distributed.bus_address")
+    spool_dir = r.get_str("bus.spool_dir", "")
+    if not address:
+        if spool_dir:
+            # Only the gRPC broker journals; say so rather than let the
+            # operator believe frames survive a restart.
+            logger.warning(
+                "bus.spool_dir is set but distributed.bus_address is "
+                "empty: the in-process bus has no spool/outbox/DLQ — "
+                "bus durability is INACTIVE")
+        from .bus.inmemory import InMemoryBus
+
+        bus = InMemoryBus(sync=False)
+        bus.start()
+        return bus
+    if spool_dir:
+        raise CliConfigError(
+            "--bus-spool-dir with --bus-address: the broker spool and the "
+            "durable outbox wait for ROADMAP item 7b (bus durability and "
+            "partitioning); run the bus without a spool")
+    try:
+        import grpc  # noqa: F401
+    except ImportError:
+        raise CliConfigError(
+            "--bus-address needs the grpcio package ('import grpc' "
+            "failed); install grpcio, or run without --bus-address on the "
+            "in-process bus") from None
+    if not serve:
+        from .bus.grpc_bus import RemoteBus
+
+        return RemoteBus(address)
+    from .bus.grpc_bus import GrpcBusServer
+    from .bus.messages import (
+        TOPIC_INFERENCE_BATCHES,
+        TOPIC_INFERENCE_RESULTS,
+        TOPIC_JOBS,
+        TOPIC_MEDIA_BATCHES,
+        TOPIC_WORK_QUEUE,
+    )
+
+    server = GrpcBusServer(
+        address, ack_timeout_s=r.get_float("bus.ack_timeout_s", 300.0),
+        max_attempts=r.get_int("bus.max_attempts", 5))
+    # Pull (competing-consumer) topics are enabled up front so frames
+    # published before the first consumer are queued, not dropped.
+    # Fan-out topics stay local dispatch.
+    for topic in (TOPIC_WORK_QUEUE, TOPIC_INFERENCE_BATCHES,
+                  TOPIC_MEDIA_BATCHES, TOPIC_JOBS):
+        server.enable_pull(topic)
+    if r.get_bool("cluster.enabled", False) \
+            or r.get_str("distributed.mode", "") == "cluster-worker":
+        # A clustering stage is attached: the result stream becomes a pull
+        # topic, so a dead cluster worker's unacked frames requeue.
+        server.enable_pull(TOPIC_INFERENCE_RESULTS)
+    server.start()
+    return server
+
+
+def _make_serving_bus(r: ConfigResolver) -> "_ServingBus":
+    """Broker + loopback consumer for a ``--bus-serve`` process."""
+    server = _make_bus(r, serve=True)
+    return _ServingBus(server, _make_bus(r))
+
+
+class _ServingBus:
+    """A `GrpcBusServer` plus a loopback `RemoteBus`: one process hosts the
+    broker and consumes from it.  The bus calls go to the client; close()
+    closes the client, then the server."""
+
+    def __init__(self, server, client):
+        self._server = server
+        self._client = client
+
+    def publish(self, topic, payload):
+        self._client.publish(topic, payload)
+
+    def subscribe(self, topic, handler):
+        self._client.subscribe(topic, handler)
+
+    def close(self):
+        try:
+            self._client.close()
+        finally:
+            self._server.close()
+
+
+def _worker_bus(r: ConfigResolver):
+    serve = r.get_bool("distributed.bus_serve", False)
+    return _make_serving_bus(r) if serve else _make_bus(r)
+
+
+def _check_serve_address(r: ConfigResolver) -> None:
+    # Before any engine is built: a missing address fails in milliseconds.
+    if r.get_bool("distributed.bus_serve", False) \
+            and not r.get_str("distributed.bus_address"):
+        raise CliConfigError("--bus-serve requires --bus-address")
+
+
+# -- engines and workers ----------------------------------------------------
+
+def _make_engine(cfg: CrawlerConfig, r: ConfigResolver,
+                 with_checkpoint: bool = False, with_mesh: bool = False,
+                 device=None):
+    """One engine-wiring path for tpu-worker and cluster."""
+    from .inference.engine import EngineConfig, InferenceEngine
+
+    if with_mesh:
+        _refuse_mesh(cfg)
+    if with_checkpoint and r.get_str("train.checkpoint_dir"):
+        raise CliConfigError(
+            "--head-checkpoint (train.checkpoint_dir) waits for ROADMAP "
+            "item 8 (training and checkpoints): the port has no "
+            "checkpoint format yet; serve a --config inference."
+            "pretrained_dir instead")
+    inf = cfg.inference
+    ecfg = EngineConfig(
+        model=inf.embed_model.replace("-", "_"),
+        batch_size=inf.batch_size,
+        buckets=tuple(inf.bucket_sizes),
+        pretrained_dir=inf.pretrained_dir or None,
+        param_dtype=inf.param_dtype or None,
+        quantize=inf.quantize or None,
+        attention=inf.attention or None,
+        moe_dispatch=inf.moe_dispatch or None)
+    try:
+        return InferenceEngine(ecfg, device=device)
+    except ValueError as e:
+        if inf.attention != "xla":
+            raise
+        raise CliConfigError(
+            f"--infer-attention xla: {e} (a deliberate difference from "
+            f"the reference, ROADMAP Queue 3); serve with '' or "
+            f"'flash'") from None
+
+
+def _build_tpu_worker(cfg: CrawlerConfig, r: ConfigResolver, device=None):
+    """The text worker: engine, results sink, then the bus."""
+    from .inference.worker import TPUWorker, TPUWorkerConfig
+
+    _check_serve_address(r)
+    if r.get_bool("cluster.enabled", False) \
+            and not r.get_bool("inference.publish_embeddings", True):
+        raise CliConfigError(
+            "--cluster-serve (cluster.enabled) requires embedding-"
+            "carrying result batches; drop --no-publish-embeddings")
+    provider = _make_provider(cfg)
+    engine = _make_engine(cfg, r, with_checkpoint=True, with_mesh=True,
+                          device=device)
+    bus = _worker_bus(r)
+    return TPUWorker(bus, engine, provider=provider, cfg=TPUWorkerConfig(
+        worker_id=r.get_str("distributed.worker_id") or "tpu-worker-0",
+        publish_embeddings=r.get_bool("inference.publish_embeddings", True),
+        heartbeat_s=_heartbeat_interval(r),
+        metrics_port=r.get_int("observability.metrics_port", 0),
+        profiler_port=r.get_int("observability.profiler_port", 0),
+        stall_warn_s=r.get_float("inference.stall_warn_s", 120.0),
+        stall_exit_s=r.get_float("inference.stall_exit_s", 0.0),
+        slo_batch_p95_ms=r.get_float("observability.slo_batch_p95_ms", 0.0),
+        slo_queue_wait_ms=r.get_float("observability.slo_queue_wait_ms",
+                                      0.0),
+        slo_batch_age_ms=r.get_float("observability.slo_batch_age_ms", 0.0),
+        profile_on_slow_ms=r.get_float("observability.profile_on_slow_ms",
+                                       0.0),
+        span_export_interval_s=r.get_float(
+            "observability.span_export_interval_s", 15.0),
+        span_export_max_spans=r.get_int(
+            "observability.span_export_max_spans", 512),
+        span_sample_rate=r.get_float("observability.span_sample_rate",
+                                     1.0)))
+
+
+def _make_pipeline(cfg: CrawlerConfig, r: ConfigResolver, device=None):
+    from .inference.asr import ASRPipeline
+
+    pipeline = ASRPipeline.from_pretrained(
+        cfg.inference.asr_pretrained_dir,
+        batch_size=r.get_int("inference.asr_batch_size", 8),
+        window_buckets=cfg.media.window_buckets or None, device=device)
+    if cfg.media.max_windows_per_file:
+        pipeline.chunker.max_windows_per_file = \
+            cfg.media.max_windows_per_file
+    return pipeline
+
+
+def _build_asr_worker(cfg: CrawlerConfig, r: ConfigResolver, device=None):
+    """The ASR worker: Whisper pipeline, transcript sink, then the bus."""
+    from .media.worker import ASRWorker, ASRWorkerConfig
+
+    _check_serve_address(r)
+    if not cfg.inference.asr_pretrained_dir:
+        raise CliConfigError("asr-worker mode requires --asr-pretrained-dir")
+    if cfg.inference.enabled:
+        raise CliConfigError(
+            "--infer on asr-worker: the transcript re-entry into the text "
+            "path (media/bridge.py, inference/bridge.py and the crawl's "
+            "state manager) is the crawler's half and is not ported "
+            "(ROADMAP Queue 1, after item 7); run without --infer")
+    provider = _make_provider(cfg)
+    pipeline = _make_pipeline(cfg, r, device=device)
+    bus = _worker_bus(r)
+    return ASRWorker(bus, pipeline, provider=provider, cfg=ASRWorkerConfig(
+        worker_id=r.get_str("distributed.worker_id") or "asr-worker-0",
+        heartbeat_s=_heartbeat_interval(r),
+        metrics_port=r.get_int("observability.metrics_port", 0),
+        coalesce_batches=cfg.media.coalesce_batches,
+        slo_asr_batch_p95_ms=r.get_float(
+            "observability.slo_asr_batch_p95_ms", 0.0),
+        slo_queue_wait_ms=r.get_float("observability.slo_queue_wait_ms",
+                                      0.0),
+        slo_batch_age_ms=r.get_float("observability.slo_batch_age_ms", 0.0),
+        span_export_interval_s=r.get_float(
+            "observability.span_export_interval_s", 15.0),
+        span_export_max_spans=r.get_int(
+            "observability.span_export_max_spans", 512),
+        span_sample_rate=r.get_float("observability.span_sample_rate",
+                                     1.0)))
+
+
+def _build_cluster_worker(cfg: CrawlerConfig, r: ConfigResolver,
+                          device=None):
+    """The streaming clustering worker: engine, assignment sink, then the
+    bus."""
+    from .cluster.engine import ClusterEngine, ClusterEngineConfig
+    from .cluster.worker import ClusterWorker, ClusterWorkerConfig
+
+    _check_serve_address(r)
+    _refuse_mesh(cfg)
+    provider = _make_provider(cfg)
+    k = r.get_int("cluster.k", 16)
+    buckets = tuple(int(b) for b in r.get_list("cluster.buckets")) \
+        or (64, 256)
+    engine = ClusterEngine(ClusterEngineConfig(k=k, buckets=buckets),
+                           device=device)
+    bus = _worker_bus(r)
+    return ClusterWorker(bus, engine=engine, provider=provider,
+                         cfg=ClusterWorkerConfig(
+        worker_id=r.get_str("distributed.worker_id") or "cluster-worker-0",
+        heartbeat_s=_heartbeat_interval(r),
+        metrics_port=r.get_int("observability.metrics_port", 0),
+        k=k,
+        buckets=buckets,
+        checkpoint_every_batches=r.get_int(
+            "cluster.checkpoint_every_batches", 8),
+        min_cluster_fraction=r.get_float("cluster.min_cluster_fraction",
+                                         0.5),
+        slo_batch_p95_ms=r.get_float("observability.slo_batch_p95_ms", 0.0),
+        slo_queue_wait_ms=r.get_float("observability.slo_queue_wait_ms",
+                                      0.0),
+        slo_batch_age_ms=r.get_float("observability.slo_batch_age_ms", 0.0),
+        span_export_interval_s=r.get_float(
+            "observability.span_export_interval_s", 15.0),
+        span_export_max_spans=r.get_int(
+            "observability.span_export_max_spans", 512),
+        span_sample_rate=r.get_float("observability.span_sample_rate",
+                                     1.0)))
+
+
+def _serve_worker(worker) -> None:
+    """Warm up, serve until interrupted, then stop the worker before its
+    bus (serve mode: the loopback client, then the broker)."""
+    t0 = time.perf_counter()
+    worker.warmup()
+    logger.info("warmup done", extra={
+        "warmup_s": round(time.perf_counter() - t0, 3)})
+    worker.start()
+    try:
+        _serve_forever()
+    finally:
+        worker.stop()
+        try:
+            worker.bus.close()
+        except Exception as e:
+            logger.warning("bus close failed: %s", e)
+
+
+def _run_tpu_worker(cfg: CrawlerConfig, r: ConfigResolver,
+                    device=None) -> None:
+    """mode=tpu-worker: RecordBatches in, embeddings and labels out."""
+    _refuse_multihost()
+    cache_dir = r.get_str("inference.compilation_cache_dir", "")
+    if cache_dir:
+        logger.warning(
+            "inference.compilation_cache_dir=%s ignored: the port compiles "
+            "no XLA programs; its kernels are cached in their build "
+            "directory (distributed_crawler_tpu_torch/_build)", cache_dir)
+    _serve_worker(_build_tpu_worker(cfg, r, device=device))
+
+
+def _run_asr_worker(cfg: CrawlerConfig, r: ConfigResolver,
+                    device=None) -> None:
+    """mode=asr-worker: AudioBatchMessages in, transcripts out."""
+    _serve_worker(_build_asr_worker(cfg, r, device=device))
+
+
+def _run_cluster_worker(cfg: CrawlerConfig, r: ConfigResolver,
+                        device=None) -> None:
+    """mode=cluster-worker: embedding-carrying result batches in, cluster
+    assignments out; a restart resumes from the last checkpoint."""
+    _serve_worker(_build_cluster_worker(cfg, r, device=device))
+
+
+def _run_bus(r: ConfigResolver) -> int:
+    """mode=bus: a dedicated broker process."""
+    if not r.get_str("distributed.bus_address"):
+        print("error: bus mode requires --bus-address", file=sys.stderr)
+        return 2
+    bus = _make_bus(r, serve=True)
+    try:
+        _serve_forever()
+    finally:
+        # Remote consumers may keep pulling while the broker drains;
+        # close() runs even if the drain is interrupted.
+        try:
+            bus.drain(timeout_s=r.get_float("distributed.shutdown_drain_s",
+                                            30.0))
+        finally:
+            bus.close()
+    return 0
+
+
+def _run_transcribe(cfg: CrawlerConfig, r: ConfigResolver,
+                    device=None) -> int:
+    """mode=transcribe: Whisper over a tree of 16 kHz PCM ``.wav`` files,
+    long files across every 30 s window; one JSONL row per file:
+    ``{"path", "tokens", "text", "windows", "error"}``.  Every file
+    failing is a failed run (exit 1)."""
+    import json
+
+    src = r.get_str("transcribe.input")
+    asr_dir = cfg.inference.asr_pretrained_dir
+    if not src or not asr_dir:
+        print("error: transcribe mode needs --transcribe-input and "
+              "--asr-pretrained-dir", file=sys.stderr)
+        return 2
+    if cfg.inference.enabled and r.get_str("distributed.bus_address"):
+        raise CliConfigError(
+            "--infer with --bus-address: publishing transcripts onto the "
+            "inference topic needs the crawler's post records, which are "
+            "not ported (ROADMAP Queue 1, after item 7); run without "
+            "--infer")
+    if os.path.isfile(src):
+        paths = [src]
+        base = os.path.dirname(src) or "."
+    else:
+        paths = sorted(
+            os.path.join(root, name)
+            for root, _dirs, files in os.walk(src)
+            for name in files if name.lower().endswith(".wav"))
+        base = src
+    if not paths:
+        print(f"error: no .wav files under {src}", file=sys.stderr)
+        return 2
+    results = _make_pipeline(cfg, r, device=device).transcribe_files(paths)
+    out_path = r.get_str("transcribe.output") or os.path.join(
+        base, "transcripts.jsonl")
+    failed = 0
+    with open(out_path, "w", encoding="utf-8") as f:
+        for res in results:
+            failed += bool(res.error)
+            f.write(json.dumps({
+                "path": os.path.relpath(res.path, base),
+                "tokens": res.tokens,
+                "text": res.text,
+                "windows": res.windows,
+                "error": res.error,
+            }, ensure_ascii=False) + "\n")
+    print(json.dumps({"transcribed": len(results) - failed,
+                      "failed": failed, "output": out_path}))
+    return 0 if len(results) > failed else 1
+
+
+def _read_cluster_rows(path: str):
+    """(uids, embeddings, texts) of a cluster input JSONL: a row with an
+    ``embedding`` list is an embedding row, else its text fields make a
+    text row (rows without text are skipped)."""
+    import json
+
+    uids: list = []
+    embeddings: list = []
+    texts: list = []
+    with open(path, "r", encoding="utf-8") as f:
+        for line in f:
+            if not line.strip():
+                continue
+            row = json.loads(line)
+            uid = row.get("post_uid") or row.get("id") or str(len(uids))
+            if isinstance(row.get("embedding"), list):
+                uids.append(uid)
+                embeddings.append(row["embedding"])
+            else:
+                text = row.get("all_text") or row.get("description") or ""
+                if text:
+                    uids.append(uid)
+                    texts.append(text)
+    return uids, embeddings, texts
+
+
+def _run_cluster(cfg: CrawlerConfig, r: ConfigResolver, device=None) -> int:
+    """mode=cluster: embeddings (or text, embedded on the fly) -> k-means
+    `fit` on the one card -> cluster assignments.  The summary line adds
+    the seconds spent reading the JSON, embedding text rows, fitting and
+    writing."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from .device import resolve_device
+    from .models.clustering import fit
+
+    input_file = r.get_str("cluster.input_file")
+    output_file = r.get_str("cluster.output_file")
+    k = r.get_int("cluster.k", 8)
+    iters = r.get_int("cluster.iters", 25)
+    if not input_file or not output_file:
+        print("error: cluster mode needs --cluster-input and "
+              "--cluster-output", file=sys.stderr)
+        return 2
+    if k < 2:
+        print("error: --cluster-k must be >= 2", file=sys.stderr)
+        return 2
+    if iters < 1:
+        print("error: --cluster-iters must be >= 1", file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    uids, embeddings, texts = _read_cluster_rows(input_file)
+    seconds = {"read": time.perf_counter() - t0}
+    if embeddings and texts:
+        print("error: input mixes 'embedding' rows with text rows; "
+              "cluster one kind at a time", file=sys.stderr)
+        return 2
+    if texts:
+        t0 = time.perf_counter()
+        engine = _make_engine(cfg, r, device=device)
+        x = engine.embed(texts)
+        dev = engine.device
+        seconds["embed"] = time.perf_counter() - t0
+    else:
+        widths = {len(e) for e in embeddings}
+        if len(widths) != 1 or 0 in widths:
+            print(f"error: embedding rows have inconsistent widths "
+                  f"{sorted(widths)}; cluster one embedding space at a "
+                  f"time", file=sys.stderr)
+            return 2
+        t0 = time.perf_counter()
+        x = np.asarray(embeddings, np.float32)
+        seconds["read"] += time.perf_counter() - t0
+        dev = resolve_device(device)
+    if len(x) < k:
+        print(f"error: {len(x)} rows cannot form {k} clusters",
+              file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    result = fit(torch.as_tensor(np.asarray(x, np.float32), device=dev), k,
+                 iters=iters)
+    assignments = result.assignments.cpu().numpy()
+    centroids = result.centroids.cpu().numpy()
+    inertia = float(result.inertia)
+    seconds["fit"] = time.perf_counter() - t0
+    sizes = np.bincount(assignments, minlength=k).tolist()
+    t0 = time.perf_counter()
+    with open(output_file, "w", encoding="utf-8") as f:
+        json.dump({
+            "k": k,
+            "iters": iters,
+            "inertia": inertia,
+            "cluster_sizes": sizes,
+            "centroids": centroids.tolist(),
+            "assignments": [
+                {"post_uid": uid, "cluster": int(c)}
+                for uid, c in zip(uids, assignments)],
+        }, f)
+    seconds["write"] = time.perf_counter() - t0
+    print(json.dumps({
+        "clustered": len(uids),
+        "k": k,
+        "inertia": round(inertia, 4),
+        "cluster_sizes": sizes,
+        "output": output_file,
+        "seconds": seconds,
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

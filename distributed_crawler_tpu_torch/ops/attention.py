@@ -16,7 +16,10 @@ input dtype.  A fully masked row gives zeros, never a uniform average.
   for bf16 at head dims 32/64 with TMA-legal operands; ``"mma_sync"``
   (`csrc/flash_attention.cu`) for other bf16 layouts; ``"simt"`` (the same
   source) for f32.  ``flash_attention.launches`` counts launches, and
-  ``flash_attention.launches_by_path`` counts them per path.
+  ``flash_attention.launches_by_path`` counts them per path; the same
+  per-path count is the ``attention_kernel_launches_total{path}`` series
+  of the process's ``/metrics`` (registered at the first launch), so a
+  worker process's launches can be read from outside it.
 - :func:`key_tile_plan` — the sm90 kernel's tile-skip rule in plain
   PyTorch: which key tiles each query block computes.
 - :func:`mha` — dispatch by the tensor's device.
@@ -30,6 +33,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from .. import kernels
+from ..utils.metrics import REGISTRY
 
 _NEG_INF = -1e30
 
@@ -256,6 +260,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"{err(rc).decode()} ({rc})")
     flash_attention.launches += 1
     flash_attention.launches_by_path[path] += 1
+    REGISTRY.counter(
+        "attention_kernel_launches_total",
+        "attention kernel launches per kernel path (sm90, mma_sync, simt)"
+    ).labels(path=path).inc()
     return out
 
 

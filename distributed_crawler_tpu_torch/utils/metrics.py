@@ -11,9 +11,10 @@ postmortem.py` and the orchestrator's fleet view):
 - the late-bound providers behind ``/status``, ``/costs`` and
   ``/clusters``, registered by the worker once it exists;
 - `serve_metrics`: ``/healthz``, ``/metrics``, ``/traces``, ``/status``,
-  ``/costs``, ``/profile``, ``/clusters`` and ``/timeseries`` on a daemon
-  thread.  The orchestrator's routes (``/dtraces``, ``/dlq``, ``/alerts``,
-  ``/shards``, ``/autoscaler``, ``/tenants``, ``/cluster``, ``/logs``)
+  ``/costs``, ``/profile``, ``/clusters``, ``/timeseries`` and ``/logs``
+  (the WARNING+ ring of `utils/structlog.py`, served always) on a daemon
+  thread.  The orchestrator's routes (``/dtraces``, ``/dlq``,
+  ``/alerts``, ``/shards``, ``/autoscaler``, ``/tenants``, ``/cluster``)
   answer 404: no orchestrator runs in the port.
 """
 
@@ -307,6 +308,18 @@ def clusters_snapshot():
         return {"error": str(e)}
 
 
+def logs_snapshot():
+    """The /logs body for postmortem bundles: the last WARNING+ records,
+    or None when the ring is empty, so a process that never warned writes
+    no ``logs`` section."""
+    from . import structlog
+
+    records = structlog.ring_snapshot()
+    if not records:
+        return None
+    return {"records": records}
+
+
 def _query_limit(query: Dict[str, List[str]]) -> int:
     try:
         return int(query.get("limit", ["0"])[0])
@@ -362,6 +375,17 @@ class _Handler(BaseHTTPRequestHandler):
                 (query.get("seconds") or ["1"])[0])
             code = int(result.pop("code", 200 if result.get("ok") else 500))
             body = json.dumps(result).encode("utf-8")
+        elif path == "/logs":
+            # The structured-log ring, served always: a process that never
+            # warned answers with zero records.  ?limit=N keeps the newest.
+            from . import structlog
+
+            try:
+                body = json.dumps({"records": structlog.ring_snapshot(
+                    limit=_query_limit(query))}, default=str).encode("utf-8")
+            except Exception as e:
+                code = 500
+                body = json.dumps({"error": str(e)}).encode("utf-8")
         elif path == "/timeseries":
             # The process's rolling series; ?series= filters by name or
             # exact key, ?window= downsamples, ?since= bounds history.

@@ -6,9 +6,10 @@
   ``retry_after_s`` attribute (a server-directed hint, FLOOD_WAIT or
   HTTP 429) overrides the computed delay, capped by ``retry_after_cap_s``
   so one hostile hint cannot park a dispatch thread for minutes.
-- :func:`retry_call` — the attempt loop the in-memory bus runs its
-  handlers through.  The reference's ``stop`` event and ``sleep`` hook
-  are left out: no caller in the port interrupts or replaces the wait.
+- :func:`retry_call` — the attempt loop the buses run their handlers
+  through.  A ``stop`` event makes the waits between attempts
+  interruptible (the gRPC bus passes its shutdown event); the reference's
+  ``sleep`` hook is left out: no caller in the port replaces the wait.
 
 Same defaults, the same cap and the same metric as the reference:
 ``resilience_retries_total{op}`` counts every retried attempt, in the
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import logging
 import random
+import threading
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
@@ -68,12 +70,15 @@ class RetryPolicy:
 def retry_call(fn: Callable[..., Any], *args: Any,
                retry: RetryPolicy,
                op: str = "op",
+               stop: Optional[threading.Event] = None,
                registry: MetricsRegistry = REGISTRY,
                **kwargs: Any) -> Any:
     """Run ``fn(*args, **kwargs)`` under ``retry``; returns its result or
     raises the last exception once attempts are exhausted (or the error is
     classified non-retryable).  Waits between attempts with
-    ``time.sleep``."""
+    ``time.sleep``, or on ``stop``: a set event cuts the wait short, not
+    the remaining attempts, so a closing bus still delivers."""
+    wait = stop.wait if stop is not None else time.sleep
     retries = registry.counter(
         "resilience_retries_total",
         "Retried attempts per operation (utils/resilience.py)")
@@ -89,5 +94,5 @@ def retry_call(fn: Callable[..., Any], *args: Any,
             logger.warning("%s failed (attempt %d/%d): %s; retrying in "
                            "%.3fs", op, attempt + 1, attempts, e, delay)
             if delay > 0:
-                time.sleep(delay)
+                wait(delay)
     raise RuntimeError("unreachable")

@@ -134,7 +134,8 @@ def both_servers():
 
 ROUTES = ["/healthz", "/health", "/", "/metrics", "/status", "/costs",
           "/traces", "/traces?limit=2", "/timeseries",
-          "/timeseries?series=x&window=5", "/clusters", "/no-such-route",
+          "/timeseries?series=x&window=5", "/clusters", "/logs",
+          "/logs?limit=2", "/no-such-route",
           "/profile?seconds=nan", "/profile?seconds=abc"]
 
 
@@ -151,8 +152,7 @@ def test_routes_answer_as_the_reference(both_servers, route):
 
 
 @pytest.mark.parametrize("route", ["/dtraces", "/dlq", "/alerts", "/shards",
-                                   "/autoscaler", "/tenants", "/cluster",
-                                   "/logs"])
+                                   "/autoscaler", "/tenants", "/cluster"])
 def test_orchestrator_routes_wait(both_servers, route):
     assert _get(both_servers["port"] + route)[0] == 404
 
