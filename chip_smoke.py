@@ -12,10 +12,12 @@ JSON line each:
 2. build — nvcc builds every kernel from `distributed_crawler_tpu_torch/
    csrc`, with the compiler's register/shared-memory report;
 3. kernel — each kernel against its plain PyTorch version on the card:
-   buckets 32-1024, head dims 16/32/64, bf16 and f32, padded, packed,
-   fully masked and unmasked rows, whole key tiles masked, 8 segments per
-   row; each case names the path `choose_path` sends it to (sm90,
-   mma_sync, simt) and checks that path's launch count;
+   buckets 32-1024, head dims 8-256 (16/32/64 at every bucket; 8, 25, 48,
+   80, 128 and 256, and TinyBERT-4L-312D's fused QKV view of 12 heads of
+   26), bf16 and f32, padded, packed, fully masked and unmasked rows,
+   whole key tiles masked, 8 segments per row, rows not 16-byte aligned;
+   each case names the path `choose_path` sends it to (sm90, mma_sync,
+   simt) and checks that path's launch count;
 4. slice — E5-small at full width (batch 256, random weights from
    ``--seed``) served end to end: RecordBatches published on the in-memory
    bus, through `TPUWorker` (packed, coalescing), results collected from
@@ -26,8 +28,13 @@ JSON line each:
    packed shape the slice runs: the sm90 kernel, the mma.sync kernel, its
    plain version, `scaled_dot_product_attention` (timed only; the port
    never calls it) and the least time the card could take (bytes, tensor
-   operations or exponentials); f32 through the SIMT kernel; the engine's
-   batch time per bucket; the slice's posts/s and p50 batch latency;
+   operations or exponentials); f32 through the simt kernel (3xTF32: its
+   operations bound is three TF32 products, beside the FP32 figure of PRs
+   up to 8 as ``bound_fp32_ms``), also at Whisper-small's [B, 1500, 12,
+   64], B = 1/2/4/8, beside SDPA in f32; the mma_sync kernel at
+   TinyBERT-4L-312D's shape (12 heads of 26, padded and packed); the
+   engine's batch time per bucket; the slice's posts/s and p50 batch
+   latency;
 6. slice.xlmr — a synthetic XLM-R-base classification checkpoint at the
    published widths (HF key names, ``model.safetensors`` in F32, values
    from ``--seed``) written to a temporary directory and served int8
@@ -147,6 +154,17 @@ JSON line each:
    defaults on one audio batch and on step 1's result stream.  Every
    attention launch on sm90: 12 per E5-small or Whisper dispatch, 24 per
    E5-large dispatch.
+12. slice.tinybert (run after phase 5) — TinyBERT-4L-312D's published
+   widths (huawei-noah/TinyBERT_General_4L_312D: vocab 30522, hidden 312,
+   4 layers, 12 heads of 26, MLP 1200), bf16, 8 labels, random weights
+   from ``--seed``, `HashingTokenizer`, registered in the engine's
+   registry at run time: 2048 synthetic posts through `TPUWorker` at phase
+   4's settings.  Checks: one result per post; 4 mma_sync launches per
+   dispatch and none elsewhere (head dim 26 and the fused QKV view's
+   52-byte head stride are beyond TMA); packed against unpacked within
+   2e-2; 32 posts against the same weights in f32 on the CPU (2e-2 / 5e-2,
+   labels equal off a 5e-2 near-tie margin).  Times: posts/s, the forward
+   per bucket.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``.  Any failed phase raises and exits
@@ -176,6 +194,12 @@ PACKAGE = "distributed_crawler_tpu_torch"
 H100_BYTES_PER_S = 3.35e12
 H100_SXM_NAME = "NVIDIA H100 80GB HBM3"
 H100_PEAK_FLOPS = {"float32": 67e12}
+# Dense TF32 tensor-core FLOP/s of one H100 SXM (NVIDIA data sheet: 989.4
+# with sparsity).  The f32 kernel forms each product as three TF32
+# products (3xTF32), so its operations bound is 3 x its FLOPs at this rate;
+# the f32 rows also give the FP32 figure (H100_PEAK_FLOPS["float32"]) that
+# PRs up to 8 used, as ``bound_fp32_ms``.
+H100_TF32_FLOPS = 494.7e12
 # Exponentials per second in the special function units of one H100 SXM:
 # the figure the FlashAttention-3 paper gives (Shah et al. 2024, section
 # 3.1: 3.9 TFLOPS of exponential against 989 TFLOPS of bf16 matmul).
@@ -189,6 +213,9 @@ TOLERANCE = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
 
 # E5-small's attention shape: 12 heads of 32.
 E5_HEADS, E5_HEAD_DIM, BATCH = 12, 32, 256
+# TinyBERT-4L-312D's attention: 12 heads of 26 (huawei-noah/
+# TinyBERT_General_4L_312D: hidden 312).
+TINYBERT_MODEL, TINYBERT_HEADS, TINYBERT_HEAD_DIM = "tinybert_4l_312d", 12, 26
 MAIN_BUCKETS = (32, 64, 128, 256, 512)
 # Words per synthetic post, one span per bucket: with CLS and SEP a post
 # of span i lands in MAIN_BUCKETS[i].
@@ -264,7 +291,8 @@ def _segments(torch, b, l, n_seg, gen, device):
 def _expected_path(torch, d, dtype, layout):
     if dtype == torch.float32:
         return "simt"
-    return "sm90" if d in (32, 64) and layout == "aligned" else "mma_sync"
+    return ("sm90" if d in (32, 64) and layout in ("aligned", "tinybert")
+            else "mma_sync")
 
 
 def phase_kernel(torch, attention, device, gen):
@@ -279,11 +307,20 @@ def phase_kernel(torch, attention, device, gen):
     # to the mma.sync kernel, which stages them with plain loads.
     cases += [(200, 32, torch.bfloat16, "unaligned"),
               (70, 64, torch.float32, "unaligned")]
+    # Every head dim up to 256 (rounded up to 16/32/64/128/256 in shared
+    # memory; an odd one puts some heads' rows of the fused view on 2-byte
+    # boundaries, which take plain 2-byte copies), and TinyBERT-4L-312D's
+    # fused QKV view (12 heads of 26: a head stride of 52 bytes).
+    for dtype in (torch.bfloat16, torch.float32):
+        cases += [(200, d, dtype) for d in (8, 25, 48, 80, 128, 256)]
+        cases += [(512, 26, dtype, "tinybert"), (128, 26, dtype, "tinybert")]
     results = []
     worst = dict.fromkeys(attention.PATHS, 0.0)
     for l, d, dtype, *layout in cases:
         layout = (layout or ["aligned"])[0]
         b, h = (2, 4) if l >= 1024 else (3, 4)
+        if layout == "tinybert":
+            h = TINYBERT_HEADS
         q, k, v = _qkv(torch, b, l, h, d, dtype, gen, device,
                        offset=1 if layout == "unaligned" else 0)
         mask = _padded_mask(torch, b, l, gen, device, full_rows=(b - 1,))
@@ -291,7 +328,7 @@ def phase_kernel(torch, attention, device, gen):
         kinds = [("padded", {"kv_mask": mask}),
                  ("packed", {"kv_mask": seg > 0, "segment_ids": seg}),
                  ("unmasked", {})]
-        if l == 512 and dtype == torch.bfloat16:
+        if l == 512 and (dtype == torch.bfloat16 or layout == "tinybert"):
             # Whole key tiles masked in the middle of every row (not a
             # prefix mask), and packed rows of exactly 8 segments.
             holes = mask.clone()
@@ -345,10 +382,19 @@ def attention_bound_ms(pairs, b, l, h, d, dtype_name, elem_bytes, has_seg,
     over the special function units' rate."""
     io_bytes = (4 * b * l * h * d * elem_bytes
                 + b * l * 4 * (int(has_mask) + int(has_seg)))
+    flops = 4.0 * h * d * pairs
+    ops_s = (flops / H100_PEAK_FLOPS[dtype_name] if dtype_name == "bfloat16"
+             else 3 * flops / H100_TF32_FLOPS)
     return {"bytes": io_bytes / H100_BYTES_PER_S * 1e3,
-            "operations": 4.0 * h * d * pairs
-            / H100_PEAK_FLOPS[dtype_name] * 1e3,
+            "operations": ops_s * 1e3,
             "exponentials": h * pairs / H100_EXP_PER_S * 1e3}
+
+
+def fp32_bound_ms(parts, pairs, h, d):
+    """The f32 bound by the yardstick of PRs up to 8: the products at
+    FP32's 67 TFLOP/s outside the tensor cores."""
+    return max(parts["bytes"], parts["exponentials"],
+               4.0 * h * d * pairs / H100_PEAK_FLOPS["float32"] * 1e3)
 
 
 def bound_of(parts):
@@ -479,10 +525,84 @@ def phase_kernel_times(torch, np, attention, device, gen, seed, smi):
                "eager_ms": times["eager"],
                "plain_ms": times["plain"], "library_ms": times["sdpa"],
                "bound_ms": bound_of(parts)[0], "bound_by": bound_of(parts)[1],
-               "bound_parts_ms": parts, "allowed_pairs": pairs, "card": smi}
+               "bound_parts_ms": parts,
+               "bound_fp32_ms": fp32_bound_ms(parts, pairs, E5_HEADS,
+                                              E5_HEAD_DIM),
+               "allowed_pairs": pairs, "card": smi}
         rows.append(row)
         emit("times.kernel", name="flash_attention", **row)
         del q, k, v, qf, kf, vf
+        torch.cuda.empty_cache()
+    rows += tinybert_kernel_times(torch, F, attention, device, gen, gen_np,
+                                  smi)
+    rows += whisper_f32_kernel_times(torch, F, attention, device, gen, smi)
+    return rows
+
+
+def tinybert_kernel_times(torch, F, attention, device, gen, gen_np, smi):
+    """The mma_sync kernel at TinyBERT-4L-312D's shape per bucket: batch
+    256, the fused QKV view of 12 heads of 26, padded and packed as in
+    phase 4, beside its plain version, SDPA and the bound."""
+    rows = []
+    for l in MAIN_BUCKETS:
+        q, k, v = _qkv(torch, BATCH, l, TINYBERT_HEADS, TINYBERT_HEAD_DIM,
+                       torch.bfloat16, gen, device)
+        check(attention.choose_path(q, k, v) == "mma_sync",
+              f"TinyBERT shape L={l} goes to "
+              f"{attention.choose_path(q, k, v)}")
+        lo = l // 2 + 1 if l > 32 else 1
+        padded = (_padded_mask(torch, BATCH, l, gen, device, min_len=lo), None)
+        packed = _packed_shape(torch, l, gen_np, device)
+        for shape, (mask, seg) in (("padded", padded), ("packed", packed)):
+            times, errs, pairs = _time_bucket(
+                torch, F, attention, q, k, v, mask, seg,
+                f"TinyBERT {shape} L={l}")
+            parts = attention_bound_ms(pairs, BATCH, l, TINYBERT_HEADS,
+                                       TINYBERT_HEAD_DIM, "bfloat16", 2,
+                                       seg is not None)
+            row = {"model": TINYBERT_MODEL, "bucket": l, "shape": shape,
+                   "batch": BATCH, "heads": TINYBERT_HEADS,
+                   "head_dim": TINYBERT_HEAD_DIM, "dtype": "bfloat16",
+                   "max_abs_err": errs, "ms": times["mma_sync"],
+                   "eager_ms": times["eager"], "plain_ms": times["plain"],
+                   "library_ms": times["sdpa"],
+                   "bound_ms": bound_of(parts)[0],
+                   "bound_by": bound_of(parts)[1], "bound_parts_ms": parts,
+                   "allowed_pairs": pairs, "card": smi}
+            rows.append(row)
+            emit("times.kernel", name="flash_attention", **row)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def whisper_f32_kernel_times(torch, F, attention, device, gen, smi):
+    """The f32 (3xTF32) kernel at Whisper-small's encoder shape
+    [B, 1500, 12, 64], B = 1/2/4/8, no mask, beside its plain version,
+    SDPA in f32 and the bound."""
+    rows = []
+    for b in ASR_BUCKETS:
+        q, k, v = (torch.randn((b, WHISPER_CTX, WHISPER_HEADS,
+                                WHISPER_HEAD_DIM), generator=gen).to(device)
+                   for _ in range(3))
+        times, errs, pairs = _time_bucket(torch, F, attention, q, k, v, None,
+                                          None, f"whisper f32 B={b}")
+        parts = attention_bound_ms(pairs, b, WHISPER_CTX, WHISPER_HEADS,
+                                   WHISPER_HEAD_DIM, "float32", 4, False,
+                                   has_mask=False)
+        row = {"model": "whisper_small", "batch": b, "seq": WHISPER_CTX,
+               "heads": WHISPER_HEADS, "head_dim": WHISPER_HEAD_DIM,
+               "dtype": "float32", "mask": None, "max_abs_err": errs,
+               "ms": times["simt"], "eager_ms": times["eager"],
+               "plain_ms": times["plain"], "library_ms": times["sdpa"],
+               "bound_ms": bound_of(parts)[0], "bound_by": bound_of(parts)[1],
+               "bound_parts_ms": parts,
+               "bound_fp32_ms": fp32_bound_ms(parts, pairs, WHISPER_HEADS,
+                                              WHISPER_HEAD_DIM),
+               "allowed_pairs": pairs, "card": smi}
+        rows.append(row)
+        emit("times.kernel", name="flash_attention", **row)
+        del q, k, v
         torch.cuda.empty_cache()
     return rows
 
@@ -508,11 +628,11 @@ def synthetic_posts(np, rng, n, start):
     return posts
 
 
-def serve_batches(np, engine, batches):
+def serve_batches(np, engine, batches, path="sm90"):
     """The main path: RecordBatches published on the in-memory bus, served
     by `TPUWorker` (packed, coalescing 4), results collected from the
     results topic.  The kernel counts are set to 0 just before and read
-    just after."""
+    just after; every launch must be on ``path``."""
     from distributed_crawler_tpu_torch.bus import (
         TOPIC_INFERENCE_BATCHES,
         TOPIC_INFERENCE_RESULTS,
@@ -563,8 +683,9 @@ def serve_batches(np, engine, batches):
     check(launches == n_layers * dispatches,
           f"{launches} kernel launches for {dispatches} dispatches "
           f"(expected {n_layers} per dispatch)")
-    check(launches_by_path == {"sm90": launches, "mma_sync": 0, "simt": 0},
-          f"launches by path {launches_by_path}: every one should be sm90")
+    check(launches_by_path == {p: launches if p == path else 0
+                               for p in launches_by_path},
+          f"launches by path {launches_by_path}: every one should be {path}")
     status = worker.get_status()
     check(status["processed_batches"] == len(batches)
           and status["error_batches"] == 0, f"worker status {status}")
@@ -777,6 +898,105 @@ def phase_slice(torch, np, seed, smi):
     engine_rows = time_engine(torch, engine, smi, model=cfg.model)
     return {"launches": served["launches_by_path"],
             "dispatches": served["dispatches"], "engine_rows": engine_rows,
+            "posts_per_s": served["posts_per_s"]}
+
+
+# -- phase 12: TinyBERT-4L-312D's widths (head dim 26) on the card --------
+# A post whose f32 top-two scores are within this is a near-tie: bf16 may
+# rank either first.
+TINYBERT_NEAR_TIE = 5e-2
+TINYBERT_CPU_POSTS = 32
+
+
+def tinybert_config():
+    """huawei-noah/TinyBERT_General_4L_312D's published widths; bf16."""
+    from distributed_crawler_tpu_torch.models.encoder import EncoderConfig
+
+    return EncoderConfig(vocab_size=30522, hidden=312, n_layers=4,
+                         n_heads=12, mlp_dim=1200, max_len=512)
+
+
+def phase_tinybert(torch, np, seed, smi):
+    """TinyBERT-4L-312D's widths (random weights from ``seed``,
+    `HashingTokenizer`) registered as a deployment registers a model, and
+    2048 posts served through `TPUWorker` as in phase 4: every attention
+    launch on the mma_sync kernel (its head dim of 26 and the fused QKV
+    view's 52-byte head stride are beyond TMA), 4 per dispatch; packed
+    against unpacked; 32 posts on the card in bf16 against the same weights
+    in f32 on the CPU; posts/s and the forward per bucket."""
+    from distributed_crawler_tpu_torch.bus import RecordBatch
+    from distributed_crawler_tpu_torch.inference import engine as engine_mod
+    from distributed_crawler_tpu_torch.ops.padding import pack_batch
+    from distributed_crawler_tpu_torch.utils.metrics import MetricsRegistry
+
+    engine_mod.MODEL_REGISTRY[TINYBERT_MODEL] = tinybert_config()
+    t0 = time.perf_counter()
+    engine = engine_mod.InferenceEngine(engine_mod.EngineConfig(
+        model=TINYBERT_MODEL, batch_size=BATCH, seed=seed),
+        registry=MetricsRegistry())
+    ecfg = engine.ecfg
+    check(engine.device.type == "cuda", f"engine on {engine.device}")
+    check((ecfg.vocab_size, ecfg.hidden, ecfg.n_layers, ecfg.n_heads,
+           ecfg.mlp_dim, ecfg.n_labels, ecfg.dtype, ecfg.head_dim)
+          == (30522, 312, 4, 12, 1200, 8, "bfloat16", 26),
+          f"not TinyBERT-4L-312D's width: {ecfg}")
+    check(engine.bucket_spec.lengths == MAIN_BUCKETS,
+          f"buckets {engine.bucket_spec.lengths}")
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine.warmup()
+    torch.cuda.synchronize()
+    emit("slice.tinybert.setup", model=TINYBERT_MODEL, batch=BATCH,
+         buckets=list(MAIN_BUCKETS), engine_init_s=init_s,
+         warmup_s=time.perf_counter() - t0)
+
+    rng = np.random.default_rng(seed + 12)
+    batches = [RecordBatch.from_records(
+        synthetic_posts(np, rng, BATCH, i * BATCH), crawl_id="smoke-tiny")
+        for i in range(8)]
+    served = serve_batches(np, engine, batches, path="mma_sync")
+    toks, _, pack_err = check_packed_vs_unpacked(np, engine, batches, served)
+
+    # Posts on the card in bf16 against the same weights in f32 on the
+    # CPU (plain attention), at phase 4's tolerances.
+    n_posts = served["emb"].shape[0]
+    pick = [int(i) for i in rng.choice(n_posts, size=TINYBERT_CPU_POSTS,
+                                       replace=False)]
+    cpu_model = _cpu_twin(torch, engine)
+    ids, mask = pack_batch([toks[i] for i in pick], engine.bucket_spec)
+    with torch.inference_mode():
+        c_emb, c_logits = cpu_model(torch.from_numpy(ids),
+                                    torch.from_numpy(mask))
+    c_emb = c_emb.double().numpy()
+    c_scores = torch.softmax(c_logits.double(), dim=-1).numpy()
+    emb_err = float(np.abs(c_emb - served["emb"][pick]).max())
+    score_err = float(np.abs(c_scores - served["scores"][pick]).max())
+    tol_emb, tol_scores = 2e-2, 5e-2
+    check(emb_err <= tol_emb and score_err <= tol_scores,
+          f"TinyBERT card bf16 vs CPU f32: emb {emb_err} (tol {tol_emb}), "
+          f"scores {score_err} (tol {tol_scores})")
+    clear = _top2_gap(np, -c_scores) > TINYBERT_NEAR_TIE
+    check(bool((served["labels"][pick][clear]
+                == c_scores.argmax(axis=1)[clear]).all()),
+          "TinyBERT labels differ from the CPU's where the top score is "
+          "clear")
+    emit("slice.tinybert", records=n_posts, batches=len(batches),
+         dispatches=served["dispatches"], kernel_launches=served["launches"],
+         kernel_launches_by_path=served["launches_by_path"],
+         launches_per_dispatch=served["launches"] / served["dispatches"],
+         packed_vs_unpacked=pack_err,
+         card_bf16_vs_cpu_f32={"posts": len(pick), "emb_max_abs_err": emb_err,
+                               "scores_max_abs_err": score_err,
+                               "tol_emb": tol_emb, "tol_scores": tol_scores,
+                               "labels_compared": int(clear.sum()),
+                               "near_tie": TINYBERT_NEAR_TIE})
+    emit("times.slice", model=TINYBERT_MODEL, posts=n_posts,
+         seconds=served["seconds"], posts_per_s=served["posts_per_s"],
+         p50_batch_latency_ms=served["p50_ms"], card=smi)
+    time_engine(torch, engine, smi, model=TINYBERT_MODEL)
+    del engine, cpu_model
+    torch.cuda.empty_cache()
+    return {"launches": served["launches_by_path"],
             "posts_per_s": served["posts_per_s"]}
 
 
@@ -4313,11 +4533,14 @@ def kernel_entry(path, rows, worst, launches):
     one call at each bucket of the padded E5-small shape (bf16 for sm90 and
     mma_sync, f32 for simt), the bound summed part by part."""
     dtype = "float32" if path == "simt" else "bfloat16"
-    mine = [r for r in rows if r["shape"] == "padded" and r["dtype"] == dtype]
+    mine = [r for r in rows if "model" not in r and r["shape"] == "padded"
+            and r["dtype"] == dtype]
     key = "mma_sync_ms" if path == "mma_sync" else "ms"
     parts = {p: sum(r["bound_parts_ms"][p] for r in mine)
              for p in mine[0]["bound_parts_ms"]}
     bound_ms, bound_by = bound_of(parts)
+    extra = ({"bound_fp32_ms": sum(r["bound_fp32_ms"] for r in mine)}
+             if path == "simt" else {})
     return {
         "name": f"flash_attention_{path}",
         "route": "cuda",
@@ -4333,6 +4556,7 @@ def kernel_entry(path, rows, worst, launches):
         "library_ms": sum(r["library_ms"] for r in mine),
         "at": f"E5-small, batch 256, {dtype}, serving padding: one call at "
               f"each of buckets 32-512, summed",
+        **extra,
     }
 
 
@@ -4386,6 +4610,7 @@ def main() -> int:
     e5 = phase_slice(torch, np, args.seed, smi)
     rows = phase_kernel_times(torch, np, attention, device, gen, args.seed,
                               smi)
+    tiny = phase_tinybert(torch, np, args.seed, smi)
     xlmr = phase_xlmr(torch, np, attention, device, gen, args.seed, smi)
     asr = phase_asr(torch, np, attention, device, args.seed, smi,
                     work.name)
@@ -4396,7 +4621,7 @@ def main() -> int:
                      e5, asr)
     work.cleanup()
     launches = {p: sum(ph["launches"][p]
-                       for ph in (e5, xlmr, asr, clus, moe, ops, cli_))
+                       for ph in (e5, tiny, xlmr, asr, clus, moe, ops, cli_))
                 for p in attention.PATHS}
     print(json.dumps({"kernels": [
         kernel_entry(path, rows, worst, launches)

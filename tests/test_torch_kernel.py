@@ -8,8 +8,9 @@ machine, which has none.
 
 Tolerances (kernel against plain, both on the card): f32 1e-4 abs/rel —
 sums in another order (online softmax over key tiles, exp2 with a folded
-log2(e)); bf16 2e-2 abs/rel — p is rounded to bf16 relative to a running
-max before the PV product, and the output itself is bf16 (2^-8 relative).
+log2(e)), and each product as three TF32 products (about 22 mantissa
+bits); bf16 2e-2 abs/rel — p is rounded to bf16 relative to a running max
+before the PV product, and the output itself is bf16 (2^-8 relative).
 """
 
 import pytest
@@ -120,8 +121,11 @@ class TestKernelOnCard:
 
     def test_wrapper_rejects(self, cuda):
         q, k, v, mask, _ = _inputs(1, 16, 2, 32, torch.float32, cuda)
-        with pytest.raises(ValueError):
-            flash_attention(q[..., :24], k[..., :24], v[..., :24])
+        wide = torch.zeros((1, 16, 2, 257), device=cuda)
+        with pytest.raises(ValueError):  # above the kernels' 256
+            flash_attention(wide, wide, wide)
+        with pytest.raises(ValueError):  # head dim not contiguous
+            flash_attention(q[..., ::2], k[..., ::2], v[..., ::2])
         with pytest.raises(TypeError):
             flash_attention(q.half(), k.half(), v.half())
         with pytest.raises(ValueError):
@@ -295,3 +299,152 @@ class TestSm90OnCard:
             out = flash_attention(q, kp, vp, **kw)
             torch.cuda.synchronize()
             assert torch.equal(out, base)
+
+
+@pytest.mark.gpu
+class TestGenericRoutesOnCard:
+    """The generic kernels of `csrc/flash_attention.cu` (``mma_sync``: bf16
+    on wgmma fed by cp.async; ``simt``: f32 as 3xTF32) at every kind of
+    head dim they take, against the plain version.  Tolerances as above."""
+
+    KINDS = ("unmasked", "padded", "packed", "holes")
+
+    @staticmethod
+    def _kw(kind, mask, seg):
+        return {"unmasked": {}, "padded": {"kv_mask": mask},
+                "packed": {"kv_mask": seg > 0, "segment_ids": seg},
+                "holes": {"kv_mask": _holes(mask)}}[kind]
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("d", [8, 25, 26, 48, 80, 128, 256])
+    @pytest.mark.parametrize("l, offset", [(100, 0), (300, 0), (75, 1)])
+    def test_head_dims_match_plain(self, cuda, dtype, d, l, offset):
+        q, k, v, mask, seg = _inputs(3, l, 2, d, dtype, cuda, seed=l + d,
+                                     offset=offset)
+        path = "simt" if dtype == torch.float32 else "mma_sync"
+        assert attention.choose_path(q, k, v) == path
+        for kind in self.KINDS:
+            kw = self._kw(kind, mask, seg)
+            before = flash_attention.launches_by_path[path]
+            out = flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            assert flash_attention.launches_by_path[path] == before + 1
+            assert out.dtype == dtype and out.shape == q.shape
+            torch.testing.assert_close(out.float(),
+                                       attend(q, k, v, **kw).float(),
+                                       atol=TOL[dtype], rtol=TOL[dtype])
+        out = flash_attention(q, k, v, kv_mask=mask)
+        assert torch.equal(out[-1].float(),
+                           torch.zeros_like(out[-1], dtype=torch.float32))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("l", [32, 128, 512])
+    def test_tinybert_view(self, cuda, dtype, l):
+        """TinyBERT-4L-312D's fused QKV: 12 heads of 26, rows 52 bytes
+        apart per head, so the copies are 4 bytes wide."""
+        q, k, v, mask, seg = _inputs(4, l, 12, 26, dtype, cuda, seed=l)
+        assert q.stride(2) == 26
+        for kind in self.KINDS:
+            kw = self._kw(kind, mask, seg)
+            torch.testing.assert_close(
+                flash_attention(q, k, v, **kw).float(),
+                attend(q, k, v, **kw).float(), atol=TOL[dtype],
+                rtol=TOL[dtype])
+
+    def test_bf16_at_32_forced_to_mma_sync(self, cuda):
+        q, k, v, mask, seg = _inputs(2, 512, 4, 64, torch.bfloat16, cuda)
+        assert attention.choose_path(q, k, v) == "sm90"
+        for kind in self.KINDS:
+            kw = self._kw(kind, mask, seg)
+            torch.testing.assert_close(
+                flash_attention(q, k, v, path="mma_sync", **kw).float(),
+                flash_attention(q, k, v, **kw).float(), atol=2e-2,
+                rtol=2e-2)
+
+    @pytest.mark.parametrize("dtype, d", [(torch.bfloat16, 26),
+                                          (torch.bfloat16, 32),
+                                          (torch.float32, 26),
+                                          (torch.float32, 200)])
+    @pytest.mark.parametrize("segments", [False, True])
+    def test_skipped_tiles_change_nothing(self, cuda, dtype, d, segments):
+        """As `TestSm90OnCard.test_skipped_tiles_change_nothing`, for the
+        generic kernels (their tile width from `block_n`): large finite K/V
+        and NaN in V at every key no block loads leave the output equal."""
+        b, l = 3, 512
+        q, k, v, _, _ = _inputs(b, l, 4, d, dtype, cuda, seed=7)
+        path = "simt" if dtype == torch.float32 else "mma_sync"
+        lens = torch.tensor([100, 300, 200])
+        mask = _holes(torch.arange(l)[None, :] < lens[:, None]).to(cuda)
+        seg = None
+        if segments:
+            seg = torch.zeros((b, l), dtype=torch.int32)
+            seg[:, :40], seg[:, 40:300] = 1, 2
+            seg = seg.to(cuda)
+        kw = {"kv_mask": mask, "segment_ids": seg, "path": path}
+        bn = attention.block_n(path, d)
+        plan = attention.key_tile_plan(mask, seg, b, l, block_n=bn)
+        loaded = torch.zeros(b * l, dtype=torch.bool)
+        for tiles in plan:
+            for k0, _ in tiles:
+                loaded[k0:k0 + bn] = True
+        skipped = (~loaded[:b * l]).view(b, l).to(cuda)
+        assert skipped.any()
+        base = flash_attention(q, k, v, **kw)
+        for k_fill, v_fill in ((3.0e4, -3.0e4), (0.0, float("nan"))):
+            kp, vp = k.clone(), v.clone()
+            kp[skipped] = k_fill
+            vp[skipped] = v_fill
+            out = flash_attention(q, kp, vp, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(out, base)
+
+    @pytest.mark.parametrize("param_dtype, tol_emb, tol_scores", [
+        ("float32", 1e-4, 1e-4), ("bfloat16", 2e-2, 5e-2)])
+    def test_tinybert_engine_on_card_matches_cpu(self, cuda, monkeypatch,
+                                                 param_dtype, tol_emb,
+                                                 tol_scores):
+        """An engine at TinyBERT-4L-312D's widths (2 layers, vocab cut to
+        1024) on the card against the same weights in f32 on the CPU
+        (bf16: chip_smoke.py phase 4's tolerances): every attention launch
+        on the generic route of its dtype."""
+        import numpy as np
+
+        from distributed_crawler_tpu_torch.inference import engine as em
+        from distributed_crawler_tpu_torch.models.encoder import (
+            EncoderConfig,
+        )
+        from distributed_crawler_tpu_torch.utils.metrics import (
+            MetricsRegistry,
+        )
+
+        for dtype in ("float32", param_dtype):
+            monkeypatch.setitem(em.MODEL_REGISTRY, f"tinybert_{dtype}",
+                                EncoderConfig(
+                                    vocab_size=1024, hidden=312, n_layers=2,
+                                    n_heads=12, mlp_dim=1200, max_len=512,
+                                    dtype=dtype))
+        kw = dict(batch_size=4, buckets=(32, 64, 128))
+        card = em.InferenceEngine(em.EngineConfig(
+            model=f"tinybert_{param_dtype}", **kw),
+            registry=MetricsRegistry())
+        cpu = em.InferenceEngine(em.EngineConfig(model="tinybert_float32",
+                                                 **kw),
+                                 registry=MetricsRegistry(), device="cpu")
+        cpu.model.load_state_dict({n: t.float().cpu() for n, t in
+                                   card.model.state_dict().items()})
+        texts = [" ".join(["w%d" % j for j in range(i * 9 + 1)])
+                 for i in range(9)]
+        path = "simt" if param_dtype == "float32" else "mma_sync"
+        for pack in (False, True):
+            before = dict(flash_attention.launches_by_path)
+            a = card.run(texts, pack=pack)
+            b = cpu.run(texts, pack=pack)
+            after = flash_attention.launches_by_path
+            assert after[path] > before[path]
+            assert all(after[p] == before[p] for p in after if p != path)
+            np.testing.assert_allclose(
+                [r["embedding"] for r in a], [r["embedding"] for r in b],
+                atol=tol_emb, rtol=tol_emb)
+            np.testing.assert_allclose(
+                [r["scores"] for r in a], [r["scores"] for r in b],
+                atol=tol_scores, rtol=tol_scores)
