@@ -165,6 +165,30 @@ JSON line each:
    2e-2; 32 posts against the same weights in f32 on the CPU (2e-2 / 5e-2,
    labels equal off a 5e-2 near-tie margin).  Times: posts/s, the forward
    per bucket.
+13. slice.train (run last) — ``--mode train-head`` through the CLI's
+   `main` at XLM-R-base's published widths (phase 6's synthetic HF
+   checkpoint as ``inference.pretrained_dir``, values from ``--seed``,
+   `HashingTokenizer`): 1024 posts of 4 classes with token-disjoint
+   vocabularies, 8-200 words each, string labels, written as the posts and
+   labels JSONL files.  Head scope (20 epochs, the CLI's defaults): the
+   feature pass launches `simt` only (12 per batch of 32), the loss ends
+   below ln 4, the encoder is saved unchanged, ``labels.json`` holds the
+   vocabulary; card f32 features against the CPU's on 64 posts.  LoRA
+   scope (rank 8, 2 epochs): no kernel launch, the merged checkpoint
+   moves the kernels and serves.  Full scope (2 epochs,
+   ``--train-grad-accum 2``, ``--train-state-dir``): stopped after epoch 1
+   and resumed, against an uninterrupted run (per-epoch losses, weights),
+   no kernel launch; one full step on the card against the CPU from the
+   same params and batch (loss, per-leaf gradient cosine).  Serving:
+   `_build_tpu_worker` with ``--head-checkpoint`` and
+   ``--infer-param-dtype bfloat16`` over 2048 held-out posts (12 sm90
+   launches per dispatch, nothing else; a row per post with its label
+   name; labels equal to the f32 trainer model's off a 5e-2 margin;
+   accuracy >= 0.6).  Times: the feature pass (posts/s; `simt`'s device
+   time by CUDA-graph replay of each batch's kernel), ms per step and
+   tokens/s of each scope at batch 16, the full step's TFLOP/s against the
+   FP32 and TF32 peaks, peak memory per CLI run, checkpoint bytes and
+   seconds, CLI start to the summary line, serving posts/s.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``.  Any failed phase raises and exits
@@ -3938,7 +3962,7 @@ def cli_resolve(argv):
     return cli.resolve_config(cli.build_parser().parse_args(argv), env={})
 
 
-def cli_main(argv):
+def cli_main(argv, env=None):
     """``cli.main(argv)`` with its summary line captured; returns (rc,
     the last stdout line as JSON or None, seconds)."""
     import contextlib
@@ -3949,7 +3973,7 @@ def cli_main(argv):
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        rc = cli.main(argv, env={})
+        rc = cli.main(argv, env=env or {})
     seconds = time.perf_counter() - t0
     lines = out.getvalue().strip().splitlines()
     return rc, (json.loads(lines[-1]) if lines else None), seconds
@@ -4522,6 +4546,653 @@ def phase_cli(torch, np, attention, device, work, seed, smi, e5, asr):
          kernel_launches_by_path=launches, grpc=proc["grpc"])
     return {"launches": launches}
 
+# Phase 13 (slice.train): train-head at XLM-R-base's published widths.
+TRAIN_LABELS = ("news", "politics", "sports", "tech")
+TRAIN_POSTS, TRAIN_SERVE_POSTS, TRAIN_CPU_POSTS = 1024, 2048, 64
+TRAIN_WORDS = (8, 200)          # words per post
+TRAIN_VOCAB = 64                # words per class
+TRAIN_STEP_BATCH = 16
+# Card f32 features (3xTF32 attention, f32 products without TF32) against
+# the same encoder's on the CPU: max abs, min cosine (6.8e-6 and 1 - 2e-12
+# on an H100).
+TRAIN_FEATURE_TOL = (1e-4, 0.999999)
+# One full step, card against CPU from the same params and batch.
+TRAIN_STEP_LOSS_RTOL, TRAIN_STEP_GRAD_COS = 1e-4, 0.999
+# Resumed against uninterrupted full fine-tune on the card (the embedding
+# backward sums with atomics, so not bit-equal): per-epoch loss relative,
+# and the largest weight difference as a share of the largest weight
+# movement of the uninterrupted run.
+TRAIN_RESUME_LOSS_RTOL, TRAIN_RESUME_PARAM_SHARE = 1e-4, 1e-2
+TRAIN_SERVE_MARGIN = 5e-2
+TRAIN_MIN_ACCURACY = 0.6        # 4 classes: chance is 0.25
+
+
+def train_vocab(np, seed):
+    """TRAIN_VOCAB words per class, 3-8 letters behind the class's own
+    prefix, so no token is shared between classes."""
+    rng = np.random.default_rng(seed + 130)
+    letters = np.array(list(_LETTERS))
+    return [[f"c{c}" + "".join(letters[rng.integers(0, 26,
+                                                   int(rng.integers(3, 9)))])
+             for _ in range(TRAIN_VOCAB)] for c in range(len(TRAIN_LABELS))]
+
+
+def train_posts(np, rng, vocab, n, start):
+    """(records, class ids): each post one class's words, 8-200 of them."""
+    records, labels = [], []
+    for i in range(n):
+        c = int(rng.integers(len(vocab)))
+        words = rng.choice(vocab[c], size=int(rng.integers(
+            TRAIN_WORDS[0], TRAIN_WORDS[1] + 1)))
+        records.append({"post_uid": f"t{start + i}", "channel_name": "smoke",
+                        "description": " ".join(words)})
+        labels.append(c)
+    return records, labels
+
+
+def peak_memory(torch, fn):
+    """(fn(), the peak memory allocated while it ran above what was
+    allocated before: earlier phases may leave tensors on the card, and a
+    collection first frees what an earlier run left to the collector)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - before
+
+
+def train_run(torch, attention, argv, env):
+    """One ``train-head`` through the CLI: (summary, seconds from start to
+    the summary line, launches by path, its peak memory)."""
+    zero_launches(attention)
+    (rc, summary, seconds), peak = peak_memory(
+        torch, lambda: cli_main(argv, env))
+    check(rc == 0 and summary is not None,
+          f"train-head {' '.join(argv[-8:])} exited {rc}")
+    check(np_isfinite(summary["final_loss"]),
+          f"train-head loss {summary['final_loss']}")
+    return summary, seconds, read_launches(attention), peak
+
+
+def np_isfinite(x):
+    import math
+
+    return math.isfinite(float(x))
+
+
+# Kernel-name fragments -> what a training step spends its device time on.
+STEP_KERNEL_KINDS = (
+    ("products", ("gemm", "cutlass", "xmma", "cublas", "matmul", "dot")),
+    ("optimizer", ("adam", "multi_tensor", "foreach")),
+    ("softmax", ("softmax",)),
+    ("layer_norm", ("layer_norm", "layernorm")),
+    ("embedding", ("embedding", "index", "scatter", "gather")),
+    ("reductions", ("reduce", "norm", "sum")),
+)
+
+
+def profile_train_step(torch, call, steps=3):
+    """A few steps under `torch.profiler`: the device time per step by
+    kind of kernel (`STEP_KERNEL_KINDS`, the rest "elementwise/other"), the
+    kernels per step, the ten longest kernels, and the busy share against
+    the same steps' wall time without the profiler.  None where the
+    profiler recorded no device work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        for _ in range(steps):
+            call()
+        torch.cuda.synchronize()
+
+    run()
+    t0 = time.perf_counter()
+    run()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    # Kernels only: a user annotation (``Optimizer.step#AdamW.step``) also
+    # lies on the device's timeline and spans kernels counted already.
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and "#" not in e.name]
+    if not device:
+        return None
+    kinds, names = {}, {}
+    for e in device:
+        us = e.time_range.elapsed_us()
+        low = e.name.lower()
+        kind = next((k for k, frags in STEP_KERNEL_KINDS
+                     if any(f in low for f in frags)), "elementwise/other")
+        kinds[kind] = kinds.get(kind, 0.0) + us / 1e3 / steps
+        names[e.name[:80]] = names.get(e.name[:80], 0.0) + us / 1e3 / steps
+    device_ms = sum(kinds.values())
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:10]
+    return {"wall_ms_per_step": wall_ms / steps,
+            "device_ms_per_step": device_ms,
+            "device_busy_share": device_ms / (wall_ms / steps),
+            "kernels_per_step": len(device) / steps,
+            "ms_by_kind": kinds, "top_kernels_ms": dict(top)}
+
+
+def train_step_times(torch, np, tm, lora_mod, fcfg, tree, ids, mask,
+                     labels, device, smi):
+    """ms per step of each scope at batch 16 on the dataset's [16, L]
+    rows, tokens/s, and the full step's FLOP rate."""
+    from distributed_crawler_tpu_torch.utils import cudatime
+    from distributed_crawler_tpu_torch.utils.costmodel import forward_flops
+
+    b = TRAIN_STEP_BATCH
+    ids, mask, labels = ids[:b], mask[:b], labels[:b]
+    seq = ids.shape[1]
+    real = int(mask.sum())
+    tc = tm.TrainConfig(warmup_steps=10)
+    rows = []
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((b, fcfg.hidden), generator=gen).to(device)
+    y = torch.as_tensor(labels, dtype=torch.long, device=device)
+    steps = (
+        ("head", lambda: tm.HeadStep(fcfg, tc, tree["params"]["cls_head"],
+                                     device),
+         lambda st: st(x, y), 1),
+        ("lora", lambda: lora_mod.LoraStep(
+            fcfg, tree, lora_mod.init_lora_params(gen, tree, 8), 16.0, tc,
+            device), lambda st: st(ids, mask, labels), seq),
+        ("full", lambda: tm.make_train_step(fcfg, tc, tree, device),
+         lambda st: st(ids, mask, labels), seq))
+    for scope, build, call, tokens in steps:
+        def run():
+            st = build()
+            return st, cudatime.event_time_ms(
+                lambda: call(st), min_total_s=0.5, min_iters=3,
+                max_iters=50)
+
+        (st, ms), peak = peak_memory(torch, run)
+        row = {"scope": scope, "batch": b, "seq": tokens, "ms": ms,
+               "tokens_per_s": b * tokens / (ms * 1e-3),
+               "real_tokens_per_s": (real if tokens > 1 else b)
+               / (ms * 1e-3),
+               "peak_mem_bytes": peak, "card": smi}
+        if scope == "full":
+            flops = 3 * forward_flops(fcfg, b, seq)
+            rate = flops / (ms * 1e-3)
+            row.update(flops_3x_forward=flops, tflop_per_s=rate / 1e12,
+                       share_of_fp32_peak_67=rate / H100_PEAK_FLOPS[
+                           "float32"],
+                       share_of_tf32_peak_494_7=rate / H100_TF32_FLOPS)
+        if scope != "head":
+            row["profile"] = profile_train_step(torch, lambda: call(st))
+        emit("times.train", step=f"{scope}_step", **row)
+        rows.append(row)
+        del st
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_step_vs_cpu(torch, np, tm, fcfg, tree, toks, labels, device):
+    """One full step's loss and gradients, card against CPU, from the same
+    params and a batch of 4 posts cut to 64 tokens."""
+    from distributed_crawler_tpu_torch.models.from_jax import (
+        flatten_tree,
+        flax_grads,
+    )
+
+    ids, mask, y = tm.prepare_finetune_arrays(
+        fcfg, [t[:64] for t in toks[:4]], labels[:4], 1)
+    tc = tm.TrainConfig(warmup_steps=10)
+    out = {}
+    for name, dev in (("cpu", "cpu"), ("card", device)):
+        st = tm.make_train_step(fcfg, tc, tree, dev)
+        m = st.grads(ids, mask, y)
+        out[name] = (float(m["loss"]),
+                     flatten_tree(flax_grads(st.model)["params"]))
+        del st
+    torch.cuda.empty_cache()
+    (l_cpu, g_cpu), (l_card, g_card) = out["cpu"], out["card"]
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    check(rel <= TRAIN_STEP_LOSS_RTOL,
+          f"full step loss card {l_card} vs cpu {l_cpu} ({rel:.3g} rel)")
+    worst, worst_leaf = 1.0, None
+    for path, gc in g_cpu.items():
+        a = gc.astype(np.float64).ravel()
+        b = g_card[path].astype(np.float64).ravel()
+        na, nb = np.linalg.norm(a), np.linalg.norm(b)
+        if na == 0 and nb == 0:
+            continue
+        cos = float(a @ b / (na * nb)) if na and nb else 0.0
+        if cos < worst:
+            worst, worst_leaf = cos, path
+    check(worst >= TRAIN_STEP_GRAD_COS,
+          f"full step gradient cosine {worst} at {worst_leaf}")
+    return {"loss_cpu": l_cpu, "loss_card": l_card, "loss_rel": rel,
+            "min_grad_cosine": worst, "min_leaf": worst_leaf,
+            "leaves": len(g_cpu), "tol": [TRAIN_STEP_LOSS_RTOL,
+                                          TRAIN_STEP_GRAD_COS]}
+
+
+def check_features(torch, np, tm, attention, fcfg, tree, toks, buckets,
+                   device, smi):
+    """Card f32 features against the CPU's on 64 posts; then the feature
+    pass over every post timed, with its simt kernels' device time."""
+    from distributed_crawler_tpu_torch.models.encoder import Classifier
+    from distributed_crawler_tpu_torch.models.from_jax import (
+        load_flax_params,
+    )
+
+    cpu = tm.encode_cls_features(fcfg, tree, toks[:TRAIN_CPU_POSTS],
+                                 batch_size=32, buckets=buckets,
+                                 device="cpu")
+    model = Classifier(fcfg)
+    load_flax_params(model, tree)
+    enc = model.encoder.to(device)
+    card = tm.cls_features(enc, toks[:TRAIN_CPU_POSTS], 32, buckets)
+    err = float(np.abs(card - cpu).max())
+    cos = _min_cosine(np, card, cpu)
+    check(err <= TRAIN_FEATURE_TOL[0] and cos >= TRAIN_FEATURE_TOL[1],
+          f"card features off the CPU's: max abs {err}, min cosine {cos}")
+    tm.cls_features(enc, toks, 32, buckets)            # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tm.cls_features(enc, toks, 32, buckets)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    del enc, model
+    torch.cuda.empty_cache()
+    simt_ms, calls = feature_pass_simt_ms(torch, attention, fcfg, toks,
+                                          buckets, device)
+    row = {"posts": len(toks), "seconds": seconds,
+           "posts_per_s": len(toks) / seconds, "simt_ms": simt_ms,
+           "simt_calls": calls, "card": smi}
+    emit("times.train", step="feature_pass", **row)
+    return {"max_abs_err": err, "min_cosine": cos,
+            "tol": list(TRAIN_FEATURE_TOL), "posts": TRAIN_CPU_POSTS}, row
+
+
+def feature_pass_simt_ms(torch, attention, fcfg, toks, buckets, device):
+    """The device time of the feature pass's attention: each batch's
+    kernel at its shape and padding mask ([32, bucket, 12, 64] f32), timed
+    by CUDA-graph replay, times the layers.  Returns (ms, launches)."""
+    from distributed_crawler_tpu_torch.ops.padding import (
+        BucketSpec,
+        bucket_for,
+        pack_batch,
+    )
+    from distributed_crawler_tpu_torch.utils import cudatime
+
+    spec = BucketSpec(tuple(sorted(buckets)))
+    groups = {}
+    for i, t in enumerate(toks):
+        groups.setdefault(bucket_for(len(t), spec), []).append(i)
+    gen = torch.Generator(device=device).manual_seed(0)
+    total, calls = 0.0, 0
+    for bucket, idx in sorted(groups.items()):
+        shape = (32, bucket, fcfg.n_heads, fcfg.head_dim)
+        q, k, v = (torch.randn(shape, generator=gen, device=device)
+                   for _ in range(3))
+        for start in range(0, len(idx), 32):
+            _, mask = pack_batch([toks[i] for i in idx[start:start + 32]],
+                                 BucketSpec((bucket,)), batch_pad_to=32)
+            m = torch.as_tensor(mask, device=device)
+            ms = cudatime.graph_time_ms(
+                lambda: attention.flash_attention(q, k, v, m), calls=10,
+                min_total_s=0.02)
+            total += ms * fcfg.n_layers
+            calls += fcfg.n_layers
+    return total, calls
+
+
+def f32_labels(torch, np, tm, fcfg, params, texts, tokenizer, device):
+    """The f32 trainer model's scores on ``texts`` (plain attention)."""
+    from distributed_crawler_tpu_torch.models.encoder import Classifier
+    from distributed_crawler_tpu_torch.models.from_jax import (
+        load_flax_params,
+    )
+    from distributed_crawler_tpu_torch.ops.padding import (
+        BucketSpec,
+        pack_batch,
+    )
+
+    model = Classifier(tm.train_config(fcfg, attention="xla"))
+    load_flax_params(model, params)
+    model = model.to(device).eval()
+    toks = tokenizer.encode_batch(texts)
+    scores = np.zeros((len(toks), fcfg.n_labels), np.float64)
+    with torch.no_grad(), tm.full_f32():
+        for start in range(0, len(toks), 64):
+            chunk = toks[start:start + 64]
+            ids, mask = pack_batch(chunk, BucketSpec(MAIN_BUCKETS))
+            logits = model(torch.as_tensor(ids, dtype=torch.long,
+                                           device=device),
+                           torch.as_tensor(mask, device=device))
+            scores[start:start + len(chunk)] = torch.softmax(
+                logits, -1).cpu().numpy()
+    del model
+    torch.cuda.empty_cache()
+    return scores
+
+
+def serve_trained(torch, np, tm, attention, fcfg, ckpt, vocab_names,
+                  records, true_labels, root, device, smi):
+    """`_build_tpu_worker` with --head-checkpoint and bf16 weights serving
+    the held-out posts: one row per post with its label name, sm90 only,
+    labels against the f32 trainer model's off a margin, accuracy."""
+    from distributed_crawler_tpu_torch import cli
+    from distributed_crawler_tpu_torch.bus import (
+        TOPIC_INFERENCE_BATCHES,
+        TOPIC_INFERENCE_RESULTS,
+        RecordBatch,
+    )
+    from distributed_crawler_tpu_torch.inference.checkpoint import (
+        latest_step_dir,
+        load_params,
+    )
+
+    store = os.path.join(root, "serve")
+    cfg, r = cli_resolve(["--mode", "tpu-worker", "--infer-model",
+                          "xlmr_base", "--infer-batch-size", str(BATCH),
+                          "--infer-param-dtype", "bfloat16",
+                          "--head-checkpoint", ckpt, "--storage-root", store,
+                          "--crawl-id", "smoke-train",
+                          "--worker-id", "chip-smoke-train"])
+    t0 = time.perf_counter()
+    worker = cli._build_tpu_worker(cfg, r)
+    build_s = time.perf_counter() - t0
+    engine = worker.engine
+    ecfg = engine.ecfg
+    check(engine.device.type == "cuda" and ecfg.dtype == "bfloat16"
+          and ecfg.n_labels == len(vocab_names)
+          and engine.label_names == list(vocab_names),
+          f"served engine {ecfg} labels {engine.label_names}")
+    worker.warmup()
+    frames = []
+    worker.bus.subscribe(TOPIC_INFERENCE_RESULTS, frames.append)
+    batches = [RecordBatch.from_records(records[i:i + BATCH],
+                                        crawl_id="smoke-train")
+               for i in range(0, len(records), BATCH)]
+    worker.start()
+    zero_launches(attention)
+    d0 = engine.m_latency.count
+    t_start = time.perf_counter()
+    try:
+        for b in batches:
+            worker.bus.publish(TOPIC_INFERENCE_BATCHES, b.to_dict())
+        deadline = time.monotonic() + 600
+        while len(frames) < len(batches) and time.monotonic() < deadline:
+            time.sleep(0.005)
+        t_end = time.perf_counter()
+        check(worker.drain(timeout_s=60.0), "trained worker did not drain")
+    finally:
+        worker.stop()
+        worker.bus.close()
+    launches = read_launches(attention)
+    dispatches = engine.m_latency.count - d0
+    check_sm90_only(launches, ecfg.n_layers, dispatches, "trained worker")
+    rows = result_rows(store, "smoke-train", batches)
+    check(len(rows) == len(records), f"{len(rows)} rows")
+    check(all(r.get("label_name") == vocab_names[r["label"]]
+              for r in rows), "a row without its label name")
+    texts = [t for b in batches for t in b.texts()]
+    tokenizer = engine.tokenizer
+    del worker, engine
+    torch.cuda.empty_cache()
+    params = load_params(latest_step_dir(ckpt))
+    scores = f32_labels(torch, np, tm, fcfg, params, texts, tokenizer,
+                        device)
+    top2 = np.sort(scores, axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > TRAIN_SERVE_MARGIN
+    served = np.asarray([r["label"] for r in rows])
+    want = scores.argmax(1)
+    agree = bool((served[clear] == want[clear]).all())
+    check(agree, f"served labels differ from the f32 model's on "
+                 f"{int((served[clear] != want[clear]).sum())} clear posts")
+    acc = float((served == np.asarray(true_labels)).mean())
+    check(acc >= TRAIN_MIN_ACCURACY, f"held-out accuracy {acc}")
+    posts_s = len(rows) / (t_end - t_start)
+    emit("times.train", step="serve", posts=len(rows),
+         seconds=t_end - t_start, posts_per_s=posts_s, build_s=build_s,
+         card=smi)
+    return {"launches": launches, "dispatches": dispatches,
+            "rows": len(rows), "accuracy": acc,
+            "labels_compared": int(clear.sum()),
+            "label_margin": TRAIN_SERVE_MARGIN}
+
+
+def phase_train(torch, np, attention, device, seed, smi):
+    """Phase 13: train-head (head, LoRA, full) on the card through the
+    CLI at XLM-R-base's published widths, and the checkpoint served."""
+    import math
+
+    from distributed_crawler_tpu_torch.inference import checkpoint as ck
+    from distributed_crawler_tpu_torch.inference.engine import (
+        EngineConfig,
+        InferenceEngine,
+    )
+    from distributed_crawler_tpu_torch.inference.tokenizer import (
+        HashingTokenizer,
+    )
+    from distributed_crawler_tpu_torch.models import lora as lora_mod
+    from distributed_crawler_tpu_torch.models import train as tm
+    from distributed_crawler_tpu_torch.models.from_jax import (
+        flatten_tree,
+        nest_tree,
+    )
+    from distributed_crawler_tpu_torch.models.hf_convert import (
+        load_hf_encoder,
+    )
+    from distributed_crawler_tpu_torch.ops.padding import (
+        BucketSpec,
+        bucket_for,
+    )
+    from distributed_crawler_tpu_torch.utils.metrics import MetricsRegistry
+
+    t_phase = time.perf_counter()
+    work = tempfile.TemporaryDirectory(prefix="train_")
+    root = work.name
+    hf = os.path.join(root, "xlmr")
+    os.makedirs(hf)
+    with open(os.path.join(hf, "config.json"), "w") as f:
+        json.dump(XLMR_HF_CONFIG, f)
+    write_safetensors(os.path.join(hf, "model.safetensors"),
+                      xlmr_state(np, seed))
+    ecfg, tree = load_hf_encoder(hf, arch="embedder_classifier",
+                                 n_labels=None)
+    fcfg = replace(ecfg, dtype="float32")
+    check((fcfg.vocab_size, fcfg.hidden, fcfg.n_layers, fcfg.n_heads,
+           fcfg.mlp_dim, fcfg.n_labels) == (250002, 768, 12, 12, 3072, 4),
+          f"not XLM-R-base's published widths: {fcfg}")
+
+    vocab = train_vocab(np, seed)
+    records, labels = train_posts(np, np.random.default_rng(seed + 131),
+                                  vocab, TRAIN_POSTS, 0)
+    posts_file = os.path.join(root, "posts.jsonl")
+    labels_file = os.path.join(root, "labels.jsonl")
+    with open(posts_file, "w") as f, open(labels_file, "w") as g:
+        for rec, c in zip(records, labels):
+            f.write(json.dumps({"post_uid": rec["post_uid"],
+                                "all_text": rec["description"]}) + "\n")
+            g.write(json.dumps({"post_uid": rec["post_uid"],
+                                "label": TRAIN_LABELS[c]}) + "\n")
+    names = sorted(TRAIN_LABELS)
+    label_ids = [names.index(TRAIN_LABELS[c]) for c in labels]
+    tokenizer = HashingTokenizer(fcfg.vocab_size)
+    toks = tokenizer.encode_batch([r["description"] for r in records])
+    buckets = tuple(cli_resolve(["--mode", "train-head"])[0]
+                    .inference.bucket_sizes)
+    env = {"CRAWLER_INFERENCE_PRETRAINED_DIR": hf}
+    base = ["--mode", "train-head", "--infer-model", "xlmr_base",
+            "--train-posts", posts_file, "--train-labels", labels_file,
+            "--storage-root", os.path.join(root, "store")]
+    emit("train.data", posts=len(records), classes=len(names),
+         tokens_min=min(map(len, toks)), tokens_max=max(map(len, toks)),
+         setup_s=time.perf_counter() - t_phase)
+    main_launches = dict.fromkeys(attention.PATHS, 0)
+
+    # (a) head scope: 20 epochs at the CLI's defaults.
+    ckpt_head = os.path.join(root, "ckpt_head")
+    head, head_s, launches, head_mem = train_run(
+        torch, attention, base + ["--head-checkpoint", ckpt_head], env)
+    spec = BucketSpec(buckets)
+    per_bucket = {}
+    for t in toks:
+        b = bucket_for(len(t), spec)
+        per_bucket[b] = per_bucket.get(b, 0) + 1
+    batch = min(32, max(8, len(toks)))
+    want_simt = fcfg.n_layers * sum(-(-n // batch)
+                                    for n in per_bucket.values())
+    check(launches == {"sm90": 0, "mma_sync": 0, "simt": want_simt},
+          f"head scope launches {launches}, expected {want_simt} simt")
+    main_launches["simt"] += launches["simt"]
+    check(head["trained_examples"] == TRAIN_POSTS and head["n_labels"] == 4
+          and head["final_loss"] < math.log(4),
+          f"head scope summary {head}")
+    saved = flatten_tree(ck.load_params(head["checkpoint"])["params"]
+                         ["encoder"])
+    base_enc = flatten_tree(tree["params"]["encoder"])
+    enc_same = saved.keys() == base_enc.keys() and all(
+        np.array_equal(v, base_enc[k]) for k, v in saved.items())
+    check(enc_same, "head scope changed the frozen encoder")
+    with open(os.path.join(ckpt_head, "labels.json")) as f:
+        check(json.load(f)["labels"] == names, "labels.json vocabulary")
+    emit("train.head", summary=head, seconds=head_s,
+         kernel_launches_by_path=launches, peak_mem_bytes=head_mem,
+         card=smi)
+    features, feature_row = check_features(
+        torch, np, tm, attention, fcfg, tree, toks, buckets, device, smi)
+    emit("train.features", **features)
+
+    # (b) LoRA scope: rank 8, 2 epochs; no kernel launches.
+    ckpt_lora = os.path.join(root, "ckpt_lora")
+    lora, lora_s, launches, lora_mem = train_run(
+        torch, attention, base + ["--head-checkpoint", ckpt_lora,
+                                  "--train-scope", "lora",
+                                  "--train-lora-rank", "8",
+                                  "--train-epochs", "2"], env)
+    check(launches == dict.fromkeys(attention.PATHS, 0),
+          f"lora scope launched {launches}")
+    merged = ck.load_params(lora["checkpoint"])
+    moved = not np.allclose(
+        merged["params"]["encoder"]["layers_0"]["attn"]["qkv/kernel"],
+        tree["params"]["encoder"]["layers_0"]["attn"]["qkv/kernel"])
+    check(moved, "lora scope left the encoder's kernels as they were")
+    eng = InferenceEngine(EngineConfig(
+        model="xlmr_base", checkpoint_dir=ckpt_lora, param_dtype="bfloat16",
+        batch_size=64, buckets=MAIN_BUCKETS), registry=MetricsRegistry())
+    held, held_labels = train_posts(np, np.random.default_rng(seed + 132),
+                                    vocab, TRAIN_SERVE_POSTS, 10_000)
+    out = eng.run([r["description"] for r in held[:64]])
+    check(len(out) == 64 and all(
+        r["label_name"] == names[r["label"]]
+        and np.isfinite(r["scores"]).all() for r in out),
+        "the LoRA checkpoint did not serve")
+    del eng
+    torch.cuda.empty_cache()
+    emit("train.lora", summary=lora, seconds=lora_s,
+         kernel_launches_by_path=launches, peak_mem_bytes=lora_mem,
+         served=len(out), card=smi)
+
+    # (c) full scope: 2 epochs with --train-grad-accum 2, stopped after
+    # epoch 1 and resumed, against an uninterrupted run.
+    full = ["--train-scope", "full", "--train-grad-accum", "2"]
+    sd1, sd2 = os.path.join(root, "state1"), os.path.join(root, "state2")
+    ckpt_full = os.path.join(root, "ckpt_full")
+    ckpt_straight = os.path.join(root, "ckpt_straight")
+    runs = {}
+    for name, argv in (
+            ("first_epoch", full + ["--train-epochs", "1",
+                                    "--train-state-dir", sd1,
+                                    "--head-checkpoint", ckpt_full]),
+            ("resumed", full + ["--train-epochs", "2",
+                                "--train-state-dir", sd1,
+                                "--head-checkpoint", ckpt_full]),
+            ("straight", full + ["--train-epochs", "2",
+                                 "--train-state-dir", sd2,
+                                 "--head-checkpoint", ckpt_straight])):
+        summary, seconds, launches, mem = train_run(
+            torch, attention, base + argv, env)
+        check(launches == dict.fromkeys(attention.PATHS, 0),
+              f"full scope ({name}) launched {launches}")
+        runs[name] = {"summary": summary, "seconds": seconds,
+                      "peak_mem_bytes": mem}
+    check(sorted(os.listdir(sd1)) == ["epoch_1"], f"state dir {sd1}: "
+          f"{sorted(os.listdir(sd1))}")
+    hist = {}
+    for name, sd in (("resumed", sd1), ("straight", sd2)):
+        with open(os.path.join(sd, "epoch_1", "history.json")) as f:
+            hist[name] = [h["loss"] for h in json.load(f)["history"]]
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(hist["resumed"], hist["straight"]))
+    check(len(hist["resumed"]) == 2 and loss_rel <= TRAIN_RESUME_LOSS_RTOL,
+          f"resumed losses {hist['resumed']} vs {hist['straight']}")
+    resumed = flatten_tree(ck.load_params(
+        runs["resumed"]["summary"]["checkpoint"])["params"])
+    straight = flatten_tree(ck.load_params(
+        runs["straight"]["summary"]["checkpoint"])["params"])
+    start = flatten_tree(tree["params"])
+    diff = max(float(np.abs(resumed[k] - straight[k]).max())
+               for k in straight)
+    movement = max(float(np.abs(straight[k] - start[k]).max())
+                   for k in straight)
+    check(movement > 0 and diff <= TRAIN_RESUME_PARAM_SHARE * movement,
+          f"resumed weights off the uninterrupted run's by {diff} "
+          f"(largest movement {movement})")
+    t0 = time.perf_counter()
+    _, st_params, st_opt, _ = ck.load_train_state(
+        ck.latest_train_state(sd2))
+    state_read_s = time.perf_counter() - t0
+    state_bytes = os.path.getsize(os.path.join(sd2, "epoch_1",
+                                               ck.PARAMS_FILE))
+    t0 = time.perf_counter()
+    ck.save_train_state(os.path.join(root, "state3"), 0, st_params, st_opt,
+                        [])
+    state_write_s = time.perf_counter() - t0
+    del st_params, st_opt
+    t0 = time.perf_counter()
+    params_bytes = ck.save_params(os.path.join(root, "copy"), {
+        "params": nest_tree(resumed)})
+    params_write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ck.load_params(os.path.join(root, "copy"))
+    params_read_s = time.perf_counter() - t0
+    emit("train.full", runs=runs, loss_history=hist, loss_max_rel=loss_rel,
+         weights_max_abs_diff=diff, largest_movement=movement,
+         tol=[TRAIN_RESUME_LOSS_RTOL, TRAIN_RESUME_PARAM_SHARE], card=smi)
+    emit("times.train", step="checkpoint", params_bytes=params_bytes,
+         params_write_s=params_write_s, params_read_s=params_read_s,
+         train_state_bytes=state_bytes, train_state_write_s=state_write_s,
+         train_state_read_s=state_read_s, card=smi)
+    del resumed, straight, merged, saved
+
+    step_cpu = check_step_vs_cpu(torch, np, tm, fcfg, tree, toks, label_ids,
+                                 device)
+    emit("train.step_vs_cpu", **step_cpu)
+    ids, mask, y = tm.prepare_finetune_arrays(fcfg, toks, label_ids, 1)
+    step_rows = train_step_times(torch, np, tm, lora_mod, fcfg, tree, ids,
+                                 mask, y, device, smi)
+
+    # (d) the head checkpoint served in bf16 through the CLI's worker.
+    served = serve_trained(torch, np, tm, attention, fcfg, ckpt_head, names,
+                           held, [names.index(TRAIN_LABELS[c])
+                                  for c in held_labels], root, device, smi)
+    main_launches["sm90"] += served["launches"]["sm90"]
+    emit("train.serve", **served)
+    emit("times.train", step="cli", head_s=head_s, lora_s=lora_s,
+         full_s={k: v["seconds"] for k, v in runs.items()},
+         peak_mem_bytes={"head": head_mem, "lora": lora_mem,
+                         **{f"full_{k}": v["peak_mem_bytes"]
+                            for k, v in runs.items()}},
+         card=smi)
+    work.cleanup()
+    emit("slice.train", seconds=time.perf_counter() - t_phase,
+         kernel_launches_by_path=main_launches,
+         feature_posts_per_s=feature_row["posts_per_s"],
+         step_ms={r["scope"]: r["ms"] for r in step_rows})
+    return {"launches": main_launches}
+
 
 KERNEL_SOURCES = {"sm90": "flash_attention_sm90.cu",
                   "mma_sync": "flash_attention.cu",
@@ -4620,8 +5291,10 @@ def main() -> int:
     cli_ = phase_cli(torch, np, attention, device, work.name, args.seed, smi,
                      e5, asr)
     work.cleanup()
+    train = phase_train(torch, np, attention, device, args.seed, smi)
     launches = {p: sum(ph["launches"][p]
-                       for ph in (e5, tiny, xlmr, asr, clus, moe, ops, cli_))
+                       for ph in (e5, tiny, xlmr, asr, clus, moe, ops, cli_,
+                                  train))
                 for p in attention.PATHS}
     print(json.dumps({"kernels": [
         kernel_entry(path, rows, worst, launches)

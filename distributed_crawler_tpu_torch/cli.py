@@ -13,6 +13,9 @@ on the card and the broker between processes:
   file;
 - ``cluster``: k-means `fit` over embedding rows, or text rows embedded on
   the fly;
+- ``train-head``: fine-tune the classifier (head, LoRA or full scope) on
+  a crawl's posts and labels into a port checkpoint, which ``tpu-worker
+  --head-checkpoint`` serves;
 - ``bus``: a dedicated gRPC broker.
 
 The flags, their ``CRAWLER_*`` environment variables and the YAML config
@@ -43,10 +46,10 @@ logger = logging.getLogger("dct.cli")
 
 VERSION = "distributed_crawler_tpu_torch v0.1.0"
 DEVICE_MODES = ("tpu-worker", "asr-worker", "cluster-worker", "transcribe",
-                "cluster", "bus")
-# The reference CLI's other modes: the crawler's half, and training.
+                "cluster", "train-head", "bus")
+# The reference CLI's other modes: the crawler's half.
 CRAWLER_MODES = ("standalone", "launch", "orchestrator", "worker", "job",
-                 "job-submit", "train-head", "dc-gateway", "gen-code")
+                 "job-submit", "dc-gateway", "gen-code")
 _WORKER_MODES = ("tpu-worker", "asr-worker", "cluster-worker")
 
 
@@ -64,7 +67,7 @@ def build_parser() -> argparse.ArgumentParser:
     a("--log-json", action="store_const", const=True, default=None)
     a("--mode", default=None,
       help="tpu-worker | asr-worker | cluster-worker | transcribe | "
-           "cluster | bus (the crawler's modes run from "
+           "cluster | train-head | bus (the crawler's modes run from "
            "distributed_crawler_tpu.cli)")
     a("--worker-id", default=None, help="worker identifier (worker modes)")
     a("--storage-root", default=None)
@@ -168,8 +171,32 @@ def build_parser() -> argparse.ArgumentParser:
       help="cast float params at engine startup (e.g. bfloat16)")
     a("--infer-quantize", default=None,
       help="quantize the projection GEMMs ('int8' | 'int8_static')")
+    # Classifier fine-tune (mode=train-head): crawl JSONL + labels -> a
+    # port checkpoint the engine reloads via --head-checkpoint.
+    a("--train-posts", default=None,
+      help="crawl posts JSONL (train-head mode)")
+    a("--train-lora-rank", type=int, default=None,
+      help="0 (default) fine-tunes only the classifier head on the frozen "
+           "encoder; >0 additionally trains rank-N LoRA adapters on the "
+           "projection GEMMs and saves the merged float checkpoint")
+    a("--train-scope", default=None, choices=["head", "lora", "full"],
+      help="what to train: head (frozen-encoder features, default), "
+           "lora (rank from --train-lora-rank), or full (every encoder "
+           "weight: AdamW+warmup+clipping, MoE aux loss, "
+           "--train-grad-accum microbatching)")
+    a("--train-grad-accum", type=int, default=None,
+      help="gradient-accumulation microbatch count for --train-scope "
+           "full (1 = off)")
+    a("--train-state-dir", default=None,
+      help="--train-scope full: checkpoint params+optimizer state per "
+           "epoch here and RESUME from the newest epoch on restart")
+    a("--train-labels", default=None,
+      help='labels JSONL: {"post_uid": ..., "label": int|str} per line')
     a("--head-checkpoint", default=None,
-      help="classifier checkpoint dir (not ported: training waits)")
+      help="classifier checkpoint dir (written by train-head, read by "
+           "tpu-worker)")
+    a("--train-epochs", type=int, default=None)
+    a("--train-lr", type=float, default=None)
     a("--cluster-input", default=None,
       help="JSONL rows with an 'embedding' field or text fields "
            "(embedded on the fly)")
@@ -249,7 +276,15 @@ _KEY_MAP = {
     "asr_window_buckets": "media.window_buckets",
     "asr_max_windows_per_file": "media.max_windows_per_file",
     "slo_asr_batch_p95_ms": "observability.slo_asr_batch_p95_ms",
+    "train_posts": "train.posts_file",
+    "train_labels": "train.labels_file",
+    "train_lora_rank": "train.lora_rank",
+    "train_scope": "train.scope",
+    "train_grad_accum": "train.grad_accum_steps",
+    "train_state_dir": "train.state_dir",
     "head_checkpoint": "train.checkpoint_dir",
+    "train_epochs": "train.epochs",
+    "train_lr": "train.learning_rate",
     "cluster_input": "cluster.input_file",
     "cluster_k": "cluster.k",
     "cluster_iters": "cluster.iters",
@@ -386,6 +421,8 @@ def main(argv: Optional[List[str]] = None, env=None,
             return _run_transcribe(cfg, r, device=device)
         elif mode == "cluster":
             return _run_cluster(cfg, r, device=device)
+        elif mode == "train-head":
+            return _run_train_head(cfg, r, device=device)
         else:
             return _run_bus(r)
     except CliConfigError as e:
@@ -399,13 +436,9 @@ def main(argv: Optional[List[str]] = None, env=None,
 
 def _not_a_device_mode(mode: str) -> str:
     if mode in CRAWLER_MODES or not mode:
-        msg = (f"--mode {mode or 'standalone'} runs from "
-               f"distributed_crawler_tpu.cli (the JAX package's CLI); "
-               f"this CLI runs the device modes {', '.join(DEVICE_MODES)}")
-        if mode == "train-head":
-            msg += ("; training on the card waits for ROADMAP item 8 "
-                    "(training and checkpoints)")
-        return msg
+        return (f"--mode {mode or 'standalone'} runs from "
+                f"distributed_crawler_tpu.cli (the JAX package's CLI); "
+                f"this CLI runs the device modes {', '.join(DEVICE_MODES)}")
     return f"unknown execution mode: {mode}"
 
 
@@ -629,31 +662,38 @@ def _check_serve_address(r: ConfigResolver) -> None:
 # -- engines and workers ----------------------------------------------------
 
 def _make_engine(cfg: CrawlerConfig, r: ConfigResolver,
-                 with_checkpoint: bool = False, with_mesh: bool = False,
-                 device=None):
-    """One engine-wiring path for tpu-worker and cluster."""
+                 n_labels: Optional[int] = None,
+                 with_checkpoint: bool = False, cast_params: bool = True,
+                 with_mesh: bool = False, device=None):
+    """One engine-wiring path for tpu-worker, train-head and cluster.
+
+    ``cast_params=False`` (train-head) ignores ``inference.param_dtype``,
+    ``quantize``, ``attention`` and ``moe_dispatch`` and builds the model
+    in f32, so the trainer starts from, and saves, full-precision weights
+    even when the same config serves bf16 or int8; the trainer builds its
+    own plain-attention model for the scopes it differentiates."""
     from .inference.engine import EngineConfig, InferenceEngine
 
     if with_mesh:
         _refuse_mesh(cfg)
-    if with_checkpoint and r.get_str("train.checkpoint_dir"):
-        raise CliConfigError(
-            "--head-checkpoint (train.checkpoint_dir) waits for ROADMAP "
-            "item 8 (training and checkpoints): the port has no "
-            "checkpoint format yet; serve a --config inference."
-            "pretrained_dir instead")
     inf = cfg.inference
-    ecfg = EngineConfig(
+    kw = dict(
         model=inf.embed_model.replace("-", "_"),
         batch_size=inf.batch_size,
         buckets=tuple(inf.bucket_sizes),
-        pretrained_dir=inf.pretrained_dir or None,
-        param_dtype=inf.param_dtype or None,
-        quantize=inf.quantize or None,
-        attention=inf.attention or None,
-        moe_dispatch=inf.moe_dispatch or None)
+        pretrained_dir=inf.pretrained_dir or None)
+    if cast_params:
+        kw.update(param_dtype=inf.param_dtype or None,
+                  quantize=inf.quantize or None,
+                  attention=inf.attention or None,
+                  moe_dispatch=inf.moe_dispatch or None)
+    if n_labels is not None:
+        kw["n_labels"] = n_labels
+    if with_checkpoint:
+        kw["checkpoint_dir"] = r.get_str("train.checkpoint_dir") or None
     try:
-        return InferenceEngine(ecfg, device=device)
+        return InferenceEngine(EngineConfig(**kw), device=device,
+                               dtype=None if cast_params else "float32")
     except ValueError as e:
         if inf.attention != "xla":
             raise
@@ -897,6 +937,182 @@ def _run_transcribe(cfg: CrawlerConfig, r: ConfigResolver,
     print(json.dumps({"transcribed": len(results) - failed,
                       "failed": failed, "output": out_path}))
     return 0 if len(results) > failed else 1
+
+
+def _run_train_head(cfg: CrawlerConfig, r: ConfigResolver,
+                    device=None) -> int:
+    """mode=train-head: crawl JSONL + labels file -> fine-tuned classifier
+    (head, LoRA or full scope) -> a port checkpoint (``step_N`` under
+    --head-checkpoint, plus a ``labels.json`` vocabulary for string
+    labels) that ``tpu-worker --head-checkpoint`` serves.  Every check,
+    message and exit code is the reference's; so is the summary line.
+
+    Labels file: one JSON object per line, ``{"post_uid": ..., "label":
+    X}``, X an int class id or a string class name (a sorted vocabulary
+    is built and saved for string labels)."""
+    import json
+
+    from .inference.checkpoint import latest_step_dir, save_params
+    from .models.train import TrainConfig, finetune_head
+
+    posts_file = r.get_str("train.posts_file")
+    labels_file = r.get_str("train.labels_file")
+    ckpt_dir = r.get_str("train.checkpoint_dir")
+    if not (posts_file and labels_file and ckpt_dir):
+        print("error: train-head needs --train-posts, --train-labels and "
+              "--head-checkpoint", file=sys.stderr)
+        return 2
+
+    texts: dict = {}
+    with open(posts_file, "r", encoding="utf-8") as f:
+        for line in f:
+            if not line.strip():
+                continue
+            row = json.loads(line)
+            text = row.get("all_text") or row.get("description") or ""
+            if row.get("post_uid") and text:
+                texts[row["post_uid"]] = text
+
+    raw_labels: list = []
+    with open(labels_file, "r", encoding="utf-8") as f:
+        for line in f:
+            if not line.strip():
+                continue
+            row = json.loads(line)
+            if row.get("post_uid") in texts:
+                raw_labels.append((row["post_uid"], row["label"]))
+    if not raw_labels:
+        print("error: no labelled posts matched the crawl file",
+              file=sys.stderr)
+        return 2
+
+    values = [lbl for _, lbl in raw_labels]
+    str_count = sum(isinstance(v, str) for v in values)
+    if str_count and str_count != len(values):
+        # One stray string would remap every int id through string-sort
+        # order: refuse instead.
+        print("error: labels file mixes string and integer labels; "
+              "use one kind consistently", file=sys.stderr)
+        return 2
+    if str_count:
+        vocab = sorted({str(v) for v in values})
+        index = {name: i for i, name in enumerate(vocab)}
+        pairs = [(uid, index[str(v)]) for uid, v in raw_labels]
+    else:
+        vocab = None
+        pairs = [(uid, int(v)) for uid, v in raw_labels]
+        if any(lbl < 0 for _, lbl in pairs):
+            print("error: negative label ids are not valid classes "
+                  "(drop unlabeled rows instead of marking them -1)",
+                  file=sys.stderr)
+            return 2
+    n_labels = (len(vocab) if vocab is not None
+                else max(lbl for _, lbl in pairs) + 1)
+
+    engine = _make_engine(cfg, r, n_labels=n_labels, cast_params=False,
+                          device=device)
+
+    token_lists = engine.tokenizer.encode_batch(
+        [texts[uid] for uid, _ in pairs])
+    labels = [lbl for _, lbl in pairs]
+    epochs = r.get_int("train.epochs", 20)
+    if epochs < 1:
+        print("error: --train-epochs must be >= 1", file=sys.stderr)
+        return 2
+    lora_rank = r.get_int("train.lora_rank", 0)
+    if lora_rank < 0:
+        print(f"error: --train-lora-rank must be >= 0, got {lora_rank}",
+              file=sys.stderr)
+        return 2
+    # An explicit --train-scope wins; else a positive rank means lora.
+    scope = r.get_str("train.scope") or ("lora" if lora_rank > 0
+                                         else "head")
+    if scope not in ("head", "lora", "full"):
+        print(f"error: train.scope must be head|lora|full, got {scope!r}",
+              file=sys.stderr)
+        return 2
+    if scope == "lora" and lora_rank <= 0:
+        print("error: --train-scope lora needs --train-lora-rank > 0",
+              file=sys.stderr)
+        return 2
+    if scope != "lora" and lora_rank > 0:
+        print(f"error: --train-lora-rank conflicts with --train-scope "
+              f"{scope}", file=sys.stderr)
+        return 2
+    grad_accum = r.get_int("train.grad_accum_steps", 1)
+    if grad_accum < 1:
+        print(f"error: --train-grad-accum must be >= 1, got {grad_accum}",
+              file=sys.stderr)
+        return 2
+    if grad_accum > 1 and scope != "full":
+        print(f"error: --train-grad-accum applies to --train-scope full "
+              f"only (scope is {scope})", file=sys.stderr)
+        return 2
+    state_dir = r.get_str("train.state_dir")
+    if state_dir and scope != "full":
+        print(f"error: --train-state-dir applies to --train-scope full "
+              f"only (scope is {scope})", file=sys.stderr)
+        return 2
+    dev = engine.device
+    params = engine.params
+    if scope == "lora":
+        from .models.lora import finetune_lora
+
+        tc = TrainConfig(
+            learning_rate=r.get_float("train.learning_rate", 1e-4),
+            warmup_steps=10)
+        params, history = finetune_lora(
+            engine.ecfg, params, token_lists, labels,
+            rank=lora_rank, tc=tc, epochs=epochs,
+            batch_size=min(16, max(4, len(labels))), device=dev)
+    elif scope == "full":
+        from .models.train import finetune_full
+
+        batch = min(16, max(4, len(labels)))
+        # Accumulation splits each batch; keep microbatches non-empty.
+        grad_accum = min(grad_accum, batch)
+        batch -= batch % grad_accum
+        tc = TrainConfig(
+            learning_rate=r.get_float("train.learning_rate", 2e-5),
+            warmup_steps=10, grad_accum_steps=grad_accum)
+        params, history = finetune_full(
+            engine.ecfg, params, token_lists, labels, tc=tc,
+            epochs=epochs, batch_size=batch,
+            state_dir=state_dir or None, device=dev)
+    else:
+        tc = TrainConfig(
+            learning_rate=r.get_float("train.learning_rate", 1e-3),
+            warmup_steps=10)
+        params, history = finetune_head(
+            engine.ecfg, params, token_lists, labels, tc=tc,
+            epochs=epochs, batch_size=min(32, max(8, len(labels))),
+            buckets=tuple(cfg.inference.bucket_sizes), device=dev)
+
+    # Monotonic step numbering: retraining into the same dir always makes
+    # the new latest step, whatever the epoch counts.
+    prior = latest_step_dir(ckpt_dir)
+    next_step = (int(os.path.basename(prior).split("_", 1)[1]) + 1
+                 if prior else 1)
+    step_dir = os.path.join(ckpt_dir, f"step_{next_step}")
+    save_params(step_dir, params)
+    vocab_path = os.path.join(ckpt_dir, "labels.json")
+    if vocab is not None:
+        with open(vocab_path, "w", encoding="utf-8") as f:
+            json.dump({"labels": vocab}, f)
+    elif os.path.exists(vocab_path):
+        # An integer-label retrain: the old names no longer describe this
+        # head.
+        os.remove(vocab_path)
+    print(json.dumps({
+        "trained_examples": len(labels),
+        "n_labels": n_labels,
+        "epochs": epochs,
+        "lora_rank": lora_rank,
+        "final_loss": history[-1]["loss"],
+        "final_accuracy": history[-1]["accuracy"],
+        "checkpoint": step_dir,
+    }))
+    return 0
 
 
 def _read_cluster_rows(path: str):

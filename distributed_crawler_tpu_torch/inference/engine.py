@@ -12,7 +12,9 @@ on that event only.  The engine runs on ``cuda`` unless the caller passes
 ``device="cpu"``.
 
 The weights start as the reference's flax-layout tree of f32 numpy arrays —
-from a local HF checkpoint (``pretrained_dir``), from the caller
+from a fine-tuned port checkpoint (``checkpoint_dir``, whose head width and
+``labels.json`` vocabulary the engine takes, ``label_name`` joining the
+results), a local HF checkpoint (``pretrained_dir``), the caller
 (``params``), or drawn from a seeded ``torch.Generator`` — then go through
 ``param_dtype`` and ``quantize`` as the reference's do, and are loaded
 last.  Two draws cannot follow JAX's PRNG; each is a module-level function
@@ -75,13 +77,6 @@ MODEL_REGISTRY: Dict[str, EncoderConfig] = {
     "tiny": TINY_TEST,
 }
 
-# EngineConfig fields of features that are not ported yet: setting one
-# raises instead of being silently ignored.  ``checkpoint_dir`` waits for
-# the training slice, which defines the port's checkpoints (the
-# reference's are orbax OCDBT stores, which need orbax and JAX to read).
-_WAITING_FIELDS = ("checkpoint_dir",)
-
-
 @dataclass(frozen=True)
 class EngineConfig:
     model: str = "e5_small"
@@ -94,7 +89,8 @@ class EngineConfig:
     param_dtype: Optional[str] = None
     quantize: Optional[str] = None
     # "auto" | "flash" | "xla".  On the card attention is always the CUDA
-    # kernel, so "xla" (the plain version) is refused there.
+    # kernel, so "xla" (the plain version) is refused there; only the
+    # trainer builds such a model.
     attention: Optional[str] = None
     moe_dispatch: Optional[str] = None
     # Per-row segment bound for packed runs: packed results come back as a
@@ -115,23 +111,23 @@ class InferenceEngine:
     """Tokenize -> bucket -> fused embed+classify on the device -> host
     results.  ``params`` is the reference's flax param tree as numpy arrays
     (`models/from_jax.py`); without it the weights come from
-    ``cfg.pretrained_dir`` or are drawn from a ``torch.Generator`` seeded
-    with ``cfg.seed``."""
+    ``cfg.checkpoint_dir`` (a port checkpoint, `inference/checkpoint.py`),
+    ``cfg.pretrained_dir``, or are drawn from a ``torch.Generator`` seeded
+    with ``cfg.seed``.  ``dtype`` replaces the model's activation dtype
+    (the trainer's engine is ``"float32"``, so `params` reads its f32
+    weights back exactly)."""
 
     def __init__(self, cfg: EngineConfig,
                  mesh=None,
                  params: Optional[Any] = None,
                  tokenizer: Optional[Tokenizer] = None,
                  registry: MetricsRegistry = REGISTRY,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 dtype: Optional[str] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         if mesh is not None:
             raise NotImplementedError("multi-device serving is not ported yet")
-        for name in _WAITING_FIELDS:
-            if getattr(cfg, name):
-                raise NotImplementedError(
-                    f"EngineConfig.{name} is not ported yet")
         # Validated before any checkpoint I/O, as the reference does.
         if cfg.attention and cfg.attention not in ("auto", "xla", "flash"):
             raise ValueError(f"unknown attention mode {cfg.attention!r}")
@@ -154,6 +150,22 @@ class InferenceEngine:
             self.ecfg = replace(self.ecfg, attention=cfg.attention)
         if cfg.moe_dispatch:
             self.ecfg = replace(self.ecfg, moe_dispatch=cfg.moe_dispatch)
+        if dtype:
+            self.ecfg = replace(self.ecfg, dtype=dtype)
+        self.label_names: Optional[List[str]] = None
+        if cfg.checkpoint_dir:
+            # The checkpoint's own head width wins; its hidden size must be
+            # the model's.
+            params = self._restore_checkpoint(cfg.checkpoint_dir)
+            head = params["params"]["cls_head"]
+            pooler_in = int(head["pooler"]["kernel"].shape[0])
+            if pooler_in != self.ecfg.hidden:
+                raise ValueError(
+                    f"checkpoint at {cfg.checkpoint_dir} was trained on a "
+                    f"hidden={pooler_in} encoder but the engine model "
+                    f"{cfg.model!r} has hidden={self.ecfg.hidden}")
+            self.ecfg = replace(
+                self.ecfg, n_labels=int(head["head"]["bias"].shape[0]))
         self._rows = cfg.batch_size
         self.n_devices = 1
         self.tokenizer = tokenizer or HashingTokenizer(self.ecfg.vocab_size)
@@ -222,6 +234,36 @@ class InferenceEngine:
             self.ecfg = replace(self.ecfg, quant=cfg.quantize)
             self.ecfg.validate()
         return self._load(self.ecfg, tree, embed_dtype)
+
+    def _restore_checkpoint(self, root: str) -> Any:
+        """The fine-tuned tree of the newest ``step_N`` under ``root`` (or
+        of ``root`` itself), legacy split q/k/v fused, and the label
+        vocabulary (``labels.json`` at the root or in the step) when the
+        trainer saved one."""
+        import json
+        import os
+
+        from .checkpoint import latest_step_dir, load_params
+
+        path = latest_step_dir(root) or root
+        params = _migrate_split_qkv(load_params(path))
+        for cand in (os.path.join(root, "labels.json"),
+                     os.path.join(path, "labels.json")):
+            if os.path.exists(cand):
+                with open(cand, "r", encoding="utf-8") as f:
+                    self.label_names = json.load(f)["labels"]
+                break
+        return params
+
+    @property
+    def params(self) -> Dict[str, Any]:
+        """The served weights as a flax tree of numpy arrays (exactly the
+        loaded f32 values when the model is f32)."""
+        return flax_tree(self.model)
+
+    @params.setter
+    def params(self, tree: Any) -> None:
+        load_flax_params(self.model, tree)
 
     def _load(self, ecfg: EncoderConfig, tree: Any,
               embed_dtype: torch.dtype) -> EmbedderClassifier:
@@ -367,14 +409,17 @@ class InferenceEngine:
                 bucket_for(len(toks), self.bucket_spec), []).append(i)
         return groups
 
-    @staticmethod
-    def _result(emb_row: np.ndarray, logits_row: np.ndarray,
+    def _result(self, emb_row: np.ndarray, logits_row: np.ndarray,
                 scores_row: np.ndarray) -> Dict[str, Any]:
-        return {
+        label = int(np.argmax(logits_row))
+        out = {
             "embedding": emb_row.tolist(),
-            "label": int(np.argmax(logits_row)),
+            "label": label,
             "scores": scores_row.tolist(),
         }
+        if self.label_names and label < len(self.label_names):
+            out["label_name"] = self.label_names[label]
+        return out
 
     def _run_unpacked(self, token_lists: Sequence[List[int]]
                       ) -> List[Dict[str, Any]]:
@@ -428,9 +473,14 @@ class InferenceEngine:
         uniform = [1.0 / self.ecfg.n_labels] * self.ecfg.n_labels
         out: List[Dict[str, Any]] = []
         for t in token_lists:
-            out.append(next(it) if t else {
-                "embedding": [0.0] * self.ecfg.hidden,
-                "label": 0, "scores": list(uniform)})
+            if t:
+                out.append(next(it))
+                continue
+            r: Dict[str, Any] = {"embedding": [0.0] * self.ecfg.hidden,
+                                 "label": 0, "scores": list(uniform)}
+            if self.label_names:
+                r["label_name"] = self.label_names[0]
+            out.append(r)
         return out
 
     def _run_packed(self, token_lists: Sequence[List[int]]
@@ -601,6 +651,29 @@ def _load_pretrained(cfg: EngineConfig, params: Optional[Any],
                 "HashingTokenizer", path, e)
             tokenizer = None
     return ecfg, params, tokenizer
+
+
+def _migrate_split_qkv(params: Any) -> Any:
+    """Fuse legacy per-projection attention params on checkpoint load:
+    ``attn/{q,k,v}`` trees become ``qkv/kernel`` [h, 3, h] and
+    ``qkv/bias`` [3, h], as the reference's engine does."""
+    enc = params.get("params", {}).get("encoder")
+    if not isinstance(enc, dict):
+        return params
+    for name, layer in enc.items():
+        if not name.startswith("layers_") or "attn" not in layer:
+            continue
+        attn = layer["attn"]
+        if "qkv/kernel" in attn or "q" not in attn:
+            continue
+        q, k, v = attn.pop("q"), attn.pop("k"), attn.pop("v")
+        attn["qkv/kernel"] = np.stack(
+            [np.asarray(q["kernel"]), np.asarray(k["kernel"]),
+             np.asarray(v["kernel"])], axis=1)
+        attn["qkv/bias"] = np.stack(
+            [np.asarray(q["bias"]), np.asarray(k["bias"]),
+             np.asarray(v["bias"])], axis=0)
+    return params
 
 
 def _softmax_np(logits: np.ndarray) -> np.ndarray:

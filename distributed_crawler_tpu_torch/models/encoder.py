@@ -25,9 +25,16 @@ same config fields, published presets, module names and numerics:
 With ``calibrate=True`` each projection records its input's abs-max (f32)
 in its module's ``absmax`` dict, which `models/quant.
 calibrate_activation_scales` reads (a MoE layer's experts record nothing,
-as in the reference: they stay dynamic under ``int8_static``).  ``remat``
-is a training flag; inference accepts and ignores it, and the MoE
-load-balancing loss, which only training reads, is not computed.
+as in the reference: they stay dynamic under ``int8_static``).
+
+Training (`models/train.py`, `models/lora.py`) adds three things, none of
+which inference pays for: ``Encoder.forward(..., with_aux=True)`` also
+returns the Switch-MoE load-balancing loss summed over layers (the
+reference sows it into its ``losses`` collection), computed per call and
+kept in no module state; ``remat=True`` recomputes each layer in the
+backward pass (`torch.utils.checkpoint`, non-reentrant) when gradients are
+being recorded, as the reference's ``nn.remat`` does; and `Classifier`,
+the reference's encoder -> head model the train step differentiates.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..device import torch_dtype
@@ -66,7 +74,7 @@ class EncoderConfig:
     layer_norm_eps: float = 1e-5
     dtype: str = "bfloat16"           # activation dtype
     attention: str = "auto"           # auto | xla | flash
-    remat: bool = False               # training only; ignored here
+    remat: bool = False               # recompute each layer in backward
     quant: str = "none"
     calibrate: bool = False
 
@@ -209,7 +217,7 @@ class SelfAttention(_Calibrated):
         self._record("qkv", x)
         proj = self.qkv(x).view(b, l, 3, cfg.n_heads, cfg.head_dim)
         o = mha(proj[:, :, 0], proj[:, :, 1], proj[:, :, 2], kv_mask=mask,
-                segment_ids=segment_ids)
+                segment_ids=segment_ids, attention=cfg.attention)
         o = o.reshape(b, l, cfg.hidden)
         self._record("attn_out", o)
         return self.attn_out(o)
@@ -280,14 +288,29 @@ class SwitchMoE(nn.Module):
         return probs, torch.argmax(probs, dim=-1)
 
     def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                with_aux: bool = False):
+        """The layer's output; with ``with_aux`` also the Switch
+        load-balancing loss ``E * sum_e f_e * P_e`` (f32 scalar) over real
+        tokens: ``f_e`` the share of tokens dispatched to expert e, ``P_e``
+        its mean router probability (the reference's ``moe_aux``)."""
         probs, top = self.route(x)
         if self.cfg.moe_dispatch == "capacity":
             out = self._capacity_experts(x, top, mask)
         else:
             out = self._dense_experts(x, top)
         chosen = probs.gather(-1, top[..., None])
-        return out * chosen.to(self.cfg.adtype)
+        out = out * chosen.to(self.cfg.adtype)
+        if not with_aux:
+            return out
+        e = self.cfg.n_experts
+        w = (torch.ones(top.shape, dtype=torch.float32, device=x.device)
+             if mask is None else mask.float())
+        denom = torch.clamp(w.sum(), min=1.0)
+        p_e = (probs * w[..., None]).sum(dim=(0, 1)) / denom
+        f_e = (F.one_hot(top, e).float() * w[..., None]).sum(dim=(0, 1)) \
+            / denom
+        return out, e * torch.sum(f_e * p_e)
 
     def _dense_experts(self, x: torch.Tensor,
                        top: torch.Tensor) -> torch.Tensor:
@@ -367,12 +390,24 @@ class EncoderLayer(nn.Module):
         self.ln_mlp = _layer_norm(cfg)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
-                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                segment_ids: Optional[torch.Tensor] = None,
+                with_aux: bool = False):
+        """The layer's output; with ``with_aux`` also its MoE aux loss (an
+        f32 zero for a dense layer)."""
         adtype = self.cfg.adtype
         a = self.attn(x, mask, segment_ids)
         x = self.ln_attn(x.float() + a.float()).to(adtype)
-        m = self.moe(x, mask) if self.cfg.n_experts else self.mlp(x)
-        return self.ln_mlp(x.float() + m.float()).to(adtype)
+        aux = None
+        if not self.cfg.n_experts:
+            m = self.mlp(x)
+            if with_aux:
+                aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        elif with_aux:
+            m, aux = self.moe(x, mask, with_aux=True)
+        else:
+            m = self.moe(x, mask)
+        out = self.ln_mlp(x.float() + m.float()).to(adtype)
+        return (out, aux) if with_aux else out
 
 
 class Encoder(nn.Module):
@@ -399,7 +434,10 @@ class Encoder(nn.Module):
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor,
                 segment_ids: Optional[torch.Tensor] = None,
-                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                positions: Optional[torch.Tensor] = None,
+                with_aux: bool = False):
+        """hidden; with ``with_aux`` (hidden, the MoE aux loss summed over
+        layers)."""
         l = ids.shape[1]
         if positions is not None:
             pos = F.embedding(positions, self.embed_positions)
@@ -412,9 +450,19 @@ class Encoder(nn.Module):
         mask = mask.to(torch.int32)
         if segment_ids is not None:
             segment_ids = segment_ids.to(torch.int32)
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        aux = None
         for layer in self.layers:
-            x = layer(x, mask, segment_ids)
-        return x
+            args = (x, mask, segment_ids, with_aux)
+            out = (torch.utils.checkpoint.checkpoint(
+                layer, *args, use_reentrant=False) if remat
+                else layer(*args))
+            if with_aux:
+                x, layer_aux = out
+                aux = layer_aux if aux is None else aux + layer_aux
+            else:
+                x = out
+        return (x, aux) if with_aux else x
 
 
 def mean_pool(hidden: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -470,6 +518,27 @@ class ClassificationHead(nn.Module):
 
     def forward(self, cls_state: torch.Tensor) -> torch.Tensor:
         return self.head(torch.tanh(self.pooler(cls_state.float())))
+
+
+class Classifier(nn.Module):
+    """XLM-R-style classifier (the reference's ``Classifier``): encoder ->
+    head on the first token -> logits f32 [B, n_labels].  Its weights are
+    `EmbedderClassifier`'s (``encoder``, ``cls_head``), so one flax tree
+    loads into either.  ``with_aux`` also returns the MoE aux loss."""
+
+    def __init__(self, cfg: EncoderConfig,
+                 embed_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = Encoder(cfg, embed_dtype)
+        self.cls_head = ClassificationHead(cfg)
+
+    def forward(self, ids: torch.Tensor, mask: torch.Tensor,
+                with_aux: bool = False):
+        if with_aux:
+            hidden, aux = self.encoder(ids, mask, with_aux=True)
+            return self.cls_head(hidden[:, 0, :]), aux
+        return self.cls_head(self.encoder(ids, mask)[:, 0, :])
 
 
 class EmbedderClassifier(nn.Module):

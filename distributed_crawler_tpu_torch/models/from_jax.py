@@ -1,6 +1,9 @@
 """Move the reference's flax param trees into and out of the port's modules:
-the text `EmbedderClassifier` (`load_flax_params`, `flax_tree`) and
-`Whisper` (`load_whisper_params`, `whisper_flax_tree`).
+the text `EmbedderClassifier` or `Classifier` (`load_flax_params`,
+`flax_tree`, and `flax_grads` for the gradients), `Whisper`
+(`load_whisper_params`, `whisper_flax_tree`), and the leaves themselves
+(`load_leaves`, `leaves_tree`), which the trainer also uses for tensors laid
+out as the weights (AdamW's moments).
 
 The tree is plain numpy (``jax.tree.map(np.asarray, params)`` on the
 reference side, or `models/hf_convert` / `models/quant` here), so this
@@ -25,7 +28,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from .encoder import EmbedderClassifier, QuantDense, SwitchMoE
+from .encoder import (
+    ClassificationHead,
+    EmbedderClassifier,
+    QuantDense,
+    SwitchMoE,
+)
 from .whisper import MHA, MLP, Whisper
 
 # flax path -> (torch tensor, flax shape, kind): a "kernel" leaf is the
@@ -115,29 +123,50 @@ def flax_leaves(model: EmbedderClassifier) -> Dict[str, _Leaf]:
             leaves.update(_dense(f"{p}/mlp/mlp_up", layer.mlp.mlp_up))
             leaves.update(_dense(f"{p}/mlp/mlp_down", layer.mlp.mlp_down))
         leaves.update(_layer_norm(f"{p}/ln_mlp", layer.ln_mlp))
-    leaves.update(_dense("cls_head/pooler", model.cls_head.pooler))
-    leaves.update(_dense("cls_head/head", model.cls_head.head))
+    leaves.update({f"cls_head/{path}": leaf for path, leaf
+                   in head_leaves(model.cls_head).items()})
     return leaves
 
 
-def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+def head_leaves(head: ClassificationHead) -> Dict[str, _Leaf]:
+    """The classification head's flax leaves (``pooler``, ``head``)."""
+    return {**_dense("pooler", head.pooler), **_dense("head", head.head)}
+
+
+def flatten_tree(tree: Mapping[str, Any],
+                 prefix: str = "") -> Dict[str, Any]:
+    """A nested tree as ``{flax path joined by "/": leaf}``."""
     flat: Dict[str, Any] = {}
     for key, value in tree.items():
         path = f"{prefix}{key}"
         if isinstance(value, Mapping):
-            flat.update(_flatten(value, path + "/"))
+            flat.update(flatten_tree(value, path + "/"))
         else:
             flat[path] = value
     return flat
 
 
-def _load(model: nn.Module, tree: Mapping[str, Any],
-          expected: Dict[str, _Leaf]) -> nn.Module:
-    """Copy the tree's leaves into ``expected``'s targets, all checked
-    before any is written."""
+def nest_tree(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """`flatten_tree`'s inverse (`split_flax_path` keeps the keys the
+    reference names with a "/")."""
+    out: Dict[str, Any] = {}
+    for path, value in flat.items():
+        *parents, leaf = split_flax_path(path)
+        node = out
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+    return out
+
+
+def load_leaves(tree: Mapping[str, Any],
+                expected: Dict[str, _Leaf]) -> None:
+    """Copy the tree's leaves into ``expected``'s targets (a model's
+    weights, or tensors laid out as them, such as optimizer moments), all
+    checked before any is written."""
     if set(tree) == {"params"}:
         tree = tree["params"]
-    given = _flatten(tree)
+    given = flatten_tree(tree)
     missing = sorted(set(expected) - set(given))
     unknown = sorted(set(given) - set(expected))
     if missing or unknown:
@@ -167,11 +196,12 @@ def _load(model: nn.Module, tree: Mapping[str, Any],
                            dtype=np.int8 if arr.dtype == np.int8
                            else np.float32)  # a writable copy
             target.copy_(torch.from_numpy(src))
-    return model
 
 
-def _to_tree(expected: Dict[str, _Leaf]) -> Dict[str, Any]:
-    out: Dict[str, Any] = {}
+def leaves_tree(expected: Dict[str, _Leaf]) -> Dict[str, Any]:
+    """``{"params": tree}`` of the targets' values in flax layout
+    (`load_leaves`'s inverse): f32 numpy, or int8 for int8 targets."""
+    flat: Dict[str, Any] = {}
     for path, (t, shape, kind) in expected.items():
         a = t.detach().cpu()
         a = a if a.dtype == torch.int8 else a.float()
@@ -181,12 +211,8 @@ def _to_tree(expected: Dict[str, _Leaf]) -> Dict[str, Any]:
             a = a.permute(2, 1, 0)
         elif kind == "experts":
             a = a.transpose(1, 2)
-        *parents, leaf = _split(path)
-        node = out
-        for key in parents:
-            node = node.setdefault(key, {})
-        node[leaf] = a.reshape(shape).numpy().copy()
-    return {"params": out}
+        flat[path] = a.reshape(shape).numpy().copy()
+    return {"params": nest_tree(flat)}
 
 
 def load_flax_params(model: EmbedderClassifier,
@@ -195,14 +221,24 @@ def load_flax_params(model: EmbedderClassifier,
     without the top-level ``params`` key) into ``model``, in place.  Float
     leaves are cast to each target's dtype; int8 targets take int8 leaves
     only."""
-    return _load(model, tree, flax_leaves(model))
+    load_leaves(tree, flax_leaves(model))
+    return model
 
 
 def flax_tree(model: EmbedderClassifier) -> Dict[str, Any]:
     """The model's weights as a flax ``{"params": ...}`` tree of numpy
     arrays (f32, or int8 for ``kernel_q``): `load_flax_params`'s
     inverse."""
-    return _to_tree(flax_leaves(model))
+    return leaves_tree(flax_leaves(model))
+
+
+def flax_grads(model: nn.Module) -> Dict[str, Any]:
+    """The gradients of the model's weights as a flax ``{"params": ...}``
+    tree of f32 numpy arrays (zeros where a weight has no gradient)."""
+    return leaves_tree({
+        path: (t.grad if t.grad is not None else torch.zeros_like(t),
+               shape, kind)
+        for path, (t, shape, kind) in flax_leaves(model).items()})
 
 
 def _mha(prefix: str, mha: MHA) -> Dict[str, _Leaf]:
@@ -256,13 +292,14 @@ def load_whisper_params(model: Whisper, tree: Mapping[str, Any]) -> Whisper:
     the top-level ``params`` key) into ``model``, in place: Dense and conv
     weights in the model's activation dtype, LayerNorms and the decoder's
     embedding tables in f32."""
-    return _load(model, tree, whisper_leaves(model))
+    load_leaves(tree, whisper_leaves(model))
+    return model
 
 
 def whisper_flax_tree(model: Whisper) -> Dict[str, Any]:
     """The model's weights as a flax ``{"params": ...}`` tree of f32 numpy
     arrays: `load_whisper_params`'s inverse."""
-    return _to_tree(whisper_leaves(model))
+    return leaves_tree(whisper_leaves(model))
 
 
 # Params the reference declares with a "/" in their name: one key of
@@ -270,7 +307,7 @@ def whisper_flax_tree(model: Whisper) -> Dict[str, Any]:
 _SLASHED = ("qkv", "experts_up", "experts_down")
 
 
-def _split(path: str):
+def split_flax_path(path: str):
     """A flax path into tree keys."""
     parts = path.split("/")
     if len(parts) >= 2 and parts[-2] in _SLASHED:

@@ -7,7 +7,8 @@ produces the same trees of numpy arrays the reference produces, which
 port's modules.  Local files only:
 
 - ``model.safetensors``, read by :func:`read_safetensors` (a plain reader
-  of the format: no ``safetensors`` package needed);
+  of the format: no ``safetensors`` package needed; :func:`write_safetensors`
+  is its writer, for the port's own checkpoints);
 - ``pytorch_model.bin``, read with ``torch.load(weights_only=True)``.
 
 Layout notes (RoBERTa family; E5 is an XLM-R encoder):
@@ -89,6 +90,39 @@ def read_safetensors(path: str) -> Dict[str, np.ndarray]:
                 arr = (arr.astype("<u4") << 16).view("<f4")
             out[name] = arr.reshape(shape)
     return out
+
+
+_ST_NAMES = {np.dtype(v): k for k, v in _ST_DTYPES.items()}
+
+
+def write_safetensors(path: str, tensors: Mapping[str, np.ndarray]) -> int:
+    """Write numpy arrays as a ``.safetensors`` file that
+    :func:`read_safetensors` (and the ``safetensors`` package) reads: the
+    u64 header length, the JSON header padded with spaces to 8 bytes, then
+    each tensor's little-endian bytes in header order.  Returns the bytes
+    written."""
+    header: Dict[str, Any] = {}
+    arrays = []
+    off = 0
+    for name, a in tensors.items():
+        a = np.asarray(a)
+        le = a.dtype.newbyteorder("<") if a.dtype.itemsize > 1 else a.dtype
+        if le not in _ST_NAMES:
+            raise TypeError(f"{name}: dtype {a.dtype} has no safetensors "
+                            f"name")
+        a = a.astype(le, order="C", copy=False)
+        header[name] = {"dtype": _ST_NAMES[le], "shape": list(a.shape),
+                        "data_offsets": [off, off + a.nbytes]}
+        arrays.append(a)
+        off += a.nbytes
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for a in arrays:
+            f.write(a.tobytes())
+    return 8 + len(raw) + off
 
 
 def load_state_dict(path: str) -> Dict[str, np.ndarray]:

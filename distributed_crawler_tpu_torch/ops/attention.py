@@ -31,7 +31,8 @@ input dtype.  A fully masked row gives zeros, never a uniform average.
 - :func:`attend_3xtf32` — the f32 kernel's arithmetic in plain PyTorch:
   both products as three TF32 products (:func:`tf32_round`,
   :func:`split_tf32`).
-- :func:`mha` — dispatch by the tensor's device.
+- :func:`mha` — dispatch by the tensor's device, or to :func:`attend`
+  for a model built with ``attention="xla"`` (the trainer's).
 """
 
 from __future__ import annotations
@@ -163,7 +164,17 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     head dim, int32-sized strides and token count, masks of [B, L] on q's
     device.  Returns the kernel that takes the operands (``path`` when
     given and able to, else :func:`choose_path`'s); raises ``ValueError``
-    or ``TypeError`` naming what it cannot take."""
+    or ``TypeError`` naming what it cannot take, and ``RuntimeError`` for
+    operands that require grad while autograd records: the kernels have no
+    backward (nor has the reference's Pallas kernel, which is why its
+    trainer runs the plain version), and their output would carry no
+    ``grad_fn``, cutting the graph without an error."""
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward: q/k/v require grad while "
+            "autograd is enabled; train through attention='xla' (the plain "
+            "version), or run the forward under torch.no_grad()")
     if q.dim() != 4:
         raise ValueError(f"q must be [B, L, H, D], got shape {tuple(q.shape)}")
     b, l, _, d = q.shape
@@ -359,9 +370,15 @@ flash_attention.launches_by_path = dict.fromkeys(PATHS, 0)
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kv_mask: Optional[torch.Tensor] = None,
         scale: Optional[float] = None,
-        segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        segment_ids: Optional[torch.Tensor] = None,
+        attention: str = "auto") -> torch.Tensor:
     """Dispatch by device: a CUDA tensor goes to the kernel at every
-    length, a CPU tensor to :func:`attend`."""
+    length, a CPU tensor to :func:`attend`.  ``attention="xla"`` (the
+    reference's name for its plain path) takes :func:`attend` on any
+    device: only the trainer builds such a model, since the kernels have no
+    backward; the engine refuses it on the card."""
+    if attention == "xla":
+        return attend(q, k, v, kv_mask, scale, segment_ids=segment_ids)
     if q.device.type == "cuda":
         return flash_attention(q, k, v, kv_mask, scale,
                                segment_ids=segment_ids)

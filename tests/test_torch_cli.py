@@ -152,7 +152,7 @@ CONFIG_ENV = {
     "CRAWLER_PARALLEL_SEQ": "1",
 }
 MODES = ("tpu-worker", "asr-worker", "cluster-worker", "transcribe",
-         "cluster", "bus")
+         "cluster", "train-head", "bus")
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -586,8 +586,6 @@ def _waiting_cases(tmp):
         "multihost": (tiny, {"DCT_NUM_PROCESSES": "2"}, "ROADMAP item 9"),
         "coordinator": (tiny, {"DCT_COORDINATOR": "10.0.0.1:1234"},
                         "ROADMAP item 9"),
-        "head_checkpoint": (tiny + ["--head-checkpoint", str(tmp)], {},
-                            "ROADMAP item 8"),
         "object_store_tpu": (tiny + ["--object-store", "memory://"], {},
                              "object-store"),
         "object_store_asr": (asr + ["--object-store", "memory://"], {},
@@ -648,7 +646,6 @@ def test_crawler_mode_exits_2(capsys, mode):
     assert rc == 2
     assert f"--mode {mode or 'standalone'} runs from " \
         f"distributed_crawler_tpu.cli" in err
-    assert ("ROADMAP item 8" in err) == (mode == "train-head")
     assert logging_state() == before  # refused before any set-up
 
 

@@ -219,5 +219,15 @@ def test_waiting_features_raise(change, err):
         dataclasses.replace(jenc.TINY_TEST, **change).validate()
 
 
-def test_remat_is_accepted_and_ignored():
-    tenc.EmbedderClassifier(dataclasses.replace(tenc.TINY_TEST, remat=True))
+def test_remat_is_accepted_and_ignored(pair):
+    """``remat`` only changes how the backward pass gets its activations:
+    at inference the outputs are the same as without it."""
+    _, params, tmodel = pair
+    remat = tenc.EmbedderClassifier(
+        dataclasses.replace(tenc.TINY_TEST, n_labels=3, remat=True))
+    load_flax_params(remat, jax.tree.map(np.asarray, params))
+    ids, mask = _batch(seed=3)
+    ids_t, mask_t = torch.from_numpy(ids), torch.from_numpy(mask)
+    with torch.no_grad():
+        for a, b in zip(remat.eval()(ids_t, mask_t), tmodel(ids_t, mask_t)):
+            assert torch.equal(a, b)

@@ -222,18 +222,15 @@ class TestConfig:
         ("param_dtype", "no_such_dtype"), ("quantize", "int4"),
         ("moe_dispatch", "sparse")])
     def test_waiting_fields_raise(self, field, value):
-        """``checkpoint_dir`` still waits; a ported field set wrong raises
-        the exception type the reference's engine raises for the same
-        config."""
+        """A field set wrong raises the exception type the reference's
+        engine raises for the same config (``checkpoint_dir`` at a path
+        holding no checkpoint: ``FileNotFoundError``)."""
         cfg = {**CFG, field: value}
-        if field == "checkpoint_dir":
-            expected = NotImplementedError
-        else:
-            with pytest.raises(Exception) as ref:
-                jeng.InferenceEngine(jeng.EngineConfig(**cfg),
-                                     registry=JaxRegistry())
-            expected = type(ref.value)
-            assert expected is not NotImplementedError
+        with pytest.raises(Exception) as ref:
+            jeng.InferenceEngine(jeng.EngineConfig(**cfg),
+                                 registry=JaxRegistry())
+        expected = type(ref.value)
+        assert expected is not NotImplementedError
         with pytest.raises(Exception) as got:
             teng.InferenceEngine(teng.EngineConfig(**cfg),
                                  registry=MetricsRegistry(), device="cpu")

@@ -90,6 +90,48 @@ class TestCPU:
             flash_attention(q, q, q)
 
 
+class TestNoBackward:
+    """The kernels have no backward: operands that require grad while
+    autograd records are refused rather than given an output without
+    ``grad_fn``; the plain version (``attention="xla"``) differentiates."""
+
+    def test_check_operands_refuses_grad_while_recording(self):
+        q = torch.zeros((1, 8, 2, 16), requires_grad=True)
+        k = torch.zeros((1, 8, 2, 16))
+        with pytest.raises(RuntimeError, match="no backward"):
+            attention.check_operands(q, k, k)
+        with torch.no_grad():
+            assert attention.check_operands(q, k, k) == "simt"
+        assert attention.check_operands(q.detach(), k, k) == "simt"
+
+    def test_mha_xla_gradients_equal_attends(self):
+        gen = torch.Generator().manual_seed(11)
+        base = [torch.randn((2, 16, 4, 8), generator=gen) for _ in range(3)]
+        mask = torch.arange(16)[None, :] < torch.tensor([[16], [9]])
+        grads = []
+        for fn in (lambda q, k, v: mha(q, k, v, kv_mask=mask,
+                                       attention="xla"),
+                   lambda q, k, v: attend(q, k, v, mask)):
+            qkv = [t.clone().requires_grad_(True) for t in base]
+            (fn(*qkv) ** 2).sum().backward()
+            grads.append([t.grad for t in qkv])
+        for a, b in zip(*grads):
+            assert torch.equal(a, b)
+
+    @pytest.mark.gpu
+    def test_flash_attention_refuses_grad_on_the_card(self, cuda):
+        q = torch.randn((2, 64, 4, 64), device=cuda, requires_grad=True)
+        k = torch.randn((2, 64, 4, 64), device=cuda)
+        with pytest.raises(RuntimeError, match="no backward"):
+            flash_attention(q, k, k)
+        with torch.no_grad():
+            out = flash_attention(q, k, k)
+        torch.testing.assert_close(out, attend(q.detach(), k, k),
+                                   atol=1e-4, rtol=1e-4)
+        x = mha(q, k, k, attention="xla")
+        assert x.grad_fn is not None
+
+
 @pytest.mark.gpu
 class TestKernelOnCard:
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -31,10 +31,10 @@ import numpy as np  # noqa: E402
 from distributed_crawler_tpu_torch.models import encoder as tenc  # noqa: E402
 from distributed_crawler_tpu_torch.models import quant as tmq  # noqa: E402
 from distributed_crawler_tpu_torch.models.from_jax import (  # noqa: E402
-    _load,
     _moe,
     flax_tree,
     load_flax_params,
+    load_leaves,
 )
 
 try:
@@ -85,8 +85,8 @@ def _pair(seed, x, **change):
     jmoe = jenc.SwitchMoE(_cfg(jenc, **change))
     params = jmoe.init(jax.random.PRNGKey(seed), x)
     tmoe = tenc.SwitchMoE(_cfg(tenc, **change))
-    _load(tmoe, {"moe": jax.tree.map(np.asarray, params["params"])},
-          _moe("moe", tmoe))
+    load_leaves({"moe": jax.tree.map(np.asarray, params["params"])},
+                _moe("moe", tmoe))
     return jmoe, params, tmoe.eval()
 
 
@@ -361,7 +361,7 @@ def test_moe_layer_on_card_matches_cpu(dispatch):
                                 ("card", "bfloat16", "cuda")):
         c = dataclasses.replace(cfg, dtype=dtype, quant=quant)
         moe = tenc.SwitchMoE(c)
-        _load(moe, moe_tree, _moe("moe", moe))
+        load_leaves(moe_tree, _moe("moe", moe))
         moe = moe.to(device).eval()
         with torch.inference_mode():
             xin = x.to(device=device, dtype=c.adtype)
