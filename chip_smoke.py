@@ -83,13 +83,13 @@ JSON line each:
    iterations, the E5-large forward per bucket, the sm90 kernel at
    E5-large's shape, and posts/s through both workers.
 9. slice.moe — Switch-MoE at XLM-R-base width (vocab 250002, hidden 768,
-   12 layers, 12 heads of 64, 8 experts of 3072 in every layer, capacity
-   factor 1.25, 8 labels; ``bench.py``'s MoE configuration at the
-   published vocabulary), added to the engine's registry as a deployment
-   adds one, bf16 weights from ``--seed``: 2048 synthetic posts through
-   `TPUWorker` (packed, coalescing 4) once in each of dense, capacity and
-   int8 dispatch on the same weights.  Checks: one result per post and 12
-   sm90 launches per dispatch; dense bf16 on the card against f32 on the
+   12 heads of 64, 8 experts of 3072 in every layer, capacity factor
+   1.25, 8 labels; ``bench.py``'s MoE configuration at the published
+   vocabulary), its depth cut to 6 of 12 layers, added to the engine's
+   registry as a deployment adds one, bf16 weights from ``--seed``: 2048
+   synthetic posts through `TPUWorker` (packed, coalescing 4) once in each
+   of dense, capacity and int8 dispatch on the same weights.  Checks: one
+   result per post and 6 sm90 launches per dispatch (one per layer); dense bf16 on the card against f32 on the
    CPU on 32 posts (minimum cosine >= 0.99; the router's choices equal
    off a 1e-3 near-tie margin on the same layer inputs, and counted
    free-running); capacity against dense on the same [256, bucket]
@@ -104,8 +104,9 @@ JSON line each:
    reported), end to end reported; layer 0's int8 expert products equal
    to an int32 matmul on the CPU; capacity with int8 refused before any
    weight is read.  Times per bucket: each dispatch's forward, FLOPs,
-   achieved TFLOP/s and peak memory, XLM-R-base's dense-MLP forward beside
-   them, layer 0's MoE against the dense MLP; posts/s per dispatch.
+   achieved TFLOP/s and peak memory, XLM-R-base's dense-MLP forward at the
+   same depth beside them, layer 0's MoE against the dense MLP; posts/s per
+   dispatch.
 10. slice.ops — the workers' operations layer at full width: E5-small
    (phase 4's configuration, its engine on the worker's registry) through
    `TPUWorker` with every knob on (``metrics_port``, heartbeats and span
@@ -177,18 +178,50 @@ JSON line each:
    scope (rank 8, 2 epochs): no kernel launch, the merged checkpoint
    moves the kernels and serves.  Full scope (2 epochs,
    ``--train-grad-accum 2``, ``--train-state-dir``): stopped after epoch 1
-   and resumed, against an uninterrupted run (per-epoch losses, weights),
+   and resumed, against an uninterrupted run through the CLI's own
+   examples, engine and full-scope training in the script's process
+   (per-epoch losses, weights; `uninterrupted_full_run`),
    no kernel launch; one full step on the card against the CPU from the
    same params and batch (loss, per-leaf gradient cosine).  Serving:
    `_build_tpu_worker` with ``--head-checkpoint`` and
    ``--infer-param-dtype bfloat16`` over 2048 held-out posts (12 sm90
    launches per dispatch, nothing else; a row per post with its label
    name; labels equal to the f32 trainer model's off a 5e-2 margin;
-   accuracy >= 0.6).  Times: the feature pass (posts/s; `simt`'s device
-   time by CUDA-graph replay of each batch's kernel), ms per step and
+   accuracy >= 0.6).  Times: the feature pass (posts/s; by CUDA-graph
+   replay of each batch's call, per bucket and summed: `simt`, its plain
+   version and SDPA in f32, beside the bound summed over the same calls;
+   one batch per bucket held against the plain version), ms per step and
    tokens/s of each scope at batch 16, the full step's TFLOP/s against the
    FP32 and TF32 peaks, peak memory per CLI run, checkpoint bytes and
    seconds, CLI start to the summary line, serving posts/s.
+14. slice.bus (run after phase 11) — the bus's durability and
+   partitioning between the CLI's processes (``grpc`` required), phase
+   11's eight batches of 256 posts, E5-small at full width behind it.
+   (a) A ``--mode bus --bus-spool-dir`` broker (``--bus-max-attempts 2``)
+   and a ``--mode tpu-worker --bus-spool-dir`` worker; the batches
+   published through ``RemoteBus(outbox=OutboxConfig(...))``; the broker
+   SIGKILLed once 2 batches are committed and 2 more are queued or in
+   flight, the other 4 published into the outage (buffered, not raised),
+   and a new broker started over the same spool and address after 3 s.
+   Checks: one writeback row per post, within 2e-2 of phase 11's engine
+   (labels equal off a 5e-2 margin); the worker's ``bus_outbox_depth`` 0
+   and ``resilience_circuit_state{target="bus"}`` 0, the script's outbox
+   empty; 12 sm90 launches per dispatch and none elsewhere, read from the
+   worker's /metrics.  (b) A poison frame the worker rejects on every
+   delivery: on the broker's ``/dlq`` with 2 attempts and
+   ``max_attempts``; listed and inspected by ``python -m
+   distributed_crawler_tpu_torch.bus.dlq --spool-dir`` with the broker
+   down; ``--replay`` through a new broker generation marks it replayed
+   and it is dead-lettered again.  (c) Two broker shards and a worker
+   with ``--bus-shard-addresses``; the batches (4 owned by each shard)
+   through a `PartitionedBus` with an outbox per shard; shard 0 SIGKILLed
+   after 4 are committed: shard 1's share is committed while shard 0's
+   parks in its outbox, and after shard 0's restart its parked batches
+   are committed in publish order; one row per post as in (a); the
+   worker's ``/shards`` names both shards, breakers closed and outboxes
+   empty at the end.  Times: the outage, restart to the first batch
+   committed, restart to the last row, batches redelivered, posts/s of
+   each run beside phase 11's over gRPC.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``.  Any failed phase raises and exits
@@ -2588,6 +2621,10 @@ def phase_cluster(torch, np, attention, device, gen, seed, smi):
 # has experts: a deployment adds the entry to the registry, as here.
 MOE_MODEL = "xlmr_base_moe8"
 MOE_EXPERTS, MOE_CF = 8, 1.25
+# Depth cut to 6 of XLM-R-base's 12 layers (widths the published ones) to
+# keep the script inside its time budget; the dense yardstick is cut alike.
+MOE_LAYERS = 6
+MOE_YARDSTICK = "xlmr_base_6l"
 # A token whose f32 top-1 router probability leads the second by less
 # than this is a near-tie: bf16 rounding may pick either expert.
 MOE_NEAR_TIE = 1e-3
@@ -2597,7 +2634,7 @@ MOE_DISPATCHES = ("dense", "capacity", "int8")
 def moe_config():
     from distributed_crawler_tpu_torch.models.encoder import XLMR_BASE
 
-    return replace(XLMR_BASE, n_experts=MOE_EXPERTS,
+    return replace(XLMR_BASE, n_layers=MOE_LAYERS, n_experts=MOE_EXPERTS,
                    moe_capacity_factor=MOE_CF)
 
 
@@ -3093,8 +3130,8 @@ def check_capacity_int8_refused(engine_mod):
 def time_moe(torch, engines, yardstick, smi):
     """Per bucket at batch 256: each dispatch's forward (from
     `time_engine`) with its MoE FLOP count, achieved TFLOP/s and peak
-    device memory; XLM-R-base's dense-MLP forward beside it; layer 0's MoE
-    alone against the dense MLP."""
+    device memory; XLM-R-base's dense-MLP forward at the same depth beside
+    it; layer 0's MoE alone against the dense MLP."""
     from distributed_crawler_tpu_torch.utils import cudatime
     from distributed_crawler_tpu_torch.utils.costmodel import (
         encoder_forward_flops,
@@ -3105,7 +3142,7 @@ def time_moe(torch, engines, yardstick, smi):
         torch, eng, smi, model=MOE_MODEL, dispatch=name)}
         for name, eng in engines.items()}
     base = {r["bucket"]: r for r in time_engine(
-        torch, yardstick, smi, model="xlmr_base", dispatch="dense_mlp")}
+        torch, yardstick, smi, model=MOE_YARDSTICK, dispatch="dense_mlp")}
     rows = []
     for bucket in MAIN_BUCKETS:
         row = {"bucket": bucket, "batch": BATCH, "card": smi,
@@ -3162,6 +3199,8 @@ def phase_moe(torch, np, device, gen, seed, smi):
 
     refused = check_capacity_int8_refused(engine_mod)
     engine_mod.MODEL_REGISTRY[MOE_MODEL] = moe_config()
+    engine_mod.MODEL_REGISTRY[MOE_YARDSTICK] = replace(
+        engine_mod.MODEL_REGISTRY["xlmr_base"], n_layers=MOE_LAYERS)
     t0 = time.perf_counter()
     ecfg0 = engine_mod.EngineConfig(model=MOE_MODEL).encoder_config()
     tree = engine_mod.random_tree(ecfg0, seed)
@@ -3185,8 +3224,8 @@ def phase_moe(torch, np, device, gen, seed, smi):
     ecfg = engines["dense"].ecfg
     check((ecfg.vocab_size, ecfg.hidden, ecfg.n_layers, ecfg.n_heads,
            ecfg.mlp_dim, ecfg.n_experts, ecfg.moe_capacity_factor,
-           ecfg.n_labels, ecfg.dtype) == (250002, 768, 12, 12, 3072, 8,
-                                          1.25, 8, "bfloat16"),
+           ecfg.n_labels, ecfg.dtype) == (250002, 768, MOE_LAYERS, 12, 3072,
+                                          8, 1.25, 8, "bfloat16"),
           f"not XLM-R-base's width with 8 experts: {ecfg}")
     check([e.ecfg.moe_dispatch for e in engines.values()]
           == ["dense", "capacity", "dense"]
@@ -3254,10 +3293,10 @@ def phase_moe(torch, np, device, gen, seed, smi):
              posts_per_s=s["posts_per_s"],
              p50_batch_latency_ms=s["p50_ms"],
              dispatch_latencies=s["latencies"], card=smi)
-    yardstick, _ = make(model="xlmr_base",
+    yardstick, _ = make(model=MOE_YARDSTICK,
                         params=engine_mod.random_tree(
                             engine_mod.EngineConfig(
-                                model="xlmr_base").encoder_config(), seed))
+                                model=MOE_YARDSTICK).encoder_config(), seed))
     time_moe(torch, engines, yardstick, smi)
     del engines, yardstick
     torch.cuda.empty_cache()
@@ -4544,7 +4583,508 @@ def phase_cli(torch, np, attention, device, work, seed, smi, e5, asr):
                 for p in attention.PATHS}
     emit("slice.cli", seconds=time.perf_counter() - t0,
          kernel_launches_by_path=launches, grpc=proc["grpc"])
+    return {"launches": launches, "tpu": tpu,
+            "grpc_posts_per_s": proc.get("posts_per_s")}
+
+# Phase 14 (slice.bus): the bus's durability and partitioning through the
+# CLI's processes, E5-small at full width behind them.  The outage lasts at
+# least this long; the broker dead-letters a frame after this many
+# deliveries.
+BUS_OUTAGE_S = 3.0
+BUS_MAX_ATTEMPTS = 2
+BUS_DEADLINE_S = 120.0
+
+
+def cli_argv(*args):
+    return [sys.executable, "-m", f"{PACKAGE}.cli", *args]
+
+
+def cli_env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + [p for p in [env.get("PYTHONPATH", "")] if p])
+    return env
+
+
+class Procs:
+    """The phase's processes, each logging to a file: stopped (SIGTERM,
+    then SIGKILL past a deadline) when the phase ends, however it ends."""
+
+    def __init__(self, work):
+        self.work = work
+        self.live = []
+
+    def start(self, name, *args):
+        log = open(os.path.join(self.work, f"{name}.log"), "a",
+                   encoding="utf-8")
+        proc = subprocess.Popen(cli_argv(*args), cwd=ROOT, env=cli_env(),
+                                stdout=log, stderr=subprocess.STDOUT)
+        log.close()
+        proc.name = name
+        self.live.append(proc)
+        return proc
+
+    def kill(self, proc):
+        """SIGKILL: the broker's death, with no drain and no flush."""
+        proc.kill()
+        proc.wait(timeout=30)
+        self.live.remove(proc)
+
+    def stop(self, proc, want_rc=130):
+        import signal
+
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        self.live.remove(proc)
+        check(rc == want_rc, f"{proc.name} exited {rc} on SIGTERM: "
+              f"{self.tail(proc.name)}")
+
+    def tail(self, name, n=20):
+        with open(os.path.join(self.work, f"{name}.log"),
+                  encoding="utf-8", errors="replace") as f:
+            return f.read().splitlines()[-n:]
+
+    def close(self):
+        for proc in list(self.live):
+            if proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+        self.live.clear()
+
+
+def poll_until(pred, what, timeout_s=BUS_DEADLINE_S, procs=(), poll_s=0.02):
+    """Poll ``pred`` until it holds; fails on the deadline or as soon as
+    one of ``procs`` has exited."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        for p in procs:
+            check(p.poll() is None, f"{p.name} exited {p.returncode} "
+                  f"while waiting for {what}")
+        value = pred()
+        if value:
+            return value
+        if time.monotonic() > deadline:
+            raise Fail(f"{what}: not within {timeout_s} s")
+        time.sleep(poll_s)
+
+
+def metric_lines(url):
+    """``name{labels} -> value`` of a process's /metrics."""
+    code, body = http_get(url + "/metrics")
+    check(code == 200, f"{url}/metrics answered {code}")
+    out = {}
+    for line in body.decode().splitlines():
+        if line and not line.startswith("#"):
+            name, _, value = line.rpartition(" ")
+            out[name] = float(value)
+    return out
+
+
+def json_route(url, route):
+    """A route's JSON body, or None while it does not answer 200."""
+    try:
+        code, body = http_get(url + route)
+    except OSError:  # not listening yet
+        return None
+    return json.loads(body) if code == 200 else None
+
+
+def written(store, crawl_id, batch_ids):
+    """The batch ids whose writeback file exists."""
+    base = os.path.join(store, "inference", crawl_id, "batches")
+    return [b for b in batch_ids
+            if os.path.exists(os.path.join(base, f"{b}.jsonl"))]
+
+
+def bus_worker_argv(name, store, metrics_port, spool, *bus):
+    return ("--mode", "tpu-worker", "--storage-root", store,
+            "--worker-id", name, "--metrics-port", str(metrics_port),
+            "--bus-spool-dir", spool, "--telemetry-interval", "1",
+            "--no-publish-embeddings", "--log-json", *bus)
+
+
+def broker_argv(address, spool, metrics_port):
+    return ("--mode", "bus", "--bus-address", address, "--bus-spool-dir",
+            spool, "--metrics-port", str(metrics_port), "--bus-max-attempts",
+            str(BUS_MAX_ATTEMPTS))
+
+
+def worker_ready(url, proc):
+    """Warm (its /healthz answers after warmup) and quiet: the launches
+    and dispatches the served run is counted from."""
+    wait_http_200(url + "/healthz", proc, 600)
+    return proc_counts(url)
+
+
+def check_worker_outbox(url, target, what):
+    """The process's outbox drained and its breaker on ``target`` closed:
+    ``bus_outbox_depth`` 0 on every publisher and
+    ``resilience_circuit_state{target}`` 0."""
+    def settled():
+        m = metric_lines(url)
+        depth = {k: v for k, v in m.items()
+                 if k.startswith("bus_outbox_depth{")}
+        state = m.get(f'resilience_circuit_state{{target="{target}"}}')
+        return (depth and not any(depth.values()) and state == 0.0
+                and {"depth": depth, "circuit_state": state})
+
+    return poll_until(settled, f"{what}: outbox drained, breaker closed",
+                      timeout_s=60.0)
+
+
+def bus_broker_restart(np, procs, work, tpu, smi):
+    """(a) A worker and a durable broker; 8 batches published through a
+    `RemoteBus` with an outbox; the broker SIGKILLed with 2 or more batches
+    queued or in flight, the rest published into the outage, and the
+    broker restarted over its spool after BUS_OUTAGE_S."""
+    from distributed_crawler_tpu_torch.bus import TOPIC_INFERENCE_BATCHES
+    from distributed_crawler_tpu_torch.bus.grpc_bus import RemoteBus
+    from distributed_crawler_tpu_torch.bus.outbox import OutboxConfig
+
+    spool = os.path.join(work, "b")
+    store = os.path.join(work, "store_a")
+    address = f"127.0.0.1:{free_port()}"
+    m_broker, m_worker = free_port(), free_port()
+    broker = procs.start("broker", *broker_argv(address, spool, m_broker))
+    worker = procs.start("worker", *bus_worker_argv(
+        "w14", store, m_worker, os.path.join(work, "w"),
+        "--bus-address", address))
+    url = f"http://127.0.0.1:{m_worker}"
+    burl = f"http://127.0.0.1:{m_broker}"
+    warm_launches, d0 = worker_ready(url, worker)
+    poll_until(lambda: json_route(burl, "/dlq"), "the broker's /dlq",
+               procs=[broker])
+    batches = tpu["batches"]
+    ids = [b.batch_id for b in batches]
+    crawl = batches[0].crawl_id
+    pub = RemoteBus(address, outbox=OutboxConfig(
+        dir=os.path.join(work, "p")))
+    try:
+        t0 = time.perf_counter()
+        for b in batches[:2]:
+            pub.publish(TOPIC_INFERENCE_BATCHES, b.to_dict())
+        poll_until(lambda: len(written(store, crawl, ids)) >= 2,
+                   "2 batches committed", procs=[worker, broker])
+        for b in batches[2:4]:
+            pub.publish(TOPIC_INFERENCE_BATCHES, b.to_dict())
+        poll_until(lambda: pub.outbox.depth() == 0,
+                   "4 batches accepted by the broker", procs=[broker],
+                   poll_s=0.002)
+        procs.kill(broker)
+        t_kill = time.perf_counter()
+        committed_at_kill = written(store, crawl, ids)
+        check(len(committed_at_kill) == 2,
+              f"at the kill {committed_at_kill} of 4 published batches "
+              f"were committed: 2 must be committed and 2 queued or in "
+              f"flight")
+        for b in batches[4:]:
+            pub.publish(TOPIC_INFERENCE_BATCHES, b.to_dict())
+        check(pub.outbox.depth() == 4,
+              f"{pub.outbox.depth()} publishes buffered in the outage")
+        time.sleep(max(0.0, t_kill + BUS_OUTAGE_S - time.perf_counter()))
+        status0 = json_route(url, "/status")["processed_batches"]
+        broker = procs.start("broker", *broker_argv(address, spool,
+                                                    m_broker))
+        t_restart = time.perf_counter()
+        poll_until(lambda: json_route(url, "/status")["processed_batches"]
+                   > status0, "a batch committed after the restart",
+                   procs=[worker, broker])
+        t_first = time.perf_counter()
+        poll_until(lambda: len(written(store, crawl, ids)) == len(ids)
+                   and pub.outbox.depth() == 0,
+                   "every batch committed", procs=[worker, broker])
+        t_last = time.perf_counter()
+        rows = result_rows(store, crawl, batches)
+        vs_engine = check_rows_against(np, rows, tpu["want"])
+        check(len(rows) == len(ids) * BATCH, f"{len(rows)} rows")
+        worker_bus = check_worker_outbox(url, "bus", "worker")
+        check(pub.outbox.depth() == 0, "the script's outbox not drained")
+        after, d1 = proc_counts(url)
+        launches = {p: after[p] - warm_launches[p] for p in after}
+        check_sm90_only(launches, tpu["n_layers"], d1 - d0,
+                        "worker across the broker restart")
+        status = json_route(url, "/status")
+        check(status["error_batches"] == 0,
+              f"worker batch errors {status['error_batches']}")
+        poison_row, broker = bus_dead_letters(procs, pub, address, spool,
+                                              burl, broker)
+    finally:
+        pub.close()
+    procs.stop(worker)
+    procs.stop(broker)
+    return {"posts": len(rows), "batches": len(ids),
+           "committed_at_kill": len(committed_at_kill),
+           "outage_s": t_restart - t_kill,
+           "restart_to_first_commit_s": t_first - t_restart,
+           "restart_to_last_row_s": t_last - t_restart,
+           "batches_processed": status["processed_batches"],
+           "batches_redelivered": status["processed_batches"] - len(ids),
+           "dispatches": d1 - d0, "kernel_launches_by_path": launches,
+           "posts_per_s": len(rows) / (t_last - t0),
+           "vs_engine": vs_engine, "worker_outbox": worker_bus,
+           "dead_letters": poison_row}
+
+
+def dlq_tool(*args):
+    """``python -m distributed_crawler_tpu_torch.bus.dlq`` as an operator
+    runs it: (exit code, stdout)."""
+    out = subprocess.run(
+        [sys.executable, "-m", f"{PACKAGE}.bus.dlq", *args], cwd=ROOT,
+        env=cli_env(), capture_output=True, text=True, timeout=120)
+    return out.returncode, out.stdout + out.stderr
+
+
+def bus_dead_letters(procs, pub, address, spool, burl, broker):
+    """(b) One poison frame the worker rejects on every delivery: on the
+    broker's /dlq with its attempts and reason; listed by the DLQ tool
+    from the spool while the broker is down; replayed through a new
+    broker generation, marked replayed, and dead-lettered again (it
+    re-entered delivery).  Returns (the report, the live broker)."""
+    from distributed_crawler_tpu_torch.bus import TOPIC_INFERENCE_BATCHES
+
+    topic = TOPIC_INFERENCE_BATCHES
+    poison = {"batch_id": "smoke-bus-poison", "records": 7}
+
+    def dead(body):
+        return [e for e in (body or {}).get("topics", {}).get(
+            topic, {}).get("entries", []) if e["reason"] == "max_attempts"]
+
+    pub.publish(topic, poison)
+    entries = poll_until(lambda: dead(json_route(burl, "/dlq")),
+                         "the poison frame on /dlq", procs=[broker])
+    check(len(entries) == 1 and entries[0]["attempts"] == BUS_MAX_ATTEMPTS,
+          f"/dlq entries {entries}")
+    fid = entries[0]["id"]
+    procs.stop(broker)
+    rc, listing = dlq_tool("--spool-dir", spool)
+    check(rc == 0 and fid in listing and "max_attempts" in listing,
+          f"the DLQ tool's listing ({rc}): {listing}")
+    rc, inspect = dlq_tool("--spool-dir", spool, "--topic", topic,
+                           "--inspect", fid)
+    check(rc == 0 and '"records": 7' in inspect,
+          f"the DLQ tool's entry ({rc}): {inspect}")
+    m_broker = int(burl.rsplit(":", 1)[1])
+    broker = procs.start("broker", *broker_argv(address, spool, m_broker))
+    poll_until(lambda: json_route(burl, "/dlq"), "the broker's /dlq",
+               procs=[broker])
+    rc, out = dlq_tool("--spool-dir", spool, "--topic", topic, "--replay",
+                       fid, "--bus-address", address)
+    check(rc == 0 and "replayed 1 entry" in out, f"replay ({rc}): {out}")
+    again = poll_until(
+        lambda: [e for e in dead(json_route(burl, "/dlq")) if e["id"] != fid],
+        "the replayed frame dead-lettered again", procs=[broker])
+    rc, listed = dlq_tool("--spool-dir", spool, "--topic", topic, "--json")
+    body = json.loads(listed.splitlines()[-1])
+    marked = {e["id"]: e["replayed"] for e in body["topics"][topic]["entries"]}
+    check(rc == 0 and marked.get(fid) is True
+          and marked.get(again[0]["id"]) is False,
+          f"replay marks {marked}")
+    return {"id": fid, "attempts": entries[0]["attempts"],
+            "reason": entries[0]["reason"], "listed_offline": True,
+            "replayed": True, "dead_again_as": again[0]["id"]}, broker
+
+
+def shard_batches(tpu, ring):
+    """Phase 11's 8 batches under new ids, alternating shard 0 and shard 1
+    of ``ring`` (4 each)."""
+    picks = {sid: [] for sid in ring.shard_ids}
+    i = 0
+    while min(len(v) for v in picks.values()) < 4:
+        bid = f"smoke-bus-c{i:03d}"
+        sid = ring.shard_for(bid)
+        if len(picks[sid]) < 4:
+            picks[sid].append(bid)
+        i += 1
+    order = [picks[s][k] for k in range(4) for s in ring.shard_ids]
+    return [replace(b, batch_id=bid)
+            for b, bid in zip(tpu["batches"], order)]
+
+
+def start_sharded(procs, work):
+    """(c)'s processes, started at the phase's start so that the worker's
+    warmup overlaps (a): two broker shards, each over its own spool, and a
+    worker on both."""
+    from distributed_crawler_tpu_torch.bus.partition import default_shard_ids
+
+    sids = default_shard_ids(2)
+    addrs = [f"127.0.0.1:{free_port()}" for _ in sids]
+    ports = [free_port() for _ in sids]
+    spools = [os.path.join(work, f"s{i}") for i in range(2)]
+    shards = [procs.start(f"shard{i}", *broker_argv(addrs[i], spools[i],
+                                                    ports[i]))
+              for i in range(2)]
+    store = os.path.join(work, "store_c")
+    m_worker = free_port()
+    worker = procs.start("worker_sharded", *bus_worker_argv(
+        "w14s", store, m_worker, os.path.join(work, "w2"),
+        "--bus-shard-addresses", ",".join(addrs), "--bus-shards", "2"))
+    return {"sids": sids, "addrs": addrs, "ports": ports, "spools": spools,
+            "shards": shards, "store": store, "worker": worker,
+            "url": f"http://127.0.0.1:{m_worker}"}
+
+
+def bus_partitioned(np, procs, work, tpu, smi, started):
+    """(c) Two broker shards and a worker on both (`start_sharded`); 8
+    batches (4 per shard) through a `PartitionedBus` with a durable outbox
+    per shard; shard 0 SIGKILLed after the first 4 are committed, the rest
+    published, shard 1's share committed while shard 0's parks, and shard
+    0 restarted over its spool."""
+    from distributed_crawler_tpu_torch.bus import TOPIC_INFERENCE_BATCHES
+    from distributed_crawler_tpu_torch.bus.grpc_bus import RemoteBus
+    from distributed_crawler_tpu_torch.bus.outbox import OutboxConfig
+    from distributed_crawler_tpu_torch.bus.partition import (
+        PartitionedBus,
+        ShardMap,
+    )
+
+    sids, addrs, ports, spools, shards, store, worker, url = (
+        started[k] for k in ("sids", "addrs", "ports", "spools", "shards",
+                             "store", "worker", "url"))
+    ring = ShardMap(sids)
+    warm_launches, d0 = worker_ready(url, worker)
+    batches = shard_batches(tpu, ring)
+    ids = [b.batch_id for b in batches]
+    crawl = batches[0].crawl_id
+    owner = {b: ring.shard_for(b) for b in ids}
+    pub = PartitionedBus(
+        {sid: RemoteBus(a) for sid, a in zip(sids, addrs)}, ring,
+        outbox=lambda sid: OutboxConfig(dir=os.path.join(work, "p2", sid)),
+        name="chip-smoke")
+    try:
+        t0 = time.perf_counter()
+        for b in batches[:4]:
+            pub.publish(TOPIC_INFERENCE_BATCHES, b.to_dict())
+        poll_until(lambda: len(written(store, crawl, ids)) == 4,
+                   "the first 4 batches committed",
+                   procs=[worker] + shards)
+        procs.kill(shards[0])
+        t_kill = time.perf_counter()
+        for b in batches[4:]:
+            pub.publish(TOPIC_INFERENCE_BATCHES, b.to_dict())
+        live = [b for b in ids[4:] if owner[b] == sids[1]]
+        parked = [b for b in ids[4:] if owner[b] == sids[0]]
+        poll_until(lambda: set(live) <= set(written(store, crawl, ids)),
+                   "shard 1's share committed while shard 0 is down",
+                   procs=[worker, shards[1]])
+        t_live = time.perf_counter()
+        check(not set(parked) & set(written(store, crawl, ids)),
+              "shard 0's share was committed while shard 0 was down")
+        depth0 = pub._outboxes[sids[0]].depth()
+        check(depth0 == len(parked),
+              f"{depth0} frames parked in shard 0's outbox, "
+              f"{len(parked)} expected")
+        time.sleep(max(0.0, t_kill + BUS_OUTAGE_S - time.perf_counter()))
+        during = json_route(url, "/shards")
+        shards[0] = procs.start("shard0", *broker_argv(addrs[0], spools[0],
+                                                       ports[0]))
+        t_restart = time.perf_counter()
+        poll_until(lambda: len(written(store, crawl, ids)) == len(ids)
+                   and pub.outbox_depth() == 0,
+                   "every batch committed", procs=[worker] + shards)
+        t_last = time.perf_counter()
+    finally:
+        pub.close()
+    base = os.path.join(store, "inference", crawl, "batches")
+    mtimes = [os.stat(os.path.join(base, f"{b}.jsonl")).st_mtime_ns
+              for b in parked]
+    check(mtimes == sorted(mtimes),
+          f"shard 0's parked batches committed out of order: {mtimes}")
+    rows = result_rows(store, crawl, batches)
+    vs_engine = check_rows_against(np, rows, tpu["want"])
+
+    def shards_settled():
+        body = json_route(url, "/shards")
+        rows_ = (body or {}).get("shards", {})
+        return (sorted(rows_) == sids and all(
+            r["breaker"] == "closed" and r["outbox_depth"] == 0
+            for r in rows_.values()) and body)
+
+    final = poll_until(shards_settled, "the worker's /shards settled",
+                       timeout_s=60.0, procs=[worker])
+    check(during is not None and sorted(during["shards"]) == sids,
+          f"/shards during the outage: {during}")
+    after, d1 = proc_counts(url)
+    launches = {p: after[p] - warm_launches[p] for p in after}
+    check_sm90_only(launches, tpu["n_layers"], d1 - d0,
+                    "worker on the sharded bus")
+    status = json_route(url, "/status")
+    procs.stop(worker)
+    for p in shards:
+        procs.stop(p)
+    return {"posts": len(rows), "batches": len(ids),
+            "by_shard": {sid: sum(1 for b in ids if owner[b] == sid)
+                         for sid in sids},
+            "parked": len(parked), "outage_s": t_restart - t_kill,
+            "kill_to_live_share_s": t_live - t_kill,
+            "restart_to_last_row_s": t_last - t_restart,
+            "batches_processed": status["processed_batches"],
+            "batches_redelivered": status["processed_batches"] - len(ids),
+            "dispatches": d1 - d0, "kernel_launches_by_path": launches,
+            "posts_per_s": len(rows) / (t_last - t0),
+            "shards_during_outage": {
+                sid: {k: r[k] for k in ("breaker", "outbox_depth")}
+                for sid, r in during["shards"].items()},
+            "shards_after": {
+                sid: {k: r[k] for k in ("breaker", "outbox_depth",
+                                        "routed_frames")}
+                for sid, r in final["shards"].items()},
+            "vs_engine": vs_engine}
+
+
+def phase_bus(np, attention, work, tpu, grpc_posts_s, smi):
+    """Phase 14: the durable and the partitioned bus between the CLI's
+    processes, E5-small behind them."""
+    try:
+        import grpc  # noqa: F401
+    except ImportError:
+        raise Fail("phase 14 needs grpc, and 'import grpc' failed") from None
+    t0 = time.perf_counter()
+    root = os.path.join(work, "bus")
+    os.makedirs(root)
+    procs = Procs(root)
+    # The script's own publishers retry through every outage by design:
+    # their per-attempt warnings are expected, and the report counts them.
+    quiet = {name: logging.getLogger(name).level
+             for name in ("dct.torch.resilience", "dct.torch.bus.outbox")}
+    for name in quiet:
+        logging.getLogger(name).setLevel(logging.ERROR)
+    try:
+        started = start_sharded(procs, root)
+        single = bus_broker_restart(np, procs, root, tpu, smi)
+        sharded = bus_partitioned(np, procs, root, tpu, smi, started)
+    except BaseException:
+        for name in ("broker", "worker", "shard0", "shard1",
+                     "worker_sharded"):
+            if os.path.exists(os.path.join(root, f"{name}.log")):
+                print(f"--- {name}.log", *procs.tail(name, 40), sep="\n",
+                      file=sys.stderr)
+        raise
+    finally:
+        procs.close()
+        for name, level in quiet.items():
+            logging.getLogger(name).setLevel(level)
+    launches = {p: single["kernel_launches_by_path"][p]
+                + sharded["kernel_launches_by_path"][p]
+                for p in attention.PATHS}
+    seconds = time.perf_counter() - t0
+    emit("bus.broker_restart", **single)
+    emit("bus.partitioned", **sharded)
+    emit("times.bus", outage_s=single["outage_s"],
+         restart_to_first_commit_s=single["restart_to_first_commit_s"],
+         restart_to_last_row_s=single["restart_to_last_row_s"],
+         batches_redelivered=single["batches_redelivered"],
+         posts_per_s=single["posts_per_s"],
+         sharded_outage_s=sharded["outage_s"],
+         sharded_restart_to_last_row_s=sharded["restart_to_last_row_s"],
+         sharded_posts_per_s=sharded["posts_per_s"],
+         phase11_grpc_posts_per_s=grpc_posts_s, card=smi)
+    emit("slice.bus", seconds=seconds, kernel_launches_by_path=launches)
     return {"launches": launches}
+
 
 # Phase 13 (slice.train): train-head at XLM-R-base's published widths.
 TRAIN_LABELS = ("news", "politics", "sports", "tech")
@@ -4616,6 +5156,32 @@ def train_run(torch, attention, argv, env):
     check(np_isfinite(summary["final_loss"]),
           f"train-head loss {summary['final_loss']}")
     return summary, seconds, read_launches(attention), peak
+
+
+def uninterrupted_full_run(argv, env, device=None):
+    """The uninterrupted full-scope run a resumed one is held against, in
+    this process, through the CLI's own steps from the same flags and
+    environment: its examples (`cli._train_examples`), engine
+    (`cli._make_engine`), tokens and full-scope training (`cli._train_full`),
+    with no train state, checkpoint or summary written.  Returns (params
+    tree, per-epoch losses, seconds)."""
+    from distributed_crawler_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    cfg, r = cli.resolve_config(cli.build_parser().parse_args(argv),
+                                env=env)
+    examples = cli._train_examples(r.get_str("train.posts_file"),
+                                   r.get_str("train.labels_file"))
+    check(examples is not None, "train-head examples did not read")
+    texts, labels, n_labels, _ = examples
+    engine = cli._make_engine(cfg, r, n_labels=n_labels, cast_params=False,
+                              device=device)
+    params, history = cli._train_full(
+        engine, r, engine.tokenizer.encode_batch(texts), labels,
+        epochs=r.get_int("train.epochs", 20))
+    del engine
+    return params["params"], [h["loss"] for h in history], \
+        time.perf_counter() - t0
 
 
 def np_isfinite(x):
@@ -4803,20 +5369,33 @@ def check_features(torch, np, tm, attention, fcfg, tree, toks, buckets,
     seconds = time.perf_counter() - t0
     del enc, model
     torch.cuda.empty_cache()
-    simt_ms, calls = feature_pass_simt_ms(torch, attention, fcfg, toks,
-                                          buckets, device)
+    simt, per_bucket = feature_pass_simt_ms(torch, attention, fcfg, toks,
+                                            buckets, device)
     row = {"posts": len(toks), "seconds": seconds,
-           "posts_per_s": len(toks) / seconds, "simt_ms": simt_ms,
-           "simt_calls": calls, "card": smi}
+           "posts_per_s": len(toks) / seconds, "simt_ms": simt["ms"],
+           "simt_calls": simt["calls"], "simt_plain_ms": simt["plain_ms"],
+           "simt_library_ms": simt["library_ms"],
+           "simt_bound_ms": simt["bound_ms"],
+           "simt_bound_by": simt["bound_by"],
+           "simt_bound_parts_ms": simt["bound_parts_ms"],
+           "simt_max_abs_err": simt["max_abs_err"], "card": smi}
     emit("times.train", step="feature_pass", **row)
+    for r in per_bucket:
+        emit("times.train", step="feature_pass_simt_bucket", card=smi, **r)
     return {"max_abs_err": err, "min_cosine": cos,
             "tol": list(TRAIN_FEATURE_TOL), "posts": TRAIN_CPU_POSTS}, row
 
 
 def feature_pass_simt_ms(torch, attention, fcfg, toks, buckets, device):
-    """The device time of the feature pass's attention: each batch's
-    kernel at its shape and padding mask ([32, bucket, 12, 64] f32), timed
-    by CUDA-graph replay, times the layers.  Returns (ms, launches)."""
+    """The device time of the feature pass's attention, each batch's call
+    at its shape and padding mask ([32, bucket, 12, 64] f32) timed by
+    CUDA-graph replay and multiplied by the layers: the `simt` kernel, its
+    plain version and SDPA in f32, beside the least time the card could
+    take (`attention_bound_ms` summed part by part over the same calls).
+    One batch per bucket is held against the plain version first.
+    Returns the totals and one row per bucket."""
+    import torch.nn.functional as F
+
     from distributed_crawler_tpu_torch.ops.padding import (
         BucketSpec,
         bucket_for,
@@ -4829,21 +5408,67 @@ def feature_pass_simt_ms(torch, attention, fcfg, toks, buckets, device):
     for i, t in enumerate(toks):
         groups.setdefault(bucket_for(len(t), spec), []).append(i)
     gen = torch.Generator(device=device).manual_seed(0)
-    total, calls = 0.0, 0
+    atol, rtol = TOLERANCE["float32"]
+    heads, d, layers = fcfg.n_heads, fcfg.head_dim, fcfg.n_layers
+    rows = []
     for bucket, idx in sorted(groups.items()):
-        shape = (32, bucket, fcfg.n_heads, fcfg.head_dim)
+        shape = (32, bucket, heads, d)
         q, k, v = (torch.randn(shape, generator=gen, device=device)
                    for _ in range(3))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        row = {"bucket": bucket, "batches": 0, "calls": 0, "ms": 0.0,
+               "plain_ms": 0.0, "library_ms": 0.0,
+               "bound_parts_ms": dict.fromkeys(
+                   ("bytes", "operations", "exponentials"), 0.0),
+               "allowed_pairs": 0, "max_abs_err": None}
         for start in range(0, len(idx), 32):
             _, mask = pack_batch([toks[i] for i in idx[start:start + 32]],
                                  BucketSpec((bucket,)), batch_pad_to=32)
             m = torch.as_tensor(mask, device=device)
-            ms = cudatime.graph_time_ms(
-                lambda: attention.flash_attention(q, k, v, m), calls=10,
-                min_total_s=0.02)
-            total += ms * fcfg.n_layers
-            calls += fcfg.n_layers
-    return total, calls
+            allow = attention._allowed_mask(m, None)
+            if row["max_abs_err"] is None:
+                out = attention.flash_attention(q, k, v, m)
+                ref = attention.attend(q, k, v, kv_mask=m)
+                torch.cuda.synchronize()
+                row["max_abs_err"] = (out - ref).abs().max().item()
+                check(bool(torch.allclose(out, ref, atol=atol, rtol=rtol)),
+                      f"simt disagrees at the feature pass's [32, {bucket}, "
+                      f"{heads}, {d}]: {row['max_abs_err']}")
+                del out, ref
+            times = {
+                "ms": cudatime.graph_time_ms(
+                    lambda: attention.flash_attention(q, k, v, m), calls=10,
+                    min_total_s=0.02),
+                "plain_ms": cudatime.graph_time_ms(
+                    lambda: attention.attend(q, k, v, kv_mask=m), calls=5,
+                    min_total_s=0.02),
+                "library_ms": cudatime.graph_time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=allow), calls=10,
+                    min_total_s=0.02)}
+            pairs = int(allow.expand(32, 1, bucket, bucket).sum().item())
+            parts = attention_bound_ms(pairs, 32, bucket, heads, d,
+                                       "float32", 4, False)
+            for key, ms in times.items():
+                row[key] += ms * layers
+            for key, ms in parts.items():
+                row["bound_parts_ms"][key] += ms * layers
+            row["allowed_pairs"] += pairs * layers
+            row["batches"] += 1
+            row["calls"] += layers
+        row["bound_ms"], row["bound_by"] = bound_of(row["bound_parts_ms"])
+        row["us_per_call"] = row["ms"] / row["calls"] * 1e3
+        row["bound_us_per_call"] = row["bound_ms"] / row["calls"] * 1e3
+        rows.append(row)
+        del q, k, v, qt, kt, vt
+    total = {key: sum(r[key] for r in rows)
+             for key in ("ms", "plain_ms", "library_ms", "calls")}
+    parts = {p: sum(r["bound_parts_ms"][p] for r in rows)
+             for p in rows[0]["bound_parts_ms"]}
+    total["bound_ms"], total["bound_by"] = bound_of(parts)
+    total["bound_parts_ms"] = parts
+    total["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    return total, rows
 
 
 def f32_labels(torch, np, tm, fcfg, params, texts, tokenizer, device):
@@ -5096,11 +5721,11 @@ def phase_train(torch, np, attention, device, seed, smi):
          served=len(out), card=smi)
 
     # (c) full scope: 2 epochs with --train-grad-accum 2, stopped after
-    # epoch 1 and resumed, against an uninterrupted run.
+    # epoch 1 and resumed, against an uninterrupted run of the CLI's own
+    # training in this process (no train state or checkpoint written).
     full = ["--train-scope", "full", "--train-grad-accum", "2"]
-    sd1, sd2 = os.path.join(root, "state1"), os.path.join(root, "state2")
+    sd1 = os.path.join(root, "state1")
     ckpt_full = os.path.join(root, "ckpt_full")
-    ckpt_straight = os.path.join(root, "ckpt_straight")
     runs = {}
     for name, argv in (
             ("first_epoch", full + ["--train-epochs", "1",
@@ -5108,10 +5733,7 @@ def phase_train(torch, np, attention, device, seed, smi):
                                     "--head-checkpoint", ckpt_full]),
             ("resumed", full + ["--train-epochs", "2",
                                 "--train-state-dir", sd1,
-                                "--head-checkpoint", ckpt_full]),
-            ("straight", full + ["--train-epochs", "2",
-                                 "--train-state-dir", sd2,
-                                 "--head-checkpoint", ckpt_straight])):
+                                "--head-checkpoint", ckpt_full])):
         summary, seconds, launches, mem = train_run(
             torch, attention, base + argv, env)
         check(launches == dict.fromkeys(attention.PATHS, 0),
@@ -5120,18 +5742,27 @@ def phase_train(torch, np, attention, device, seed, smi):
                       "peak_mem_bytes": mem}
     check(sorted(os.listdir(sd1)) == ["epoch_1"], f"state dir {sd1}: "
           f"{sorted(os.listdir(sd1))}")
-    hist = {}
-    for name, sd in (("resumed", sd1), ("straight", sd2)):
-        with open(os.path.join(sd, "epoch_1", "history.json")) as f:
-            hist[name] = [h["loss"] for h in json.load(f)["history"]]
+    zero_launches(attention)
+    (straight_tree, straight_losses, straight_s), straight_mem = \
+        peak_memory(torch, lambda: uninterrupted_full_run(
+            base + full + ["--train-epochs", "2", "--head-checkpoint",
+                           os.path.join(root, "unused")], env))
+    launches = read_launches(attention)
+    check(launches == dict.fromkeys(attention.PATHS, 0),
+          f"full scope (straight) launched {launches}")
+    runs["straight"] = {"seconds": straight_s, "in_process": True,
+                        "peak_mem_bytes": straight_mem}
+    hist = {"straight": straight_losses}
+    with open(os.path.join(sd1, "epoch_1", "history.json")) as f:
+        hist["resumed"] = [h["loss"] for h in json.load(f)["history"]]
     loss_rel = max(abs(a - b) / abs(b)
                    for a, b in zip(hist["resumed"], hist["straight"]))
     check(len(hist["resumed"]) == 2 and loss_rel <= TRAIN_RESUME_LOSS_RTOL,
           f"resumed losses {hist['resumed']} vs {hist['straight']}")
     resumed = flatten_tree(ck.load_params(
         runs["resumed"]["summary"]["checkpoint"])["params"])
-    straight = flatten_tree(ck.load_params(
-        runs["straight"]["summary"]["checkpoint"])["params"])
+    straight = flatten_tree(straight_tree)
+    del straight_tree
     start = flatten_tree(tree["params"])
     diff = max(float(np.abs(resumed[k] - straight[k]).max())
                for k in straight)
@@ -5142,9 +5773,9 @@ def phase_train(torch, np, attention, device, seed, smi):
           f"(largest movement {movement})")
     t0 = time.perf_counter()
     _, st_params, st_opt, _ = ck.load_train_state(
-        ck.latest_train_state(sd2))
+        ck.latest_train_state(sd1))
     state_read_s = time.perf_counter() - t0
-    state_bytes = os.path.getsize(os.path.join(sd2, "epoch_1",
+    state_bytes = os.path.getsize(os.path.join(sd1, "epoch_1",
                                                ck.PARAMS_FILE))
     t0 = time.perf_counter()
     ck.save_train_state(os.path.join(root, "state3"), 0, st_params, st_opt,
@@ -5290,11 +5921,13 @@ def main() -> int:
     ops = phase_ops(torch, np, args.seed, smi, e5["engine_rows"])
     cli_ = phase_cli(torch, np, attention, device, work.name, args.seed, smi,
                      e5, asr)
+    bus = phase_bus(np, attention, work.name, cli_["tpu"],
+                    cli_["grpc_posts_per_s"], smi)
     work.cleanup()
     train = phase_train(torch, np, attention, device, args.seed, smi)
     launches = {p: sum(ph["launches"][p]
                        for ph in (e5, tiny, xlmr, asr, clus, moe, ops, cli_,
-                                  train))
+                                  bus, train))
                 for p in attention.PATHS}
     print(json.dumps({"kernels": [
         kernel_entry(path, rows, worst, launches)

@@ -53,6 +53,13 @@ TOPIC_CLUSTERS = "tpu-clusters"
 # Span batches (fan-out like worker-status; a missed batch costs one
 # trace's completeness, never correctness).
 TOPIC_SPANS = "tpu-spans"
+# The crawler's and the orchestrator's fan-out topics, which no port
+# worker publishes: the partitioned bus broadcasts them as the
+# reference's does (`bus/partition.py`).
+TOPIC_RESULTS = "crawl-results"
+TOPIC_ORCHESTRATOR = "orchestrator-commands"
+TOPIC_CHAOS = "chaos-commands"
+TOPIC_ALERTS = "tpu-alerts"
 
 # Frames without a tenant label decode to this documented default.
 DEFAULT_TENANT = "default"

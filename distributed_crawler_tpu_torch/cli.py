@@ -16,7 +16,14 @@ on the card and the broker between processes:
 - ``train-head``: fine-tune the classifier (head, LoRA or full scope) on
   a crawl's posts and labels into a port checkpoint, which ``tpu-worker
   --head-checkpoint`` serves;
-- ``bus``: a dedicated gRPC broker.
+- ``bus``: a dedicated gRPC broker; with ``--bus-spool-dir`` it journals
+  every pull-topic frame, resumes after a crash and keeps a dead-letter
+  queue, served at ``/dlq``.
+
+With ``--bus-spool-dir``, a worker's publishes go through a durable
+outbox under ``<spool-dir>/outbox/<worker-id>``, so a broker outage
+buffers them; with ``--bus-shard-addresses`` a worker's bus is a
+partitioned bus over the listed broker shards, served at ``/shards``.
 
 The flags, their ``CRAWLER_*`` environment variables and the YAML config
 keys are the reference's, resolved through the same precedence (flags >
@@ -81,11 +88,23 @@ def build_parser() -> argparse.ArgumentParser:
       help="gRPC bus address, e.g. 127.0.0.1:50551 (needs grpcio; empty "
            "= in-process bus)")
     a("--bus-spool-dir", default=None,
-      help="broker WAL spool directory (not ported)")
+      help="broker WAL spool directory: the hosted GrpcBusServer journals "
+           "every pull-topic frame and dead letters here, so a restarted "
+           "broker resumes where the dead one stopped; it also routes this "
+           "process's publishes through a durable outbox (empty = RAM-only "
+           "bus)")
+    a("--bus-outbox-max-frames", type=int, default=None,
+      help="bound on publishes buffered in the durable outbox while the "
+           "broker is unreachable (default 1024)")
     a("--bus-shard-addresses", default=None,
-      help="comma-separated broker shard addresses (not ported)")
+      help="comma-separated gRPC addresses of the bus broker shards (one "
+           "`--mode bus` process per address, each with its own "
+           "--bus-spool-dir); pull-topic frames are routed by key across "
+           "them and fan-out topics broadcast; a dead shard's frames park "
+           "in that shard's outbox until it returns")
     a("--bus-shards", type=int, default=None,
-      help="expected shard count (not ported)")
+      help="expected shard count, validated against "
+           "--bus-shard-addresses")
     a("--bus-ack-timeout-s", type=float, default=None,
       help="seconds a pulled frame may stay unacked before the broker "
            "requeues it (default 300)")
@@ -239,6 +258,7 @@ _KEY_MAP = {
     "bus_spool_dir": "bus.spool_dir",
     "bus_shards": "bus.shards",
     "bus_shard_addresses": "bus.shard_addresses",
+    "bus_outbox_max_frames": "bus.outbox_max_frames",
     "bus_ack_timeout_s": "bus.ack_timeout_s",
     "bus_max_attempts": "bus.max_attempts",
     "metrics_port": "observability.metrics_port",
@@ -550,21 +570,91 @@ def _make_provider(cfg: CrawlerConfig):
 
 # -- the bus ----------------------------------------------------------------
 
+def _bus_outbox_config(r: ConfigResolver, who: str):
+    """The durable-outbox config for one publisher, or None when bus
+    durability is off (``bus.spool_dir`` empty).  The spill WAL lands under
+    ``<spool-dir>/outbox/<who>``: a path per publisher, so co-hosted
+    publishers never share a WAL."""
+    spool_dir = r.get_str("bus.spool_dir", "")
+    if not spool_dir:
+        return None
+    from .bus.outbox import OutboxConfig
+
+    return OutboxConfig(
+        dir=os.path.join(spool_dir, "outbox", who or "client"),
+        max_frames=r.get_int("bus.outbox_max_frames", 1024))
+
+
+def _parse_shard_addresses(r: ConfigResolver) -> List[str]:
+    """The shard list from ``bus.shard_addresses`` (a comma string from
+    --bus-shard-addresses, or a YAML list).  A declared ``bus.shards``
+    must match it (a truncated list would silently re-deal the hash ring),
+    and duplicate addresses are refused (two shards sharing one broker and
+    its WAL spool would cross-contaminate crash recovery)."""
+    raw = r.get("bus.shard_addresses")
+    if isinstance(raw, str):
+        addrs = [a.strip() for a in raw.split(",") if a.strip()]
+    elif isinstance(raw, (list, tuple)):
+        addrs = [str(a).strip() for a in raw if str(a).strip()]
+    else:
+        addrs = []
+    declared = r.get_int("bus.shards", 0)
+    if declared > 1 and not addrs:
+        raise CliConfigError(
+            "--bus-shards needs --bus-shard-addresses (one gRPC address "
+            "per broker shard)")
+    if not addrs:
+        return []
+    if declared and declared != len(addrs):
+        raise CliConfigError(
+            f"--bus-shards={declared} but --bus-shard-addresses names "
+            f"{len(addrs)} shard(s) — a mismatched list would re-deal "
+            f"the consistent-hash ring; fix one of them")
+    if len(set(addrs)) != len(addrs):
+        raise CliConfigError(
+            f"duplicate addresses in --bus-shard-addresses {addrs!r}: "
+            f"two shards sharing one broker (and its WAL spool) would "
+            f"cross-contaminate each other's crash recovery")
+    return addrs
+
+
+def _require_grpc() -> None:
+    try:
+        import grpc  # noqa: F401
+    except ImportError:
+        raise CliConfigError(
+            "--bus-address needs the grpcio package ('import grpc' "
+            "failed); install grpcio, or run without --bus-address on the "
+            "in-process bus") from None
+
+
 def _make_bus(r: ConfigResolver, serve: bool = False):
     """No ``--bus-address``: the in-process bus.  With one: a hosted
     `GrpcBusServer` (``serve``) with the work topics pull-enabled, or a
-    `RemoteBus` client.  The spool, the outbox and the partitioned bus
-    wait for ROADMAP item 7b."""
-    shards = r.get("bus.shard_addresses")
-    if shards or r.get_int("bus.shards", 0) > 1:
+    `RemoteBus` client.  With ``bus.spool_dir`` the broker journals its
+    pull topics and dead letters, and a client's publishes ride a durable
+    outbox.  With ``bus.shard_addresses`` the client is a `PartitionedBus`
+    over every shard (a process serves one shard at most) and serves the
+    ``/shards`` table."""
+    shard_addrs = _parse_shard_addresses(r)
+    if shard_addrs and serve:
         raise CliConfigError(
-            "--bus-shard-addresses / --bus-shards: the partitioned bus "
-            "waits for ROADMAP item 7b (bus durability and partitioning); "
-            "use one --bus-address")
+            "--bus-serve (and --mode bus) host ONE broker shard per "
+            "process: run one --mode bus process per shard address, each "
+            "with its OWN --bus-spool-dir, and point clients at "
+            "--bus-shard-addresses")
+    if shard_addrs and r.get_str("distributed.bus_address"):
+        raise CliConfigError(
+            "--bus-address and --bus-shard-addresses are mutually "
+            "exclusive: pass the single broker OR the shard list, "
+            "not both")
+    who = r.get_str("distributed.worker_id") \
+        or r.get_str("distributed.mode") or "client"
+    if shard_addrs:
+        return _make_partitioned_bus(r, shard_addrs, who)
     address = r.get_str("distributed.bus_address")
-    spool_dir = r.get_str("bus.spool_dir", "")
     if not address:
-        if spool_dir:
+        if r.get_str("bus.spool_dir", ""):
             # Only the gRPC broker journals; say so rather than let the
             # operator believe frames survive a restart.
             logger.warning(
@@ -576,22 +666,11 @@ def _make_bus(r: ConfigResolver, serve: bool = False):
         bus = InMemoryBus(sync=False)
         bus.start()
         return bus
-    if spool_dir:
-        raise CliConfigError(
-            "--bus-spool-dir with --bus-address: the broker spool and the "
-            "durable outbox wait for ROADMAP item 7b (bus durability and "
-            "partitioning); run the bus without a spool")
-    try:
-        import grpc  # noqa: F401
-    except ImportError:
-        raise CliConfigError(
-            "--bus-address needs the grpcio package ('import grpc' "
-            "failed); install grpcio, or run without --bus-address on the "
-            "in-process bus") from None
+    _require_grpc()
     if not serve:
         from .bus.grpc_bus import RemoteBus
 
-        return RemoteBus(address)
+        return RemoteBus(address, outbox=_bus_outbox_config(r, who))
     from .bus.grpc_bus import GrpcBusServer
     from .bus.messages import (
         TOPIC_INFERENCE_BATCHES,
@@ -603,7 +682,8 @@ def _make_bus(r: ConfigResolver, serve: bool = False):
 
     server = GrpcBusServer(
         address, ack_timeout_s=r.get_float("bus.ack_timeout_s", 300.0),
-        max_attempts=r.get_int("bus.max_attempts", 5))
+        max_attempts=r.get_int("bus.max_attempts", 5),
+        spool_dir=r.get_str("bus.spool_dir", "") or None)
     # Pull (competing-consumer) topics are enabled up front so frames
     # published before the first consumer are queued, not dropped.
     # Fan-out topics stay local dispatch.
@@ -619,8 +699,38 @@ def _make_bus(r: ConfigResolver, serve: bool = False):
     return server
 
 
+def _make_partitioned_bus(r: ConfigResolver, shard_addrs: List[str],
+                          who: str):
+    """A `PartitionedBus` of `RemoteBus` clients, one per shard, with a
+    durable outbox per shard under ``<spool-dir>/outbox/<who>/<shard>``
+    when bus durability is on; its table is served at ``/shards``."""
+    import dataclasses
+
+    _require_grpc()
+    from .bus.grpc_bus import RemoteBus
+    from .bus.partition import PartitionedBus, ShardMap, default_shard_ids
+    from .utils.metrics import set_shards_provider
+
+    sids = default_shard_ids(len(shard_addrs))
+    base = _bus_outbox_config(r, who)
+    shard_outbox = None
+    if base is not None:
+        def shard_outbox(sid):
+            return dataclasses.replace(base, dir=os.path.join(base.dir, sid))
+    logger.info("partitioned bus: %d shard(s) %s (durable outboxes: %s)",
+                len(shard_addrs), shard_addrs,
+                "on" if base is not None else "off")
+    bus = PartitionedBus({sid: RemoteBus(addr)
+                          for sid, addr in zip(sids, shard_addrs)},
+                         ShardMap(sids), outbox=shard_outbox, name=who)
+    set_shards_provider(bus.snapshot)
+    return bus
+
+
 def _make_serving_bus(r: ConfigResolver) -> "_ServingBus":
-    """Broker + loopback consumer for a ``--bus-serve`` process."""
+    """Broker + loopback consumer for a ``--bus-serve`` process; the
+    consumer goes through `_make_bus` too, so it gets the durable outbox
+    when bus durability is on."""
     server = _make_bus(r, serve=True)
     return _ServingBus(server, _make_bus(r))
 
@@ -875,6 +985,12 @@ def _run_bus(r: ConfigResolver) -> int:
         print("error: bus mode requires --bus-address", file=sys.stderr)
         return 2
     bus = _make_bus(r, serve=True)
+    if r.get_str("bus.spool_dir", ""):
+        # A durable broker serves its dead-letter queue on the metrics
+        # port (`python -m distributed_crawler_tpu_torch.bus.dlq --url`).
+        from .utils.metrics import set_dlq_provider
+
+        set_dlq_provider(bus.dlq_snapshot)
     try:
         _serve_forever()
     finally:
@@ -939,6 +1055,81 @@ def _run_transcribe(cfg: CrawlerConfig, r: ConfigResolver,
     return 0 if len(results) > failed else 1
 
 
+def _train_examples(posts_file: str, labels_file: str):
+    """train-head's examples: (texts, class ids, n_labels, the sorted
+    vocabulary of string labels or None), in the labels file's order, of
+    the labelled posts found in the crawl file; None after printing the
+    error (exit 2)."""
+    import json
+
+    texts: dict = {}
+    with open(posts_file, "r", encoding="utf-8") as f:
+        for line in f:
+            if not line.strip():
+                continue
+            row = json.loads(line)
+            text = row.get("all_text") or row.get("description") or ""
+            if row.get("post_uid") and text:
+                texts[row["post_uid"]] = text
+
+    raw_labels: list = []
+    with open(labels_file, "r", encoding="utf-8") as f:
+        for line in f:
+            if not line.strip():
+                continue
+            row = json.loads(line)
+            if row.get("post_uid") in texts:
+                raw_labels.append((row["post_uid"], row["label"]))
+    if not raw_labels:
+        print("error: no labelled posts matched the crawl file",
+              file=sys.stderr)
+        return None
+
+    values = [lbl for _, lbl in raw_labels]
+    str_count = sum(isinstance(v, str) for v in values)
+    if str_count and str_count != len(values):
+        # One stray string would remap every int id through string-sort
+        # order: refuse instead.
+        print("error: labels file mixes string and integer labels; "
+              "use one kind consistently", file=sys.stderr)
+        return None
+    if str_count:
+        vocab = sorted({str(v) for v in values})
+        index = {name: i for i, name in enumerate(vocab)}
+        pairs = [(uid, index[str(v)]) for uid, v in raw_labels]
+    else:
+        vocab = None
+        pairs = [(uid, int(v)) for uid, v in raw_labels]
+        if any(lbl < 0 for _, lbl in pairs):
+            print("error: negative label ids are not valid classes "
+                  "(drop unlabeled rows instead of marking them -1)",
+                  file=sys.stderr)
+            return None
+    n_labels = (len(vocab) if vocab is not None
+                else max(lbl for _, lbl in pairs) + 1)
+    return ([texts[uid] for uid, _ in pairs], [lbl for _, lbl in pairs],
+            n_labels, vocab)
+
+
+def _train_full(engine, r: ConfigResolver, token_lists, labels,
+                epochs: int, state_dir: str = ""):
+    """train-head's full scope on ``engine``'s params: its batch,
+    accumulation and optimizer settings from ``r``; (params, history)."""
+    from .models.train import TrainConfig, finetune_full
+
+    batch = min(16, max(4, len(labels)))
+    # Accumulation splits each batch; keep microbatches non-empty.
+    grad_accum = min(r.get_int("train.grad_accum_steps", 1), batch)
+    batch -= batch % grad_accum
+    tc = TrainConfig(
+        learning_rate=r.get_float("train.learning_rate", 2e-5),
+        warmup_steps=10, grad_accum_steps=grad_accum)
+    return finetune_full(
+        engine.ecfg, engine.params, token_lists, labels, tc=tc,
+        epochs=epochs, batch_size=batch, state_dir=state_dir or None,
+        device=engine.device)
+
+
 def _run_train_head(cfg: CrawlerConfig, r: ConfigResolver,
                     device=None) -> int:
     """mode=train-head: crawl JSONL + labels file -> fine-tuned classifier
@@ -962,59 +1153,15 @@ def _run_train_head(cfg: CrawlerConfig, r: ConfigResolver,
         print("error: train-head needs --train-posts, --train-labels and "
               "--head-checkpoint", file=sys.stderr)
         return 2
-
-    texts: dict = {}
-    with open(posts_file, "r", encoding="utf-8") as f:
-        for line in f:
-            if not line.strip():
-                continue
-            row = json.loads(line)
-            text = row.get("all_text") or row.get("description") or ""
-            if row.get("post_uid") and text:
-                texts[row["post_uid"]] = text
-
-    raw_labels: list = []
-    with open(labels_file, "r", encoding="utf-8") as f:
-        for line in f:
-            if not line.strip():
-                continue
-            row = json.loads(line)
-            if row.get("post_uid") in texts:
-                raw_labels.append((row["post_uid"], row["label"]))
-    if not raw_labels:
-        print("error: no labelled posts matched the crawl file",
-              file=sys.stderr)
+    examples = _train_examples(posts_file, labels_file)
+    if examples is None:
         return 2
-
-    values = [lbl for _, lbl in raw_labels]
-    str_count = sum(isinstance(v, str) for v in values)
-    if str_count and str_count != len(values):
-        # One stray string would remap every int id through string-sort
-        # order: refuse instead.
-        print("error: labels file mixes string and integer labels; "
-              "use one kind consistently", file=sys.stderr)
-        return 2
-    if str_count:
-        vocab = sorted({str(v) for v in values})
-        index = {name: i for i, name in enumerate(vocab)}
-        pairs = [(uid, index[str(v)]) for uid, v in raw_labels]
-    else:
-        vocab = None
-        pairs = [(uid, int(v)) for uid, v in raw_labels]
-        if any(lbl < 0 for _, lbl in pairs):
-            print("error: negative label ids are not valid classes "
-                  "(drop unlabeled rows instead of marking them -1)",
-                  file=sys.stderr)
-            return 2
-    n_labels = (len(vocab) if vocab is not None
-                else max(lbl for _, lbl in pairs) + 1)
+    texts, labels, n_labels, vocab = examples
 
     engine = _make_engine(cfg, r, n_labels=n_labels, cast_params=False,
                           device=device)
 
-    token_lists = engine.tokenizer.encode_batch(
-        [texts[uid] for uid, _ in pairs])
-    labels = [lbl for _, lbl in pairs]
+    token_lists = engine.tokenizer.encode_batch(texts)
     epochs = r.get_int("train.epochs", 20)
     if epochs < 1:
         print("error: --train-epochs must be >= 1", file=sys.stderr)
@@ -1066,19 +1213,8 @@ def _run_train_head(cfg: CrawlerConfig, r: ConfigResolver,
             rank=lora_rank, tc=tc, epochs=epochs,
             batch_size=min(16, max(4, len(labels))), device=dev)
     elif scope == "full":
-        from .models.train import finetune_full
-
-        batch = min(16, max(4, len(labels)))
-        # Accumulation splits each batch; keep microbatches non-empty.
-        grad_accum = min(grad_accum, batch)
-        batch -= batch % grad_accum
-        tc = TrainConfig(
-            learning_rate=r.get_float("train.learning_rate", 2e-5),
-            warmup_steps=10, grad_accum_steps=grad_accum)
-        params, history = finetune_full(
-            engine.ecfg, params, token_lists, labels, tc=tc,
-            epochs=epochs, batch_size=batch,
-            state_dir=state_dir or None, device=dev)
+        params, history = _train_full(engine, r, token_lists, labels,
+                                      epochs, state_dir)
     else:
         tc = TrainConfig(
             learning_rate=r.get_float("train.learning_rate", 1e-3),

@@ -4,9 +4,10 @@ The reference's `distributed_crawler_tpu/utils/flight.py`.  A bounded,
 thread-safe ring of structured events (batch outcomes, SLO breaches, slow
 batches, profiler captures, device stalls, kills) recorded by the workers,
 and on the way down a **postmortem bundle** — the flight ring, the trace
-export, the metrics exposition, the ``/clusters`` state, the WARNING+ log
-ring, recent time series and the config fingerprint — written as one JSON
-file under the dump directory.  `tools/postmortem.py` renders a bundle.
+export, the metrics exposition, the ``/clusters`` state, the partitioned
+bus's ``/shards`` table, the WARNING+ log ring, recent time series and the
+config fingerprint — written as one JSON file under the dump directory.
+`tools/postmortem.py` renders a bundle.
 
 :func:`install` hooks the exits: chained ``sys.excepthook`` and
 ``threading.excepthook`` dump a bundle, and ``faulthandler`` writes native
@@ -111,6 +112,13 @@ class FlightRecorder:
         clusters = clusters_snapshot()
         if clusters is not None:
             bundle["clusters"] = clusters
+        # The partitioned bus's shard table: which shard was dead or
+        # parked, and how deep its outbox ran, when the process went down.
+        from .metrics import shards_snapshot
+
+        shards = shards_snapshot()
+        if shards is not None:
+            bundle["bus_shards"] = shards
         # The structured-log ring: the last WARNING+ records before the
         # crash, even when stderr scrolled away.
         from .metrics import logs_snapshot

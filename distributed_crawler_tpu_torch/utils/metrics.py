@@ -8,14 +8,17 @@ postmortem.py` and the orchestrator's fleet view):
 
 - `MetricsRegistry` and its `Counter`, `Gauge` and `Histogram` families,
   ``.labels(...)`` children, and ``expose()``;
-- the late-bound providers behind ``/status``, ``/costs`` and
-  ``/clusters``, registered by the worker once it exists;
+- the late-bound providers behind ``/status``, ``/costs``,
+  ``/clusters``, ``/dlq`` (a durable broker's dead-letter queue) and
+  ``/shards`` (a partitioned bus client's shard table), registered by
+  their owner once it exists;
 - `serve_metrics`: ``/healthz``, ``/metrics``, ``/traces``, ``/status``,
-  ``/costs``, ``/profile``, ``/clusters``, ``/timeseries`` and ``/logs``
-  (the WARNING+ ring of `utils/structlog.py`, served always) on a daemon
-  thread.  The orchestrator's routes (``/dtraces``, ``/dlq``,
-  ``/alerts``, ``/shards``, ``/autoscaler``, ``/tenants``, ``/cluster``)
-  answer 404: no orchestrator runs in the port.
+  ``/costs``, ``/profile``, ``/clusters``, ``/dlq``, ``/shards``,
+  ``/timeseries`` and ``/logs`` (the WARNING+ ring of `utils/
+  structlog.py`, served always) on a daemon thread.  A provider route
+  with no provider answers 404, as the orchestrator's routes
+  (``/dtraces``, ``/alerts``, ``/autoscaler``, ``/tenants``,
+  ``/cluster``) always do: no orchestrator runs in the port.
 """
 
 from __future__ import annotations
@@ -254,7 +257,8 @@ REGISTRY = MetricsRegistry()
 # ``clear_*`` unregisters only a provider that is still the active one,
 # so a stopping component never yanks one registered after it.
 _providers: Dict[str, object] = {"status": None, "costs": None,
-                                 "clusters": None}
+                                 "clusters": None, "dlq": None,
+                                 "shards": None}
 
 
 def _set(kind: str, fn) -> None:
@@ -296,16 +300,47 @@ def clear_clusters_provider(fn) -> None:
     _clear("clusters", fn)
 
 
-def clusters_snapshot():
-    """The active /clusters body, or None without a provider: the flight
-    recorder puts it in postmortem bundles."""
-    fn = _providers["clusters"]
+def set_dlq_provider(fn) -> None:
+    """Register the dict provider served at /dlq, called as
+    ``fn(topic=..., id=...)``; None clears."""
+    _set("dlq", fn)
+
+
+def clear_dlq_provider(fn) -> None:
+    _clear("dlq", fn)
+
+
+def set_shards_provider(fn) -> None:
+    """Register the zero-arg dict provider served at /shards (None
+    clears)."""
+    _set("shards", fn)
+
+
+def clear_shards_provider(fn) -> None:
+    _clear("shards", fn)
+
+
+def _snapshot(kind: str):
+    fn = _providers[kind]
     if fn is None:
         return None
     try:
         return fn()
     except Exception as e:
         return {"error": str(e)}
+
+
+def clusters_snapshot():
+    """The active /clusters body, or None without a provider: the flight
+    recorder puts it in postmortem bundles."""
+    return _snapshot("clusters")
+
+
+def shards_snapshot():
+    """The active /shards body, or None without a provider: the flight
+    recorder puts it in postmortem bundles (which shard was parked or
+    broken when the process went down)."""
+    return _snapshot("shards")
 
 
 def logs_snapshot():
@@ -334,6 +369,13 @@ def _query_float(query: Dict[str, List[str]], key: str) -> float:
         return 0.0
 
 
+def _dlq_body(provider, query: Dict[str, List[str]]) -> bytes:
+    topic = (query.get("topic") or [""])[0]
+    entry_id = (query.get("id") or [""])[0]
+    payload = provider(topic=topic or None, id=entry_id or None)
+    return json.dumps(payload, default=str).encode("utf-8")
+
+
 class _Handler(BaseHTTPRequestHandler):
     registry: MetricsRegistry = REGISTRY
     providers: Dict[str, object] = {}   # this server's own, over globals
@@ -343,7 +385,8 @@ class _Handler(BaseHTTPRequestHandler):
         query = parse_qs(self.path.partition("?")[2])
         code, ctype = 200, "application/json"
         kind = {"/status": "status", "/costs": "costs",
-                "/clusters": "clusters"}.get(path)
+                "/clusters": "clusters", "/dlq": "dlq",
+                "/shards": "shards"}.get(path)
         provider = self.providers.get(kind) or _providers.get(kind) \
             if kind else None
         if path in ("", "/health", "/healthz"):
@@ -360,7 +403,12 @@ class _Handler(BaseHTTPRequestHandler):
                 limit=_query_limit(query)), default=str).encode("utf-8")
         elif provider is not None:
             try:
-                body = json.dumps(provider(), default=str).encode("utf-8")
+                if kind == "dlq":
+                    # ?topic=&id= returns one entry's full payload.
+                    body = _dlq_body(provider, query)
+                else:
+                    body = json.dumps(provider(),
+                                      default=str).encode("utf-8")
             except Exception as e:
                 # Visible to status-code monitors, one response per
                 # request.
@@ -419,10 +467,11 @@ def serve_metrics(port: int, registry: MetricsRegistry = REGISTRY,
                   ) -> ThreadingHTTPServer:
     """Serve the routes above on 127.0.0.1 from a daemon thread; returns
     the server (``.shutdown()`` stops it).  Port 0 picks a free port
-    (``server.server_address[1]``).  ``providers`` maps ``"status"``,
-    ``"costs"`` or ``"clusters"`` to this server's own provider, so two
-    workers in one process each serve their own maps; without one a route
-    uses the provider registered through ``set_*_provider``."""
+    (``server.server_address[1]``).  ``providers`` maps a provider
+    route's name (``"status"``, ``"costs"``, ...) to this server's own
+    provider, so two workers in one process each serve their own maps;
+    without one a route uses the provider registered through
+    ``set_*_provider``."""
     handler = type("Handler", (_Handler,), {
         "registry": registry, "providers": dict(providers or {})})
     server = ThreadingHTTPServer(("127.0.0.1", port), handler)

@@ -23,6 +23,11 @@ package's, on the CPU.
   renders.
 - Each feature that waits, and each crawler mode, exits 2 and names what
   it waits for.
+- The bus: each of the reference's shard-configuration errors with its
+  exit code and message; the durable outbox's WAL under
+  ``<spool-dir>/outbox/<who>``; ``--mode bus --bus-spool-dir`` serving
+  ``/dlq``; ``--bus-shard-addresses`` building a `PartitionedBus` whose
+  ``/shards`` body equals the reference's.
 
 Every test runs under `restored_logging`: both packages' `main()` run
 `setup_logging`, which stops the "dct" logger tree from propagating to
@@ -51,6 +56,7 @@ pytest.importorskip("jax")
 
 from distributed_crawler_tpu import cli as jcli  # noqa: E402
 from distributed_crawler_tpu_torch import cli as tcli  # noqa: E402
+from distributed_crawler_tpu_torch.bus import outbox as toutbox  # noqa: E402
 from distributed_crawler_tpu_torch.inference import engine as teng  # noqa: E402
 from distributed_crawler_tpu_torch.utils import structlog as tstruct  # noqa: E402
 from tests.test_torch_structlog import (  # noqa: E402
@@ -593,11 +599,6 @@ def _waiting_cases(tmp):
         "object_store_cluster": (["--mode", "cluster-worker",
                                   "--object-store", "file:///x"] + store,
                                  {}, "object-store"),
-        "spool_with_address": (bus + ["--bus-spool-dir", str(tmp)], {},
-                               "ROADMAP item 7b"),
-        "shard_addresses": (bus + ["--bus-shard-addresses", "a:1,b:2"], {},
-                            "ROADMAP item 7b"),
-        "shards": (bus + ["--bus-shards", "2"], {}, "ROADMAP item 7b"),
         "asr_infer": (asr + ["--infer"], {}, "re-entry"),
         "transcribe_infer": (["--mode", "transcribe", "--transcribe-input",
                               str(tmp), "--asr-pretrained-dir", str(tmp),
@@ -619,6 +620,185 @@ def test_waiting_feature_exits_2(tmp_path, monkeypatch, capsys, case):
     rc, _, err = run_main(tcli, argv, capsys, device="cpu")
     assert rc == 2, err
     assert needle in err
+
+
+# -- the bus: durability and shards -------------------------------------------
+def _shard_error_cases():
+    bus = ["--mode", "bus", "--bus-address", "127.0.0.1:1"]
+    tiny = ["--mode", "tpu-worker", "--infer-model", "tiny"]
+    return {
+        "shards_without_addresses": bus + ["--bus-shards", "3"],
+        "count_mismatch": bus + ["--bus-shard-addresses", "a:1,b:2",
+                                 "--bus-shards", "3"],
+        "duplicate_addresses": bus + ["--bus-shard-addresses", "a:1,a:1"],
+        "serve_with_shards": bus + ["--bus-shard-addresses", "a:1,b:2"],
+        "address_with_shards": tiny + ["--bus-address", "c:3",
+                                       "--bus-shard-addresses", "a:1,b:2"],
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_shard_error_cases()))
+def test_shard_config_error_equals_the_references(tmp_path, capsys, case):
+    argv = _shard_error_cases()[case] + ["--storage-root",
+                                         str(tmp_path / "store")]
+    got = {}
+    for name, cli, kw in (("port", tcli, {"device": "cpu"}),
+                          ("ref", jcli, {})):
+        rc, _, err = run_main(cli, argv, capsys, **kw)
+        got[name] = (rc, [ln for ln in err.splitlines()
+                          if ln.startswith("error: ")])
+    assert got["port"] == got["ref"]
+    assert got["port"][0] == 2 and len(got["port"][1]) == 1
+
+
+@pytest.mark.parametrize("who", ["w14", "", "mode"])
+def test_outbox_wal_per_publisher_equals_the_references(tmp_path, who):
+    argv = ["--mode", "tpu-worker", "--bus-spool-dir", str(tmp_path),
+            "--bus-outbox-max-frames", "77"]
+    if who == "w14":
+        argv += ["--worker-id", who]
+    (_, t_r), (_, j_r) = (resolve(c, argv) for c in (tcli, jcli))
+    mine = tcli._bus_outbox_config(t_r, t_r.get_str("distributed.worker_id")
+                                   or ("tpu-worker" if who else ""))
+    ref = jcli._bus_outbox_config(j_r, j_r.get_str("distributed.worker_id")
+                                  or ("tpu-worker" if who else ""))
+    ref_fields = dataclasses.asdict(ref)
+    assert dataclasses.asdict(mine) == {
+        k: ref_fields[k] for k in dataclasses.asdict(mine)}
+    # The reference's remaining fields are the port's module constants.
+    assert (ref.retry_attempts, ref.fsync, ref.fsync_every,
+            ref.compact_every, ref.near_full_fraction) == (
+        toutbox.RETRY_ATTEMPTS, True, toutbox.FSYNC_EVERY,
+        toutbox.COMPACT_EVERY, toutbox.NEAR_FULL_FRACTION)
+    want = {"w14": "w14", "mode": "tpu-worker", "": "client"}[who]
+    assert mine.dir == os.path.join(str(tmp_path), "outbox", want)
+    assert mine.max_frames == 77
+    assert tcli._bus_outbox_config(resolve(tcli, ["--mode", "bus"])[1],
+                                   "x") is None
+
+
+def test_worker_bus_publishes_through_its_outbox(tmp_path):
+    """A worker mode's `RemoteBus` (and a --bus-serve process's loopback
+    client) buffers through a dead broker into
+    ``<spool>/outbox/<worker-id>/outbox.jsonl``."""
+    from distributed_crawler_tpu_torch.bus.grpc_bus import RemoteBus
+
+    spool = tmp_path / "spool"
+    _, r = resolve(tcli, ["--mode", "tpu-worker", "--bus-address",
+                          f"127.0.0.1:{free_port()}", "--bus-spool-dir",
+                          str(spool), "--worker-id", "w14"])
+    bus = tcli._make_bus(r)
+    try:
+        assert isinstance(bus, RemoteBus) and bus.outbox is not None
+        bus.publish("t", {"n": 1})  # nothing listens: buffered, no raise
+        assert bus.outbox.depth() == 1
+    finally:
+        bus.close()
+    wal = spool / "outbox" / "w14" / "outbox.jsonl"
+    assert [json.loads(x)["k"] for x in wal.read_text().splitlines()] == \
+        ["put"]
+    _, r = resolve(tcli, ["--mode", "tpu-worker", "--bus-address",
+                          f"127.0.0.1:{free_port()}", "--bus-serve",
+                          "--bus-spool-dir", str(spool), "--worker-id",
+                          "w15"])
+    serving = tcli._make_serving_bus(r)
+    try:
+        assert serving._client.outbox is not None
+        assert serving._client.outbox.wal_path == str(
+            spool / "outbox" / "w15" / "outbox.jsonl")
+    finally:
+        serving.close()
+
+
+def test_bus_mode_with_spool_serves_dlq(tmp_path):
+    port, mport = free_port(), free_port()
+    spool = tmp_path / "spool"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distributed_crawler_tpu_torch.cli", "--mode",
+         "bus", "--bus-address", f"127.0.0.1:{port}", "--bus-spool-dir",
+         str(spool), "--bus-max-attempts", "1", "--metrics-port",
+         str(mport)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE)
+    url = f"http://127.0.0.1:{mport}/dlq"
+    try:
+        deadline = time.monotonic() + 60
+        code = None
+        while time.monotonic() < deadline and proc.poll() is None:
+            try:
+                code, body = http_get(url)
+                if code == 200:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.05)
+        assert code == 200, proc.communicate()[1].decode()[-2000:]
+        assert json.loads(body) == {"topics": {}, "enabled": True,
+                                    "dead_letters_total": 0}
+        from distributed_crawler_tpu_torch.bus.grpc_bus import GrpcBusClient
+
+        client = GrpcBusClient(f"127.0.0.1:{port}")
+        try:
+            client.publish(TOPIC_INFERENCE_BATCHES, {"batch_id": "poison"})
+            it = client.pull(TOPIC_INFERENCE_BATCHES)
+            delivery, _ = next(it)
+            # Nack with the stream open: a stream closed first may requeue
+            # the frame uncharged, and the nack then finds no delivery.
+            client.ack(TOPIC_INFERENCE_BATCHES, delivery, ok=False)
+            it.close()
+        finally:
+            client.close()
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            topics = json.loads(http_get(url)[1])["topics"]
+            if topics.get(TOPIC_INFERENCE_BATCHES, {}).get("count"):
+                break
+            time.sleep(0.05)
+        entry = topics[TOPIC_INFERENCE_BATCHES]["entries"][0]
+        assert (entry["attempts"], entry["reason"]) == (1, "max_attempts")
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 130
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate()
+
+
+def test_shard_addresses_build_a_partitioned_bus_serving_shards(tmp_path):
+    from distributed_crawler_tpu.utils import metrics as jmetrics
+
+    from distributed_crawler_tpu_torch.bus.partition import PartitionedBus
+    from distributed_crawler_tpu_torch.utils import metrics as tmetrics
+
+    argv = ["--mode", "tpu-worker", "--bus-shard-addresses",
+            f"127.0.0.1:{free_port()},127.0.0.1:{free_port()}",
+            "--bus-shards", "2", "--bus-spool-dir", str(tmp_path),
+            "--worker-id", "w14"]
+    buses = [jcli._make_bus(resolve(jcli, argv)[1])]
+    # The port's last: its provider is the one the route serves.
+    buses.append(tcli._make_bus(resolve(tcli, argv)[1]))
+    http = [tmetrics.serve_metrics(0, tmetrics.MetricsRegistry()),
+            jmetrics.serve_metrics(0, jmetrics.MetricsRegistry())]
+    try:
+        assert isinstance(buses[1], PartitionedBus)
+        assert [ob.wal_path for ob in buses[1].shard_outboxes()] == [
+            str(tmp_path / "outbox" / "w14" / sid / "outbox.jsonl")
+            for sid in ("bus-0", "bus-1")]
+        bodies = [json.loads(http_get(
+            f"http://127.0.0.1:{h.server_address[1]}/shards")[1])
+            for h in http]
+        assert bodies[0] == bodies[1]
+        assert sorted(bodies[0]["shards"]) == ["bus-0", "bus-1"]
+        assert bodies[0]["name"] == "w14"
+    finally:
+        tmetrics.clear_shards_provider(buses[1].snapshot)
+        jmetrics.clear_shards_provider(buses[0].snapshot)
+        for h in http:
+            h.shutdown()
+            h.server_close()
+        for b in buses:
+            b.close(drain_s=0.0)
 
 
 def test_bus_address_without_grpc_exits_2(monkeypatch, capsys):

@@ -148,6 +148,31 @@ def test_train_head_equals_the_references(tmp_path, capsys, same_weights,
         assert sorted(os.listdir(tmp_path / "state_port")) == ["epoch_1"]
 
 
+def test_card_scripts_straight_run_is_the_clis(tmp_path, capsys,
+                                               same_weights):
+    """`chip_smoke.uninterrupted_full_run`, the straight full-scope run
+    the card script holds a resumed one against, goes through the CLI's
+    own steps: its losses and weights equal a ``train-head --train-scope
+    full`` run's from the same flags."""
+    import chip_smoke
+
+    texts, labels = dataset(n_per_class=10)
+    posts, labs = write_data(tmp_path, texts, [NAMES[y] for y in labels])
+    argv = train_argv(tmp_path, posts, labs, str(tmp_path / "ckpt"),
+                      *SCOPES["full"][:-2])  # no --train-state-dir
+    rc, summary, errors = run(tcli, argv, capsys, device="cpu")
+    assert rc == 0, errors
+    tree, losses, _ = chip_smoke.uninterrupted_full_run(argv, {},
+                                                        device="cpu")
+    assert len(losses) == 2
+    np.testing.assert_allclose(losses[-1], summary["final_loss"], **FIT)
+    got = leaves(tree)
+    want = leaves(tck.load_params(summary["checkpoint"])["params"])
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], err_msg=k, **FIT)
+
+
 def test_each_cli_serves_its_checkpoint_alike(tmp_path, capsys,
                                               same_weights):
     """`tpu-worker --head-checkpoint` in both packages, each on its own

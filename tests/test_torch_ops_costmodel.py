@@ -51,8 +51,9 @@ from distributed_crawler_tpu.utils.metrics import (  # noqa: E402
     MetricsRegistry as JaxRegistry,
 )
 
-# chip_smoke.py's MoE FLOP counts (XLM-R-base widths, 8 experts, capacity
-# factor 1.25, batch 256), which PERF.md's TFLOP/s figures divide.
+# The MoE FLOP counts at XLM-R-base's widths and full 12-layer depth (8
+# experts, capacity factor 1.25, batch 256), which PERF.md's full-depth
+# TFLOP/s figures divide.
 MOE_FLOPS = {
     (32, "dense"): 7896431591424, (32, "capacity"): 1634369273856,
     (64, "dense"): 15812190535680, (64, "capacity"): 3288065900544,
