@@ -150,9 +150,22 @@ JSON line each:
    (plus a non-WAV file named ``.wav``) against phase 7's
    `transcribe_files`; ``mode=cluster`` on 2048 text rows through E5-large
    (k 8, 25 iterations) against `fit` on the same engine's `embed`, and on
-   16,384 x 1024 embedding rows (seconds split into reading, fitting and
+   4096 x 1024 embedding rows (seconds split into reading, fitting and
    writing); `_build_asr_worker` and `_build_cluster_worker` at the CLI's
-   defaults on one audio batch and on step 1's result stream.  Every
+   defaults on one audio batch and on step 1's result stream; and step 6,
+   the transcript re-entry: `_build_asr_worker` with ``--infer --bus-serve
+   --object-store file://...`` and `_build_tpu_worker` on its broker with
+   the same object store, phase 7's four shortest WAVs and its non-WAV
+   file in one audio batch, then one of them again.  Checks: one
+   transcript per ref read back from the object store; each successful
+   transcript's post ``media:<id>`` in ``<storage-root>/<crawl>/smoke/
+   posts/posts.jsonl`` equal to the port's `Post(...).to_json()`, none
+   for the error file; one result row per re-entered post in the object
+   store, within 2e-2 of `engine.run` on the same texts (labels off a
+   5e-2 margin); the redelivery stored twice and shipped once; a
+   ``media.reentry`` span on each transcript's trace; then ``mode=
+   transcribe --infer --bus-address`` into the same broker over two of
+   the files, one result row per file (``media:<relpath>``).  Every
    attention launch on sm90: 12 per E5-small or Whisper dispatch, 24 per
    E5-large dispatch.
 12. slice.tinybert (run after phase 5) — TinyBERT-4L-312D's published
@@ -3972,7 +3985,7 @@ def phase_ops(torch, np, seed, smi, engine_rows):
 CLI_EMB_TOL, CLI_LABEL_MARGIN = 2e-2, 5e-2
 CLI_BATCHES = 8
 CLI_CLUSTER_K, CLI_CLUSTER_ITERS, CLI_CLUSTER_POSTS = 8, 25, 2048
-CLI_EMB_ROWS, CLI_EMB_DIM = 16384, 1024
+CLI_EMB_ROWS, CLI_EMB_DIM = 4096, 1024
 # The cluster result against the port's `fit` on the same rows.
 CLI_INERTIA_RTOL = 1e-4
 
@@ -4157,7 +4170,7 @@ def proc_counts(url):
 
 
 def cli_process(np, work, tpu, smi):
-    """Steps 2 and 6: ``python3 -m distributed_crawler_tpu_torch.cli --mode
+    """Step 2: ``python3 -m distributed_crawler_tpu_torch.cli --mode
     tpu-worker`` as a process of its own.  Where ``grpc`` imports, the
     process also hosts the broker (``--bus-serve``): a `RemoteBus` here
     publishes step 1's batches into it and reads its heartbeats, the only
@@ -4252,7 +4265,7 @@ def cli_process(np, work, tpu, smi):
 
 
 def cli_process_bus(np, bus_address, store, tpu):
-    """Step 6: step 1's batches published over gRPC into the process;
+    """Step 2 over gRPC: step 1's batches published into the process;
     its rows checked as in step 1, and one heartbeat's card memory."""
     from distributed_crawler_tpu_torch.bus import (
         TOPIC_INFERENCE_BATCHES,
@@ -4427,7 +4440,7 @@ def cli_cluster_text(torch, np, attention, work, seed, smi):
 
 
 def cli_cluster_embeddings(torch, np, device, work, seed, smi):
-    """Step 4, embedding rows: 16,384 x 1024 seeded unit vectors as the
+    """Step 4, embedding rows: 4096 x 1024 seeded unit vectors as the
     worker writes them (float32 through JSON); the seconds split into
     reading, `fit` and writing."""
     from distributed_crawler_tpu_torch.models.clustering import fit
@@ -4495,7 +4508,8 @@ def cli_asr_and_cluster_workers(np, attention, work, asr, tpu, smi):
     cfg, r = cli_resolve(["--mode", "asr-worker", "--asr-pretrained-dir",
                           asr["ckpt"], "--storage-root", store,
                           "--crawl-id", "smoke-cli-asr"])
-    worker = cli._build_asr_worker(cfg, r)
+    worker, bridge = cli._build_asr_worker(cfg, r)
+    check(bridge is None, "asr-worker without --infer built a bridge")
     check(worker.pipeline.device.type == "cuda"
           and worker.pipeline.window_buckets == ASR_BUCKETS,
           f"asr-worker pipeline {worker.pipeline.window_buckets}")
@@ -4568,6 +4582,241 @@ def cli_asr_and_cluster_workers(np, attention, work, asr, tpu, smi):
     return {"launches": launches}
 
 
+def store_rows(provider, prefix, crawl_id):
+    """Every row of a crawl's per-batch JSONL files under ``prefix``
+    (``inference`` or ``asr``), read through a storage provider."""
+    base = f"{prefix}/{crawl_id}/batches"
+    rows = []
+    for name in provider.list_dir(base):
+        if name.endswith(".jsonl"):
+            text = provider.get_text(f"{base}/{name}") or ""
+            rows += [json.loads(line) for line in text.splitlines() if line]
+    return rows
+
+
+def wait_for(pred, what, timeout_s=300.0):
+    deadline = time.monotonic() + timeout_s
+    while not pred():
+        check(time.monotonic() < deadline, f"timed out waiting for {what}")
+        time.sleep(0.02)
+
+
+def check_asr_and_text(launches, asr_dispatches, text_dispatches, what):
+    """Every launch on sm90: 12 per Whisper-small encoder dispatch and 12
+    per E5-small text dispatch, and at least one of each."""
+    check(asr_dispatches > 0 and text_dispatches > 0,
+          f"{what}: {asr_dispatches} ASR and {text_dispatches} text "
+          f"dispatches")
+    check(launches == {"sm90": 12 * (asr_dispatches + text_dispatches),
+                       "mma_sync": 0, "simt": 0},
+          f"{what}: launches by path {launches} for {asr_dispatches} ASR "
+          f"and {text_dispatches} text dispatches")
+
+
+def reentered_post(transcript):
+    """The post the re-entry stores for one transcript row."""
+    from distributed_crawler_tpu_torch.datamodel import Post
+
+    return Post(post_uid=f"media:{transcript['media_id']}",
+                channel_id=transcript["channel_name"],
+                channel_name=transcript["channel_name"],
+                platform_name="telegram", post_type=["audio_transcript"],
+                description=transcript["text"] or " ".join(
+                    str(t) for t in transcript["tokens"]))
+
+
+def cli_reentry(np, attention, work, asr, smi):
+    """Step 6: the transcript re-entry.  `_build_asr_worker` with
+    ``--infer --bus-serve`` and `_build_tpu_worker` on its broker, both
+    with ``--object-store file://``: phase 7's four shortest WAVs and its
+    non-WAV file in one audio batch, then one of them again; then
+    ``mode=transcribe --infer --bus-address`` over two of the files."""
+    import shutil
+
+    from distributed_crawler_tpu_torch import cli
+    from distributed_crawler_tpu_torch.bus import (
+        TOPIC_MEDIA_BATCHES,
+        TOPIC_TRANSCRIPTS,
+        AudioBatchMessage,
+        AudioRef,
+    )
+    from distributed_crawler_tpu_torch.inference.asr import ASRPipeline
+    from distributed_crawler_tpu_torch.inference.bridge import (
+        InferenceBridge,
+    )
+    from distributed_crawler_tpu_torch.media.worker import iter_transcripts
+    from distributed_crawler_tpu_torch.models.whisper import WHISPER_SMALL
+    from distributed_crawler_tpu_torch.state.objectstore import (
+        LocalFSObjectClient,
+        ObjectStorageProvider,
+        make_object_client,
+    )
+    from distributed_crawler_tpu_torch.utils import trace
+
+    crawl = "smoke-reentry"
+    store = os.path.join(work, "cli_reentry")
+    objects = os.path.join(work, "objstore")
+    sink = ["--object-store", f"file://{objects}", "--storage-root", store,
+            "--crawl-id", crawl]
+    address = f"127.0.0.1:{free_port()}"
+    t0 = time.perf_counter()
+    cfg, r = cli_resolve(["--mode", "asr-worker", "--asr-pretrained-dir",
+                          asr["ckpt"], "--infer", "--bus-serve",
+                          "--bus-address", address] + sink)
+    asr_worker, bridge = cli._build_asr_worker(cfg, r)
+    cfg, r = cli_resolve(["--mode", "tpu-worker", "--bus-address",
+                          address] + sink)
+    tpu_worker = cli._build_tpu_worker(cfg, r)
+    engine = tpu_worker.engine
+    check(isinstance(bridge, InferenceBridge)
+          and bridge._bus is asr_worker.bus
+          and (bridge._acc.batch_size, bridge._acc.deadline_s)
+          == (256, 0.05), "asr-worker --infer: no bridge on its bus")
+    for w in (asr_worker, tpu_worker):
+        check(isinstance(w.provider, ObjectStorageProvider)
+              and isinstance(w.provider.client, LocalFSObjectClient),
+              f"{w.cfg.worker_id}: results sink {w.provider}")
+    check(engine.device.type == "cuda" and engine.ecfg.hidden == 384
+          and engine.ecfg.n_layers == 12
+          and WHISPER_SMALL.n_audio_layer == 12, f"tpu-worker {engine.ecfg}")
+    asr_worker.warmup()
+    tpu_worker.warmup()
+    build_s = time.perf_counter() - t0
+    transcripts = []
+    asr_worker.bus.subscribe(TOPIC_TRANSCRIPTS, transcripts.append)
+    reader = ObjectStorageProvider(make_object_client(f"file://{objects}"))
+    wavs = sorted((sec, p) for p, sec in asr["files"] if sec is not None)
+    bad = [p for p, sec in asr["files"] if sec is None]
+    refs = [AudioRef(media_id=f"re{i}", path=p, channel_name="smoke")
+            for i, (_, p) in enumerate(wavs[:4])]
+    refs.append(AudioRef(media_id="re-bad", path=bad[0],
+                         channel_name="smoke"))
+    ok_ids = [ref.media_id for ref in refs[:4]]
+    tpu_worker.start()
+    asr_worker.start()
+    try:
+        zero_launches(attention)
+        d0 = engine.m_latency.count
+        with _CountCalls(ASRPipeline, "transcribe_audio") as asr_calls:
+            t_pub = time.perf_counter()
+            asr_worker.bus.publish(TOPIC_MEDIA_BATCHES, AudioBatchMessage.new(
+                refs, crawl_id=crawl).to_dict())
+            wait_for(lambda: {f"media:{m}" for m in ok_ids} <= {
+                row["post_uid"] for row in store_rows(reader, "inference",
+                                                      crawl)},
+                "the re-entered result rows")
+            loop_s = time.perf_counter() - t_pub
+            # A redelivered transcript: stored again, not shipped again.
+            asr_worker.bus.publish(TOPIC_MEDIA_BATCHES, AudioBatchMessage.new(
+                refs[:1], crawl_id=crawl).to_dict())
+            wait_for(lambda: bridge.posts_deduped == 1
+                     and len(transcripts) == len(refs) + 1,
+                     "the redelivered transcript")
+            check(asr_worker.drain(timeout_s=60.0)
+                  and tpu_worker.drain(timeout_s=60.0), "did not drain")
+        launches = read_launches(attention)
+        asr_dispatches = asr_calls.calls
+        text_dispatches = engine.m_latency.count - d0
+        check_asr_and_text(launches, asr_dispatches, text_dispatches,
+                           "cli re-entry")
+        rows = store_rows(reader, "inference", crawl)
+        trows = list(iter_transcripts(reader, crawl))
+        spans = [s for s in trace.TRACER.spans() if s.name == "media.reentry"]
+
+        # transcribe --infer --bus-address over two of the files.
+        media = os.path.join(work, "reentry_media")
+        os.makedirs(os.path.join(media, "chan_r"), exist_ok=True)
+        shutil.copy(wavs[0][1], os.path.join(media, "chan_r", "a.wav"))
+        shutil.copy(wavs[1][1], os.path.join(media, "b.wav"))
+        zero_launches(attention)
+        d1 = engine.m_latency.count
+        with _CountCalls(ASRPipeline, "transcribe_audio") as tr_calls:
+            rc, summary, tr_wall = cli_main([
+                "--mode", "transcribe", "--transcribe-input", media,
+                "--asr-pretrained-dir", asr["ckpt"], "--infer",
+                "--bus-address", address, "--crawl-id", crawl,
+                "--transcribe-output", os.path.join(work, "reentry.jsonl")])
+        check(rc == 0 and summary["transcribed"] == 2,
+              f"transcribe --infer exited {rc}: {summary}")
+        tr_ids = {"media:chan_r/a.wav", "media:b.wav"}
+        wait_for(lambda: tr_ids <= {row["post_uid"] for row in store_rows(
+            reader, "inference", crawl)}, "transcribe --infer's rows")
+        check(tpu_worker.drain(timeout_s=60.0), "tpu-worker did not drain")
+        tr_launches = read_launches(attention)
+        tr_text = engine.m_latency.count - d1
+        check_asr_and_text(tr_launches, tr_calls.calls, tr_text,
+                           "transcribe --infer")
+    finally:
+        tpu_worker.stop()
+        tpu_worker.bus.close()
+        asr_worker.stop()
+        bridge.close()
+        asr_worker.bus.close()
+
+    # One transcript per ref in the object store, the redelivery included.
+    check(sorted(t["media_id"] for t in trows)
+          == sorted([ref.media_id for ref in refs] + [refs[0].media_id]),
+          f"transcripts {[t['media_id'] for t in trows]}")
+    by_id = {t["media_id"]: t for t in trows}
+    check(by_id["re-bad"]["error"] and all(not by_id[m]["error"]
+                                           for m in ok_ids),
+          "transcript errors")
+    # Each successful transcript's post in the crawl's posts.jsonl, in
+    # the order the transcripts arrived, none for the error file.  The
+    # redelivery's post is stored again (its tokens may differ: another
+    # bucket, other bf16 roundings) but not shipped: the first one is.
+    posts_path = os.path.join(store, crawl, "smoke", "posts", "posts.jsonl")
+    with open(posts_path, encoding="utf-8") as f:
+        lines = f.read().splitlines()
+    stored = [t for t in transcripts
+              if not t["error"] and (t["text"] or t["tokens"])]
+    check(lines == [reentered_post(t).to_json() for t in stored],
+          f"posts.jsonl: {len(lines)} lines, not the re-entry's posts")
+    check(sorted(t["media_id"] for t in stored)
+          == sorted(ok_ids + ok_ids[:1]), "stored transcripts")
+    check(bridge.posts_deduped == 1 and bridge.posts_bridged == 4,
+          f"bridge bridged {bridge.posts_bridged}, deduped "
+          f"{bridge.posts_deduped}")
+    shipped = {}
+    for t in stored:
+        shipped.setdefault(f"media:{t['media_id']}", reentered_post(t))
+    # One result row per re-entered post, against the engine.
+    mine = sorted((row for row in rows if row["post_uid"].startswith(
+        "media:re")), key=lambda row: row["post_uid"])
+    check([row["post_uid"] for row in mine] == sorted(shipped),
+          f"result rows {[row['post_uid'] for row in mine]}")
+    texts = [shipped[row["post_uid"]].description for row in mine]
+    vs_engine = check_rows_against(np, mine, engine.run(texts))
+    trace_ids = {t["trace_id"] for t in transcripts
+                 if t["media_id"] in ok_ids}
+    check(trace_ids and trace_ids <= {s.trace_id for s in spans},
+          "no media.reentry span on a transcript's trace")
+    tr_rows = [row for row in store_rows(reader, "inference", crawl)
+               if row["post_uid"] in tr_ids]
+    check(sorted(row["post_uid"] for row in tr_rows) == sorted(tr_ids),
+          f"transcribe --infer rows {[row['post_uid'] for row in tr_rows]}")
+    written = sum(os.path.getsize(os.path.join(d, n))
+                  for d, _, names in os.walk(objects) for n in names)
+    emit("cli.reentry", transcripts=len(trows), posts_lines=len(lines),
+         result_rows=len(mine), vs_engine_run=vs_engine,
+         asr_dispatches=asr_dispatches, text_dispatches=text_dispatches,
+         kernel_launches_by_path=launches,
+         bridge_batches=bridge.batches_published,
+         posts_deduped=bridge.posts_deduped,
+         reentry_spans=len(spans), transcribe_infer_rows=len(tr_rows),
+         transcribe_infer_asr_dispatches=tr_calls.calls,
+         transcribe_infer_text_dispatches=tr_text,
+         transcribe_infer_launches_by_path=tr_launches)
+    emit("times.cli", step="reentry", publish_to_last_row_s=loop_s,
+         asr_dispatches=asr_dispatches, text_dispatches=text_dispatches,
+         bridge_batches=bridge.batches_published,
+         object_store_bytes=written, build_and_warmup_s=build_s,
+         transcribe_infer_wall_s=tr_wall,
+         step_s=time.perf_counter() - t0, card=smi)
+    return {"launches": {p: launches[p] + tr_launches[p]
+                         for p in attention.PATHS}}
+
+
 def phase_cli(torch, np, attention, device, work, seed, smi, e5, asr):
     """Phase 11: the CLI's device modes on the card, at full width."""
     t0 = time.perf_counter()
@@ -4578,8 +4827,10 @@ def phase_cli(torch, np, attention, device, work, seed, smi, e5, asr):
     text = cli_cluster_text(torch, np, attention, work, seed, smi)
     cli_cluster_embeddings(torch, np, device, work, seed, smi)
     workers = cli_asr_and_cluster_workers(np, attention, work, asr, tpu, smi)
+    reentry = cli_reentry(np, attention, work, asr, smi)
     launches = {p: tpu["launches"][p] + proc["kernel_launches_by_path"][p]
-                + sum(step["launches"][p] for step in (tr, text, workers))
+                + sum(step["launches"][p]
+                      for step in (tr, text, workers, reentry))
                 for p in attention.PATHS}
     emit("slice.cli", seconds=time.perf_counter() - t0,
          kernel_launches_by_path=launches, grpc=proc["grpc"])

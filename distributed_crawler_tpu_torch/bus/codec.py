@@ -1,24 +1,29 @@
-"""`RecordBatch`: the unit of work between the crawl side and the worker.
+"""`RecordBatch`: the unit of work between the crawl side and the worker,
+and `BatchAccumulator`, which groups stored posts into batches.
 
 The dict form is the reference's (`distributed_crawler_tpu/bus/codec.py:
 174-238`), so a batch published by either package decodes in the other.
-Records are plain post dicts; `texts()` reads each record's inference text
-the way `Post.text_for_inference` does, without a `Post` class.  The
-length-prefixed compressed frame codec waits for a later slice.
+Records are plain post dicts (`Post.to_dict`); `texts()` reads each
+record's inference text by `Post.text_for_inference`'s rule, without
+building a `Post`.  The
+reference's length-prefixed compressed frame codec is not ported: no port
+caller frames a batch (the buses carry dicts).
 """
 
 from __future__ import annotations
 
-import re
 import uuid
 from dataclasses import dataclass, field
 from datetime import datetime, timezone
 from typing import Any, Dict, List, Optional
 
+from ..datamodel.post import (
+    Post,
+    format_time,
+    parse_time,
+    text_for_inference,
+)
 from .messages import DEFAULT_TENANT, new_trace_id, normalize_tenant
-
-# Go's time.Time zero value, used on the wire for "unset".
-ZERO_TIME_STR = "0001-01-01T00:00:00Z"
 
 
 def new_id() -> str:
@@ -27,47 +32,6 @@ def new_id() -> str:
 
 def utcnow() -> datetime:
     return datetime.now(timezone.utc)
-
-
-def format_time(dt: Optional[datetime]) -> str:
-    """RFC3339/UTC; None -> Go zero time."""
-    if dt is None:
-        return ZERO_TIME_STR
-    if dt.tzinfo is None:
-        dt = dt.replace(tzinfo=timezone.utc)
-    return dt.astimezone(timezone.utc).isoformat().replace("+00:00", "Z")
-
-
-def parse_time(value: Any) -> Optional[datetime]:
-    """Parse an RFC3339 string (or pass a datetime through); zero -> None."""
-    if value is None or isinstance(value, datetime):
-        return value
-    s = str(value)
-    if not s or s == ZERO_TIME_STR:
-        return None
-    if s.endswith("Z"):
-        s = s[:-1] + "+00:00"
-    try:
-        dt = datetime.fromisoformat(s)
-    except ValueError:
-        # More than 6 fractional digits: truncate to microseconds.
-        m = re.match(r"^(.*?\.)(\d+)([+-]\d{2}:\d{2})$", s)
-        if not m:
-            return None
-        dt = datetime.fromisoformat(m.group(1) + m.group(2)[:6] + m.group(3))
-    if dt.tzinfo is None:
-        dt = dt.replace(tzinfo=timezone.utc)
-    return dt
-
-
-def text_for_inference(record: Dict[str, Any]) -> str:
-    """The text a post record contributes to embed+classify,
-    best-field-first (`Post.text_for_inference` on the record dict)."""
-    for key in ("all_text", "searchable_text", "description"):
-        t = record.get(key) or ""
-        if t:
-            return t
-    return record.get("transcript_text") or record.get("image_text") or ""
 
 
 @dataclass
@@ -92,6 +56,13 @@ class RecordBatch:
         return cls(batch_id=new_id(), crawl_id=crawl_id, created_at=utcnow(),
                    trace_id=trace_id or new_trace_id(),
                    tenant=normalize_tenant(tenant), records=list(records))
+
+    @classmethod
+    def from_posts(cls, posts: List[Post],
+                   crawl_id: str = "") -> "RecordBatch":
+        """A new batch of ``posts``' dicts."""
+        return cls.from_records([p.to_dict() for p in posts],
+                                crawl_id=crawl_id)
 
     def texts(self) -> List[str]:
         return [text_for_inference(r) for r in self.records]
@@ -123,3 +94,42 @@ class RecordBatch:
             records=list(d.get("records") or []),
             results=list(d.get("results") or []),
         )
+
+
+class BatchAccumulator:
+    """Posts into RecordBatches of ``batch_size``, or fewer once
+    ``deadline_s`` has passed since the first queued post (reference
+    `bus/codec.py:296-340`).  ``now`` is the caller's monotonic clock."""
+
+    def __init__(self, batch_size: int, deadline_s: float,
+                 crawl_id: str = ""):
+        self.batch_size = batch_size
+        self.deadline_s = deadline_s
+        self.crawl_id = crawl_id
+        self._pending: List[Post] = []
+        self._first_at: Optional[float] = None
+
+    def add(self, post: Post, now: float) -> Optional[RecordBatch]:
+        """Queue a post; returns a full batch if one is ready."""
+        if self._first_at is None:
+            self._first_at = now
+        self._pending.append(post)
+        if len(self._pending) >= self.batch_size:
+            return self._emit()
+        return None
+
+    def poll(self, now: float) -> Optional[RecordBatch]:
+        """A partial batch once the deadline has passed, else None."""
+        if self._pending and self._first_at is not None \
+                and now - self._first_at >= self.deadline_s:
+            return self._emit()
+        return None
+
+    def flush(self) -> Optional[RecordBatch]:
+        return self._emit() if self._pending else None
+
+    def _emit(self) -> RecordBatch:
+        batch = RecordBatch.from_posts(self._pending, crawl_id=self.crawl_id)
+        self._pending = []
+        self._first_at = None
+        return batch

@@ -15,8 +15,10 @@ from dataclasses import dataclass, field
 from datetime import datetime, timezone
 from typing import Any, Dict, List, Optional
 
-# The time and id helpers live in `codec`, which imports this module: bind
-# the module here and read its functions at call time.
+from ..datamodel.post import format_time, parse_time
+
+# `utcnow` lives in `codec`, which imports this module: bind the module here
+# and read the function at call time.
 from . import codec
 
 MSG_HEARTBEAT = "heartbeat"
@@ -83,7 +85,7 @@ def new_trace_id() -> str:
 
 
 def _opt_time(value: Optional[datetime]) -> Optional[str]:
-    return codec.format_time(value) if value is not None else None
+    return format_time(value) if value is not None else None
 
 
 # -- media / ASR serving -----------------------------------------------------
@@ -176,7 +178,7 @@ class AudioBatchMessage:
             crawl_id=d.get("crawl_id", "") or "",
             refs=[AudioRef.from_dict(r) for r in (d.get("refs") or [])
                   if isinstance(r, dict)],
-            created_at=codec.parse_time(d.get("created_at")),
+            created_at=parse_time(d.get("created_at")),
             trace_id=d.get("trace_id", "") or "",
             tenant=normalize_tenant(d.get("tenant")),
         )
@@ -258,7 +260,7 @@ class TranscriptMessage:
             windows=int(d.get("windows") or 0),
             duration_s=float(d.get("duration_s") or 0.0),
             error=d.get("error", "") or "",
-            timestamp=codec.parse_time(d.get("timestamp")),
+            timestamp=parse_time(d.get("timestamp")),
             trace_id=d.get("trace_id", "") or "",
             tenant=normalize_tenant(d.get("tenant")),
         )
@@ -347,7 +349,7 @@ class ClusterUpdateMessage:
             underpopulated=[int(c) for c in (d.get("underpopulated") or [])],
             channel_clusters={str(ch): int(c) for ch, c in
                               (d.get("channel_clusters") or {}).items()},
-            timestamp=codec.parse_time(d.get("timestamp")),
+            timestamp=parse_time(d.get("timestamp")),
             trace_id=d.get("trace_id", "") or "",
         )
 
@@ -427,7 +429,7 @@ class StatusMessage:
             tasks_processed=int(d.get("tasks_processed") or 0),
             tasks_success=int(d.get("tasks_success") or 0),
             tasks_error=int(d.get("tasks_error") or 0),
-            timestamp=codec.parse_time(d.get("timestamp")),
+            timestamp=parse_time(d.get("timestamp")),
             uptime_s=float(d.get("uptime_s", d.get("uptime")) or 0.0),
             trace_id=d.get("trace_id", "") or "",
         )
@@ -490,6 +492,6 @@ class SpanBatchMessage:
             spans=[s for s in (d.get("spans") or [])
                    if isinstance(s, dict)],
             dropped=int(d.get("dropped") or 0),
-            timestamp=codec.parse_time(d.get("timestamp")),
+            timestamp=parse_time(d.get("timestamp")),
             trace_id=d.get("trace_id", "") or "",
         )

@@ -6,11 +6,16 @@ The reference's `distributed_crawler_tpu/cli.py`, for the modes that run
 on the card and the broker between processes:
 
 - ``tpu-worker``: embed+classify RecordBatches from the bus (`TPUWorker`);
-- ``asr-worker``: transcribe AudioBatchMessages (`ASRWorker`);
+- ``asr-worker``: transcribe AudioBatchMessages (`ASRWorker`); with
+  ``--infer`` each transcript re-enters the text path as a post
+  (`media/bridge.TranscriptReentry` through `inference/bridge.
+  InferenceBridge`), stored in the crawl's ``posts.jsonl`` and published
+  on ``tpu-inference-batches`` for a ``tpu-worker``;
 - ``cluster-worker``: online k-means over the result stream
   (`ClusterWorker`);
 - ``transcribe``: Whisper over a tree of ``.wav`` files, one JSONL row per
-  file;
+  file; with ``--infer --bus-address`` the transcripts are also published
+  as one RecordBatch of posts;
 - ``cluster``: k-means `fit` over embedding rows, or text rows embedded on
   the fly;
 - ``train-head``: fine-tune the classifier (head, LoRA or full scope) on
@@ -24,13 +29,17 @@ With ``--bus-spool-dir``, a worker's publishes go through a durable
 outbox under ``<spool-dir>/outbox/<worker-id>``, so a broker outage
 buffers them; with ``--bus-shard-addresses`` a worker's bus is a
 partitioned bus over the listed broker shards, served at ``/shards``.
+With ``--object-store`` (``memory://``, ``file://``, ``s3://``,
+``azure://``) the workers' results, transcripts and checkpoints go to an
+object store (`state/objectstore.py`) instead of ``--storage-root``.
 
 The flags, their ``CRAWLER_*`` environment variables and the YAML config
 keys are the reference's, resolved through the same precedence (flags >
 env > config file > defaults; `config/precedence.py`).  The crawler's
-modes run from the reference's CLI; here they exit 2 and say so.  Every
-feature that is not ported yet exits 2 with a message that names where it
-waits in ROADMAP.md, never silently ignored.
+modes run from the reference's CLI; here they exit 2 and say so.  A
+serving mesh and multi-process serving are not ported yet: they exit 2
+with a message that names where they wait in ROADMAP.md, never silently
+ignored.
 
 The engines run on the card.  ``main(..., device="cpu")`` is for
 in-process callers (the tests); it is not a flag.
@@ -82,8 +91,9 @@ def build_parser() -> argparse.ArgumentParser:
     a("--crawl-label", default=None)
     a("--platform", default=None, help="telegram | youtube")
     a("--object-store", default=None,
-      help="remote blob target (not ported: results land under "
-           "--storage-root)")
+      help="object store for the workers' results (memory:// | "
+           "file:///path | s3://bucket/prefix | azure://account/container; "
+           "empty = under --storage-root)")
     a("--bus-address", default=None,
       help="gRPC bus address, e.g. 127.0.0.1:50551 (needs grpcio; empty "
            "= in-process bus)")
@@ -154,7 +164,8 @@ def build_parser() -> argparse.ArgumentParser:
     a("--bus-serve", action="store_const", const=True, default=None,
       help="also host the gRPC broker at --bus-address (worker modes)")
     a("--infer", action="store_const", const=True, default=None,
-      help="the transcript re-entry into the text path (not ported)")
+      help="asr-worker and transcribe: transcripts re-enter the text "
+           "path as posts on tpu-inference-batches")
     a("--infer-model", default=None, help="model registry key")
     a("--asr-pretrained-dir", default=None,
       help="local HF Whisper checkpoint dir")
@@ -556,13 +567,21 @@ def _refuse_multihost() -> None:
 
 
 def _make_provider(cfg: CrawlerConfig):
-    """The workers' results sink: JSONL under the storage root."""
+    """The workers' results sink: the object store with
+    ``--object-store``, else JSONL under the storage root.  A URL the
+    store refuses (a scheme without a client, missing credentials) is a
+    configuration error: exit 2 before any engine is built."""
     if cfg.object_store_url:
-        raise CliConfigError(
-            f"--object-store {cfg.object_store_url!r}: the object-store "
-            f"sink is not ported (ROADMAP Queue 1, after item 7: it waits "
-            f"until a port mode needs it); results land under "
-            f"--storage-root without it")
+        from .state.objectstore import (
+            ObjectStorageProvider,
+            make_object_client,
+        )
+
+        try:
+            return ObjectStorageProvider(
+                make_object_client(cfg.object_store_url))
+        except ValueError as e:
+            raise CliConfigError(str(e)) from None
     from .state.providers import LocalStorageProvider
 
     return LocalStorageProvider(cfg.storage_root)
@@ -863,22 +882,18 @@ def _make_pipeline(cfg: CrawlerConfig, r: ConfigResolver, device=None):
 
 
 def _build_asr_worker(cfg: CrawlerConfig, r: ConfigResolver, device=None):
-    """The ASR worker: Whisper pipeline, transcript sink, then the bus."""
+    """The ASR worker: Whisper pipeline, transcript sink, then the bus.
+    Returns ``(worker, bridge)``: with ``--infer`` the `InferenceBridge`
+    that carries its transcripts back into the text path, else None."""
     from .media.worker import ASRWorker, ASRWorkerConfig
 
     _check_serve_address(r)
     if not cfg.inference.asr_pretrained_dir:
         raise CliConfigError("asr-worker mode requires --asr-pretrained-dir")
-    if cfg.inference.enabled:
-        raise CliConfigError(
-            "--infer on asr-worker: the transcript re-entry into the text "
-            "path (media/bridge.py, inference/bridge.py and the crawl's "
-            "state manager) is the crawler's half and is not ported "
-            "(ROADMAP Queue 1, after item 7); run without --infer")
     provider = _make_provider(cfg)
     pipeline = _make_pipeline(cfg, r, device=device)
     bus = _worker_bus(r)
-    return ASRWorker(bus, pipeline, provider=provider, cfg=ASRWorkerConfig(
+    worker = ASRWorker(bus, pipeline, provider=provider, cfg=ASRWorkerConfig(
         worker_id=r.get_str("distributed.worker_id") or "asr-worker-0",
         heartbeat_s=_heartbeat_interval(r),
         metrics_port=r.get_int("observability.metrics_port", 0),
@@ -894,6 +909,21 @@ def _build_asr_worker(cfg: CrawlerConfig, r: ConfigResolver, device=None):
             "observability.span_export_max_spans", 512),
         span_sample_rate=r.get_float("observability.span_sample_rate",
                                      1.0)))
+    bridge = None
+    if cfg.inference.enabled:
+        # The loop closes in this process: each transcript is stored in the
+        # crawl's post sink as the post ``media:<media_id>`` and ships once
+        # to the text worker on the worker's own bus.
+        from .inference.bridge import InferenceBridge
+        from .media.bridge import TranscriptReentry
+        from .state.local import create_state_manager
+
+        bridge = InferenceBridge(
+            create_state_manager(cfg), worker.bus, crawl_id=cfg.crawl_id,
+            batch_size=cfg.inference.batch_size,
+            deadline_s=cfg.inference.batch_deadline_ms / 1000.0)
+        TranscriptReentry(bridge, worker.bus)
+    return worker, bridge
 
 
 def _build_cluster_worker(cfg: CrawlerConfig, r: ConfigResolver,
@@ -935,9 +965,10 @@ def _build_cluster_worker(cfg: CrawlerConfig, r: ConfigResolver,
                                      1.0)))
 
 
-def _serve_worker(worker) -> None:
-    """Warm up, serve until interrupted, then stop the worker before its
-    bus (serve mode: the loopback client, then the broker)."""
+def _serve_worker(worker, bridge=None) -> None:
+    """Warm up, serve until interrupted, then stop the worker, close the
+    re-entry ``bridge`` (shipping its last batch) and then the bus (serve
+    mode: the loopback client, then the broker)."""
     t0 = time.perf_counter()
     worker.warmup()
     logger.info("warmup done", extra={
@@ -947,6 +978,11 @@ def _serve_worker(worker) -> None:
         _serve_forever()
     finally:
         worker.stop()
+        if bridge is not None:
+            try:
+                bridge.close()
+            except Exception as e:
+                logger.warning("reentry bridge close failed: %s", e)
         try:
             worker.bus.close()
         except Exception as e:
@@ -968,8 +1004,9 @@ def _run_tpu_worker(cfg: CrawlerConfig, r: ConfigResolver,
 
 def _run_asr_worker(cfg: CrawlerConfig, r: ConfigResolver,
                     device=None) -> None:
-    """mode=asr-worker: AudioBatchMessages in, transcripts out."""
-    _serve_worker(_build_asr_worker(cfg, r, device=device))
+    """mode=asr-worker: AudioBatchMessages in, transcripts out; with
+    ``--infer`` the transcripts re-enter the text path."""
+    _serve_worker(*_build_asr_worker(cfg, r, device=device))
 
 
 def _run_cluster_worker(cfg: CrawlerConfig, r: ConfigResolver,
@@ -1009,7 +1046,10 @@ def _run_transcribe(cfg: CrawlerConfig, r: ConfigResolver,
     """mode=transcribe: Whisper over a tree of 16 kHz PCM ``.wav`` files,
     long files across every 30 s window; one JSONL row per file:
     ``{"path", "tokens", "text", "windows", "error"}``.  Every file
-    failing is a failed run (exit 1)."""
+    failing is a failed run (exit 1).  With ``--infer`` and
+    ``--bus-address`` the successful transcripts are also published on
+    ``tpu-inference-batches`` as one RecordBatch of posts ``media:<path>``,
+    for a ``tpu-worker`` to embed and classify."""
     import json
 
     src = r.get_str("transcribe.input")
@@ -1018,12 +1058,6 @@ def _run_transcribe(cfg: CrawlerConfig, r: ConfigResolver,
         print("error: transcribe mode needs --transcribe-input and "
               "--asr-pretrained-dir", file=sys.stderr)
         return 2
-    if cfg.inference.enabled and r.get_str("distributed.bus_address"):
-        raise CliConfigError(
-            "--infer with --bus-address: publishing transcripts onto the "
-            "inference topic needs the crawler's post records, which are "
-            "not ported (ROADMAP Queue 1, after item 7); run without "
-            "--infer")
     if os.path.isfile(src):
         paths = [src]
         base = os.path.dirname(src) or "."
@@ -1050,9 +1084,40 @@ def _run_transcribe(cfg: CrawlerConfig, r: ConfigResolver,
                 "windows": res.windows,
                 "error": res.error,
             }, ensure_ascii=False) + "\n")
+    if cfg.inference.enabled and r.get_str("distributed.bus_address"):
+        _publish_transcripts(cfg, r, results, base)
     print(json.dumps({"transcribed": len(results) - failed,
                       "failed": failed, "output": out_path}))
     return 0 if len(results) > failed else 1
+
+
+def _publish_transcripts(cfg: CrawlerConfig, r: ConfigResolver, results,
+                         base: str) -> None:
+    """``transcribe --infer --bus-address``: the successful, non-empty
+    transcripts as one RecordBatch of posts on the inference topic.  A
+    post's channel is the file's directory under the input, as the crawler
+    lays media out per channel."""
+    from .bus.codec import RecordBatch
+    from .bus.messages import TOPIC_INFERENCE_BATCHES
+    from .datamodel.post import Post
+
+    posts = []
+    for res in results:
+        if res.error or not (res.tokens or res.text):
+            continue
+        rel = os.path.relpath(res.path, base)
+        posts.append(Post(
+            post_uid=f"media:{rel}",
+            channel_name=os.path.dirname(rel) or "transcripts",
+            description=res.text or " ".join(str(t) for t in res.tokens)))
+    if not posts:
+        return
+    bus = _make_bus(r)
+    try:
+        bus.publish(TOPIC_INFERENCE_BATCHES, RecordBatch.from_posts(
+            posts, crawl_id=cfg.crawl_id).to_dict())
+    finally:
+        bus.close()
 
 
 def _train_examples(posts_file: str, labels_file: str):

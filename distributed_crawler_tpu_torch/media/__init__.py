@@ -2,11 +2,13 @@
 
 `AudioChunker` turns ragged waveforms into bucketed fixed-shape window
 batches; `ASRWorker` serves `AudioBatchMessage`s from the bus through an
-`inference.asr.ASRPipeline` and publishes `TranscriptMessage`s.  The
-reference's `MediaBridge` and `TranscriptReentry` wait for the state
-layer.
+`inference.asr.ASRPipeline` and publishes `TranscriptMessage`s;
+`TranscriptReentry` (`media/bridge.py`) stores each transcript as a post
+that re-enters the text path.  The reference's `MediaBridge` is not
+ported (only the reference's crawl modes build it).
 """
 
+from .bridge import TranscriptReentry
 from .chunker import (
     DEFAULT_WINDOW_BUCKETS,
     AudioChunker,
@@ -21,6 +23,7 @@ __all__ = [
     "AudioChunker",
     "ChunkPlan",
     "DEFAULT_WINDOW_BUCKETS",
+    "TranscriptReentry",
     "bucket_for_windows",
     "iter_transcripts",
 ]

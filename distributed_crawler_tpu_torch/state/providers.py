@@ -3,16 +3,20 @@
 The port's copy of `LocalStorageProvider` and its protocol from the
 reference's `distributed_crawler_tpu/state/providers.py`.  The three
 workers write one idempotent JSONL file per batch through ``put_text``,
-the cluster worker checkpoints through ``save_json``/``load_json``, and the
-readers (`iter_results`, `iter_transcripts`, `iter_assignments`) walk the
-tree with ``list_dir``/``get_text``.  Layouts are the reference's, so
-either package can read what the other wrote.
+the cluster worker checkpoints through ``save_json``/``load_json``, the
+transcript re-entry's post sink (`state/local.py`) appends through
+``append_jsonl``, and the readers (`iter_results`, `iter_transcripts`,
+`iter_assignments`) walk the tree with ``list_dir``/``get_text``.  Layouts
+and bytes are the reference's, so either package can read what the other
+wrote.  `state/objectstore.ObjectStorageProvider` is the other
+implementation (``--object-store``).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import threading
 from typing import Any, List, Optional, Protocol, runtime_checkable
 
 
@@ -24,6 +28,8 @@ class StorageProvider(Protocol):
 
     def load_json(self, rel_path: str) -> Optional[Any]: ...
 
+    def append_jsonl(self, rel_path: str, line: str) -> None: ...
+
     def put_text(self, rel_path: str, text: str) -> None: ...
 
     def get_text(self, rel_path: str) -> Optional[str]: ...
@@ -32,7 +38,8 @@ class StorageProvider(Protocol):
 
     def flush(self) -> None:
         """Push any client-side write buffering to durable storage; a
-        no-op for providers that write through."""
+        no-op for providers that write through (the object store buffers
+        appends and relies on it at shutdown)."""
         ...
 
 
@@ -42,6 +49,7 @@ class LocalStorageProvider:
     def __init__(self, base_path: str):
         self.base_path = base_path
         os.makedirs(base_path, exist_ok=True)
+        self._lock = threading.Lock()
 
     def flush(self) -> None:  # writes go straight to disk
         pass
@@ -67,6 +75,16 @@ class LocalStorageProvider:
     def load_json(self, rel_path: str) -> Optional[Any]:
         text = self.get_text(rel_path)
         return None if text is None else json.loads(text)
+
+    def append_jsonl(self, rel_path: str, line: str) -> None:
+        """Append one line (its trailing newlines replaced by one).  The
+        lock serializes the file write itself: interleaved writers would
+        corrupt the stream."""
+        path = self._abs(rel_path)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with self._lock:
+            with open(path, "a", encoding="utf-8") as f:
+                f.write(line.rstrip("\n") + "\n")
 
     def put_text(self, rel_path: str, text: str) -> None:
         """Atomic whole-file write: the basis of the workers' idempotent

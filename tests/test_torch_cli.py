@@ -23,6 +23,12 @@ package's, on the CPU.
   renders.
 - Each feature that waits, and each crawler mode, exits 2 and names what
   it waits for.
+- The transcript re-entry and the object-store sink: each flag that used
+  to exit 2 builds its mode (the provider's client, or the bridge on
+  ``worker.bus`` with its batch size and deadline); ``_run_asr_worker``
+  closes the bridge after the worker and before the bus; both packages'
+  ``transcribe --infer --bus-address`` publish equal records into one
+  broker; a URL the store refuses exits 2 with the reference's message.
 - The bus: each of the reference's shard-configuration errors with its
   exit code and message; the durable outbox's WAL under
   ``<spool-dir>/outbox/<who>``; ``--mode bus --bus-spool-dir`` serving
@@ -580,8 +586,6 @@ def test_serve_forever_restores_the_sigterm_handler():
 def _waiting_cases(tmp):
     store = ["--storage-root", str(tmp / "store")]
     tiny = ["--mode", "tpu-worker", "--infer-model", "tiny"] + store
-    asr = ["--mode", "asr-worker", "--asr-pretrained-dir", str(tmp)] + store
-    bus = ["--mode", "bus", "--bus-address", "127.0.0.1:1"]
     return {
         "mesh_data": (tiny + ["--mesh-data", "2"], {}, "ROADMAP item 9"),
         "mesh_devices": (tiny + ["--mesh-devices", "-1"], {},
@@ -592,18 +596,6 @@ def _waiting_cases(tmp):
         "multihost": (tiny, {"DCT_NUM_PROCESSES": "2"}, "ROADMAP item 9"),
         "coordinator": (tiny, {"DCT_COORDINATOR": "10.0.0.1:1234"},
                         "ROADMAP item 9"),
-        "object_store_tpu": (tiny + ["--object-store", "memory://"], {},
-                             "object-store"),
-        "object_store_asr": (asr + ["--object-store", "memory://"], {},
-                             "object-store"),
-        "object_store_cluster": (["--mode", "cluster-worker",
-                                  "--object-store", "file:///x"] + store,
-                                 {}, "object-store"),
-        "asr_infer": (asr + ["--infer"], {}, "re-entry"),
-        "transcribe_infer": (["--mode", "transcribe", "--transcribe-input",
-                              str(tmp), "--asr-pretrained-dir", str(tmp),
-                              "--infer", "--bus-address", "127.0.0.1:1"],
-                             {}, "ROADMAP Queue 1"),
         "serve_without_address": (tiny + ["--bus-serve"], {},
                                   "--bus-serve requires --bus-address"),
     }
@@ -620,6 +612,244 @@ def test_waiting_feature_exits_2(tmp_path, monkeypatch, capsys, case):
     rc, _, err = run_main(tcli, argv, capsys, device="cpu")
     assert rc == 2, err
     assert needle in err
+
+
+# -- the transcript re-entry and the object-store sink ------------------------
+def _close_built(worker, bridge=None):
+    if bridge is not None:
+        bridge.close()
+    worker.bus.close()
+
+
+def _built_cases(tmp, whisper_dir):
+    """argv and a check of what the CLI built, for each flag that exited 2
+    before the re-entry and the object store were ported."""
+    from distributed_crawler_tpu_torch.inference.bridge import (
+        InferenceBridge,
+    )
+    from distributed_crawler_tpu_torch.state import objectstore as tos
+    from distributed_crawler_tpu_torch.state.azurestore import (
+        AzureBlobObjectClient,
+    )
+    from distributed_crawler_tpu_torch.state.local import LocalStateManager
+    from distributed_crawler_tpu_torch.state.s3store import S3ObjectClient
+
+    store = ["--storage-root", str(tmp / "store"), "--crawl-id", "c-built"]
+    tiny = ["--mode", "tpu-worker", "--infer-model", "tiny"] + store
+    asr = ["--mode", "asr-worker", "--asr-pretrained-dir", whisper_dir] + store
+    cluster = ["--mode", "cluster-worker"] + store
+    s3 = ("s3://crawl/run?endpoint=http://127.0.0.1:1&access_key=AK"
+          "&secret_key=SK")
+    azure = ("azure://acct/crawls/run?endpoint=http://127.0.0.1:1"
+             "&account_key=a2V5")
+
+    def provider_is(client_cls, **attrs):
+        def check(worker, bridge):
+            assert bridge is None
+            assert isinstance(worker.provider, tos.ObjectStorageProvider)
+            client = worker.provider.client
+            assert type(client) is client_cls
+            for k, v in attrs.items():
+                assert getattr(client, k) == v, k
+        return check
+
+    def reentry(batch_size, serving):
+        def check(worker, bridge):
+            assert isinstance(bridge, InferenceBridge)
+            assert bridge._bus is worker.bus
+            assert isinstance(worker.bus, tcli._ServingBus) == serving
+            assert (bridge._acc.batch_size, bridge._acc.deadline_s,
+                    bridge._acc.crawl_id) == (batch_size, 0.05, "c-built")
+            # The post sink is the storage root's, with or without an
+            # object store for the results (the reference's layout).
+            assert isinstance(bridge._sm, LocalStateManager)
+            assert bridge._sm.provider.base_path == str(tmp / "store")
+        return check
+
+    return {
+        "object_store_tpu": (tiny + ["--object-store", "memory://"],
+                             provider_is(tos.InMemoryObjectClient)),
+        "object_store_asr": (asr + ["--object-store",
+                                    f"file://{tmp}/objects"],
+                             provider_is(tos.LocalFSObjectClient,
+                                         root=f"{tmp}/objects")),
+        "object_store_cluster": (cluster + ["--object-store", s3],
+                                 provider_is(S3ObjectClient, bucket="crawl",
+                                             prefix="run")),
+        "object_store_cluster_azure": (cluster + ["--object-store", azure],
+                                       provider_is(AzureBlobObjectClient,
+                                                   container="crawls",
+                                                   prefix="run")),
+        "asr_infer": (asr + ["--infer", "--infer-batch-size", "7",
+                             "--object-store", "memory://"],
+                      reentry(7, serving=False)),
+        "asr_infer_bus_serve": (asr + ["--infer", "--bus-serve",
+                                       "--bus-address",
+                                       f"127.0.0.1:{free_port()}"],
+                                reentry(256, serving=True)),
+    }
+
+
+BUILT = sorted(_built_cases(Path("/x"), "/x"))
+
+
+@pytest.mark.parametrize("case", BUILT)
+def test_flag_builds_the_mode(tmp_path, whisper_ckpt, case):
+    argv, check = _built_cases(tmp_path, whisper_ckpt)[case]
+    cfg, r = resolve(tcli, argv)
+    build = {"tpu-worker": tcli._build_tpu_worker,
+               "asr-worker": tcli._build_asr_worker,
+               "cluster-worker": tcli._build_cluster_worker}[argv[1]]
+    built = build(cfg, r, device="cpu")
+    worker, bridge = built if isinstance(built, tuple) else (built, None)
+    try:
+        check(worker, bridge)
+    finally:
+        _close_built(worker, bridge)
+
+
+def test_asr_infer_reenters_a_transcript_through_the_worker_bus(
+        tmp_path, whisper_ckpt):
+    """The built wiring end to end on the in-memory bus: a transcript on
+    the worker's bus is stored as ``media:<id>`` and shipped as a batch."""
+    from distributed_crawler_tpu_torch.bus.messages import (
+        TOPIC_TRANSCRIPTS,
+        TranscriptMessage,
+    )
+
+    root = tmp_path / "store"
+    cfg, r = resolve(tcli, ["--mode", "asr-worker", "--asr-pretrained-dir",
+                            whisper_ckpt, "--storage-root", str(root),
+                            "--crawl-id", "c-re", "--infer"])
+    worker, bridge = tcli._build_asr_worker(cfg, r, device="cpu")
+    shipped = []
+    worker.bus.subscribe(TOPIC_INFERENCE_BATCHES, shipped.append)
+    try:
+        msg = TranscriptMessage.new("m1", crawl_id="c-re", path="ch/v.wav",
+                                    channel_name="ch", text="hello")
+        worker.bus.publish(TOPIC_TRANSCRIPTS, msg.to_dict())
+        assert worker.bus.drain(timeout_s=10)
+        bridge.flush()
+        assert worker.bus.drain(timeout_s=10)
+    finally:
+        _close_built(worker, bridge)
+    assert [[rec["post_uid"] for rec in b["records"]] for b in shipped] == \
+        [["media:m1"]]
+    lines = (root / "c-re" / "ch" / "posts" / "posts.jsonl").read_text(
+        encoding="utf-8").splitlines()
+    assert [json.loads(line)["description"] for line in lines] == ["hello"]
+
+
+@pytest.mark.parametrize("close_fails", [False, True])
+def test_run_asr_worker_closes_the_bridge_before_the_bus(monkeypatch,
+                                                         caplog, close_fails):
+    events = []
+
+    class Bus:
+        def close(self):
+            events.append("bus.close")
+
+    class Worker:
+        bus = Bus()
+
+        def warmup(self):
+            events.append("warmup")
+
+        def start(self):
+            events.append("start")
+
+        def stop(self):
+            events.append("stop")
+
+    class Bridge:
+        def close(self):
+            events.append("bridge.close")
+            if close_fails:
+                raise RuntimeError("outbox full")
+
+    def interrupted(*a, **k):
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(tcli, "_build_asr_worker",
+                        lambda cfg, r, device=None: (Worker(), Bridge()))
+    monkeypatch.setattr(tcli, "_serve_forever", interrupted)
+    cfg, r = resolve(tcli, ["--mode", "asr-worker"])
+    with pytest.raises(KeyboardInterrupt):
+        tcli._run_asr_worker(cfg, r)
+    assert events == ["warmup", "start", "stop", "bridge.close", "bus.close"]
+    assert any("reentry bridge close failed" in rec.getMessage()
+               for rec in caplog.records) == close_fails
+
+
+def test_transcribe_infer_publishes_the_references_records(
+        tmp_path, whisper_ckpt, capsys):
+    """Both packages' ``transcribe --infer --bus-address`` into one broker:
+    one RecordBatch each, with equal records (error rows skipped,
+    ``post_uid = media:<relpath>``, the file's directory as channel)."""
+    from distributed_crawler_tpu_torch.bus import grpc_bus as tbus
+
+    media = tmp_path / "media"
+    (media / "chan_a").mkdir(parents=True)
+    write_wav(media / "chan_a" / "voice1.wav")
+    write_wav(media / "top.wav", seconds=0.5, freq=660.0)
+    (media / "bad.wav").write_bytes(b"RIFFgarbage")
+    server = tbus.GrpcBusServer("127.0.0.1:0")
+    server.enable_pull(TOPIC_INFERENCE_BATCHES)
+    server.start()
+    address = f"127.0.0.1:{server.bound_port}"
+    frames = []
+    try:
+        for cli, kw in ((tcli, {"device": "cpu"}), (jcli, {})):
+            rc, _, err = run_main(cli, [
+                "--mode", "transcribe", "--transcribe-input", str(media),
+                "--asr-pretrained-dir", whisper_ckpt, "--infer",
+                "--bus-address", address, "--crawl-id", "c-tr",
+                "--transcribe-output", str(tmp_path / "t.jsonl")],
+                capsys, **kw)
+            assert rc == 0, err
+        client = tbus.GrpcBusClient(address)
+        stream = client.pull(TOPIC_INFERENCE_BATCHES)
+        try:
+            for _ in range(2):
+                delivery_id, frame = next(stream)
+                frames.append(json.loads(frame))
+                client.ack(TOPIC_INFERENCE_BATCHES, delivery_id, True)
+        finally:
+            stream.close()
+            client.close()
+    finally:
+        server.close()
+    port, ref = frames
+    assert port["records"] == ref["records"]
+    assert port["crawl_id"] == ref["crawl_id"] == "c-tr"
+    assert [(rec["post_uid"], rec["channel_name"]) for rec in
+            port["records"]] == [("media:chan_a/voice1.wav", "chan_a"),
+                                 ("media:top.wav", "transcripts")]
+    assert all(rec["description"] for rec in port["records"])
+
+
+def test_object_store_without_credentials_exits_2(monkeypatch, capsys):
+    """The reference's message, before any engine is built."""
+    from distributed_crawler_tpu.state import objectstore as jobj
+
+    for k in ("AWS_ACCESS_KEY_ID", "AWS_SECRET_ACCESS_KEY",
+              "AZURE_STORAGE_KEY"):
+        monkeypatch.delenv(k, raising=False)
+    built = []
+    monkeypatch.setattr(tcli, "_make_engine",
+                        lambda *a, **k: built.append(1))
+    for url, module in (("s3://bucket/p?endpoint=http://x", "s3store"),
+                        ("azure://acct/cont?endpoint=http://x",
+                         "azurestore"),
+                        ("gs://bucket/p", "objectstore")):
+        rc, _, err = run_main(tcli, [
+            "--mode", "tpu-worker", "--infer-model", "tiny",
+            "--object-store", url], capsys, device="cpu")
+        with pytest.raises(ValueError) as ref:
+            jobj.make_object_client(url)
+        assert rc == 2
+        assert err.strip().splitlines()[-1] == f"error: {ref.value}", module
+    assert built == []
 
 
 # -- the bus: durability and shards -------------------------------------------
