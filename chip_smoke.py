@@ -63,13 +63,14 @@ JSON line each:
    cross-K/V, decode in all and per step, achieved TFLOP/s), the sm90
    kernel at [B, 1500, 12, 64] beside its plain version, SDPA and its
    bound, and windows/s and audio-seconds per second through the worker.
-8. slice.cluster — E5-large at full width (vocab 250037, hidden 1024, 24
-   layers, 16 heads of 64, batch 256, bf16, random weights from
+8. slice.cluster — E5-large at full width (vocab 250037, hidden 1024, 12
+   of its 24 layers for the script's budget, 16 heads of 64, batch 256,
+   bf16, random weights from
    ``--seed``) through `TPUWorker` (packed, coalescing 4, embeddings
    published), the in-memory bus and `ClusterWorker` at the CLI's streaming
    defaults (k 16, buckets 64/256, a checkpoint every 8 batches, coalescing
    4): 2048 synthetic posts in 8 RecordBatches.  Checks: one assignment row
-   per post with 0 <= cluster < 16; 24 sm90 launches per dispatch; a valid
+   per post with 0 <= cluster < 16; 12 sm90 launches per dispatch; a valid
    ClusterUpdateMessage on ``TOPIC_CLUSTERS``; the served stream replayed
    through a CPU engine loaded from the card engine's state after its first
    step (assignments equal off near-ties, centroids within 1e-4); a stop,
@@ -130,7 +131,7 @@ JSON line each:
    watchdog on a step that spins the card with ``torch.cuda._sleep`` (one
    stall counted, exit code 17 at the seam, a ``stall_exit`` bundle).
    Times: posts/s with every knob on against every knob off (alternating,
-   ten runs each, each run's time inside the engine and the longest wait
+   five runs each, each run's time inside the engine and the longest wait
    between result frames), MFU per path, the meter's achieved FLOP/s per bucket
    against phase 4's CUDA-event forward, the host cost of one heartbeat
    and one span export.
@@ -188,8 +189,8 @@ JSON line each:
    feature pass launches `simt` only (12 per batch of 32), the loss ends
    below ln 4, the encoder is saved unchanged, ``labels.json`` holds the
    vocabulary; card f32 features against the CPU's on 64 posts.  LoRA
-   scope (rank 8, 2 epochs): no kernel launch, the merged checkpoint
-   moves the kernels and serves.  Full scope (2 epochs,
+   scope (rank 8, 2 epochs, on the first 256 posts): no kernel launch, the merged checkpoint
+   moves the kernels and serves.  Full scope (2 epochs on the first 256,
    ``--train-grad-accum 2``, ``--train-state-dir``): stopped after epoch 1
    and resumed, against an uninterrupted run through the CLI's own
    examples, engine and full-scope training in the script's process
@@ -235,6 +236,42 @@ JSON line each:
    empty at the end.  Times: the outage, restart to the first batch
    committed, restart to the last row, batches redelivered, posts/s of
    each run beside phase 11's over gRPC.
+15. slice.orchestrator (run after phase 14) — ``--mode orchestrator``
+   (``grpc`` required) hosting the broker with ``--bus-spool-dir``,
+   ``--journal-dir``, ``--max-depth 2``, ``--cluster-serve``, 8 seed
+   URLs, ``--infer-backpressure-high 4 --infer-backpressure-low 2`` and
+   one alert rule (``fleet_worker_queue_length > 2``), over a ``--mode
+   tpu-worker`` (E5-small, phase 11's flags, ``--telemetry-interval 1``)
+   and a ``--mode cluster-worker`` (k 16), each a process of its own on
+   the card.  Two stand-in crawl workers in this process answer the work
+   queue as the reference's crawl `Worker` does on the bus (heartbeats
+   with ``worker_type="crawl"``, one `ResultMessage` per item with 4
+   children of a seeded tree above depth 2: 8 + 32 + 128 = 168 pages),
+   crawling a page at once, and store 24 posts per page (phase 4's texts,
+   4,032 in all) through one shared `InferenceBridge` at the CLI's
+   defaults (256-post batches, 50 ms deadline); their spans and the
+   bridge's go to the collector on the spans topic.  Run A: depth 2's
+   posts reach the broker while the tpu-worker is SIGSTOPped; it runs to
+   take them in and is stopped again once its next heartbeat, a queue of
+   at least 4 batches, has reached the orchestrator, until the valve has
+   engaged and the rule fired; then it drains, and depth 2's results are
+   sent once the valve has released.  Checks: the crawl completes (every
+   page fetched, applied once by the journal's replay, one result row per
+   post); the valve engages and releases (``/status``
+   ``backpressure_active``, the orchestrator's log); the tpu-worker on
+   ``/cluster`` with card memory above 0; ``/dtraces`` with its spans
+   moved by the fleet's clock offset and traces joining the
+   orchestrator's dispatch span to a crawl worker's; the rule fires and
+   resolves, its `AlertMessage`s read off the alerts topic; ``/tenants``
+   charging ``default`` chip seconds; a folded cluster guide.  Run B: the
+   orchestrator SIGKILLed with 24 results applied and depth 1's other 16
+   held (sent into the outage), restarted 3 s later over the same journal
+   and spool: ``resumed``, then the same checks of the crawl.  12 sm90
+   launches per dispatch and none elsewhere, read from the worker's
+   /metrics.  Times: the worker's posts/s over run A's held burst, the
+   valve's engaged seconds and the hold's steps, restart to completion,
+   the phase's seconds; crawl seconds, pages/s and posts/s end to end,
+   which the 5 s distribute tick and the holds set.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``.  Any failed phase raises and exits
@@ -2537,6 +2574,10 @@ def time_cluster_step(torch, np, state, frame, smi):
     return rows
 
 
+E5_LARGE_MODEL = "e5_large_12l"
+E5_LARGE_LAYERS = 12
+
+
 def phase_cluster(torch, np, attention, device, gen, seed, smi):
     """E5-large at full width through `TPUWorker`, the bus and
     `ClusterWorker` (BASELINE config #5); checks against the CPU, crash
@@ -2548,15 +2589,21 @@ def phase_cluster(torch, np, attention, device, gen, seed, smi):
     )
     from distributed_crawler_tpu_torch.utils.metrics import MetricsRegistry
 
+    from distributed_crawler_tpu_torch.inference import engine as engine_mod
+
     t0 = time.perf_counter()
-    cfg = EngineConfig(model="e5_large", batch_size=BATCH, seed=seed)
+    # E5-large's widths at E5_LARGE_LAYERS of its 24 layers (the script's
+    # budget; every check holds at any depth).
+    engine_mod.MODEL_REGISTRY[E5_LARGE_MODEL] = replace(
+        engine_mod.MODEL_REGISTRY["e5_large"], n_layers=E5_LARGE_LAYERS)
+    cfg = EngineConfig(model=E5_LARGE_MODEL, batch_size=BATCH, seed=seed)
     engine = InferenceEngine(cfg, registry=MetricsRegistry())
     ecfg = engine.ecfg
     check(engine.device.type == "cuda", f"engine on {engine.device}")
     check((ecfg.vocab_size, ecfg.hidden, ecfg.n_layers, ecfg.n_heads,
-           ecfg.mlp_dim, ecfg.dtype) == (250037, 1024, 24, 16, 4096,
-                                         "bfloat16"),
-          f"not E5-large's full width: {ecfg}")
+           ecfg.mlp_dim, ecfg.dtype) == (250037, 1024, E5_LARGE_LAYERS, 16,
+                                         4096, "bfloat16"),
+          f"not E5-large's full width at {E5_LARGE_LAYERS} layers: {ecfg}")
     check(engine.bucket_spec.lengths == MAIN_BUCKETS,
           f"buckets {engine.bucket_spec.lengths}")
     init_s = time.perf_counter() - t0
@@ -5340,6 +5387,9 @@ def phase_bus(np, attention, work, tpu, grpc_posts_s, smi):
 # Phase 13 (slice.train): train-head at XLM-R-base's published widths.
 TRAIN_LABELS = ("news", "politics", "sports", "tech")
 TRAIN_POSTS, TRAIN_SERVE_POSTS, TRAIN_CPU_POSTS = 1024, 2048, 64
+# The LoRA and full scopes train on the first TRAIN_SCOPE_POSTS of them
+# (the script's budget; their checks hold at any size).
+TRAIN_SCOPE_POSTS = 256
 TRAIN_WORDS = (8, 200)          # words per post
 TRAIN_VOCAB = 64                # words per class
 TRAIN_STEP_BATCH = 16
@@ -5887,12 +5937,15 @@ def phase_train(torch, np, attention, device, seed, smi):
                                   vocab, TRAIN_POSTS, 0)
     posts_file = os.path.join(root, "posts.jsonl")
     labels_file = os.path.join(root, "labels.jsonl")
-    with open(posts_file, "w") as f, open(labels_file, "w") as g:
-        for rec, c in zip(records, labels):
-            f.write(json.dumps({"post_uid": rec["post_uid"],
-                                "all_text": rec["description"]}) + "\n")
-            g.write(json.dumps({"post_uid": rec["post_uid"],
-                                "label": TRAIN_LABELS[c]}) + "\n")
+    for n, (pf, lf) in ((TRAIN_POSTS, (posts_file, labels_file)),
+                        (TRAIN_SCOPE_POSTS, (posts_file + ".scope",
+                                             labels_file + ".scope"))):
+        with open(pf, "w") as f, open(lf, "w") as g:
+            for rec, c in zip(records[:n], labels[:n]):
+                f.write(json.dumps({"post_uid": rec["post_uid"],
+                                    "all_text": rec["description"]}) + "\n")
+                g.write(json.dumps({"post_uid": rec["post_uid"],
+                                    "label": TRAIN_LABELS[c]}) + "\n")
     names = sorted(TRAIN_LABELS)
     label_ids = [names.index(TRAIN_LABELS[c]) for c in labels]
     tokenizer = HashingTokenizer(fcfg.vocab_size)
@@ -5903,6 +5956,8 @@ def phase_train(torch, np, attention, device, seed, smi):
     base = ["--mode", "train-head", "--infer-model", "xlmr_base",
             "--train-posts", posts_file, "--train-labels", labels_file,
             "--storage-root", os.path.join(root, "store")]
+    scope = base[:4] + ["--train-posts", posts_file + ".scope",
+                        "--train-labels", labels_file + ".scope"] + base[8:]
     emit("train.data", posts=len(records), classes=len(names),
          tokens_min=min(map(len, toks)), tokens_max=max(map(len, toks)),
          setup_s=time.perf_counter() - t_phase)
@@ -5944,7 +5999,7 @@ def phase_train(torch, np, attention, device, seed, smi):
     # (b) LoRA scope: rank 8, 2 epochs; no kernel launches.
     ckpt_lora = os.path.join(root, "ckpt_lora")
     lora, lora_s, launches, lora_mem = train_run(
-        torch, attention, base + ["--head-checkpoint", ckpt_lora,
+        torch, attention, scope + ["--head-checkpoint", ckpt_lora,
                                   "--train-scope", "lora",
                                   "--train-lora-rank", "8",
                                   "--train-epochs", "2"], env)
@@ -5986,7 +6041,7 @@ def phase_train(torch, np, attention, device, seed, smi):
                                 "--train-state-dir", sd1,
                                 "--head-checkpoint", ckpt_full])):
         summary, seconds, launches, mem = train_run(
-            torch, attention, base + argv, env)
+            torch, attention, scope + argv, env)
         check(launches == dict.fromkeys(attention.PATHS, 0),
               f"full scope ({name}) launched {launches}")
         runs[name] = {"summary": summary, "seconds": seconds,
@@ -5996,7 +6051,7 @@ def phase_train(torch, np, attention, device, seed, smi):
     zero_launches(attention)
     (straight_tree, straight_losses, straight_s), straight_mem = \
         peak_memory(torch, lambda: uninterrupted_full_run(
-            base + full + ["--train-epochs", "2", "--head-checkpoint",
+            scope + full + ["--train-epochs", "2", "--head-checkpoint",
                            os.path.join(root, "unused")], env))
     launches = read_launches(attention)
     check(launches == dict.fromkeys(attention.PATHS, 0),
@@ -6074,6 +6129,719 @@ def phase_train(torch, np, attention, device, seed, smi):
          feature_posts_per_s=feature_row["posts_per_s"],
          step_ms={r["scope"]: r["ms"] for r in step_rows})
     return {"launches": main_launches}
+
+
+# Phase 15 (slice.orchestrator): the orchestrator over the card's workers.
+ORCH_SEEDS, ORCH_FANOUT, ORCH_MAX_DEPTH = 8, 4, 2
+ORCH_PAGES = 8 + 32 + 128            # the crawl graph: a tree of fan-out 4
+ORCH_DEPTH2 = ORCH_SEEDS * ORCH_FANOUT ** 2
+ORCH_POSTS_PER_PAGE = 24
+ORCH_VALVE = (4, 2)                  # --infer-backpressure-high / -low
+# A threshold rule on the fleet's queue depth as the heartbeats report
+# it (the orchestrator's ``fleet_worker_queue_length{worker_id}`` gauge,
+# sampled into the store on each watchtower tick).  The ``fleet_queue_depth``
+# series is each worker's 60 s time-weighted mean, which a backlog of a
+# few seconds never lifts over 2.
+ORCH_RULE = {"name": "deep_queue", "kind": "threshold",
+             "series": "fleet_worker_queue_length", "op": ">", "value": 2}
+# The stand-ins crawl a page at once: its posts go to the bridge, then its
+# result to the orchestrator.  A `Hold` keeps some back so that the crawl
+# stands where a check needs it, whatever the card's rate: in run A depth
+# 2's posts until the tpu-worker is stopped, and their results until the
+# valve has released; in run B all but ORCH_B_FREE of depth 1's results
+# until the orchestrator is killed.
+ORCH_B_FREE = 16
+# The valve's backlog in run A (`hold_backlog`): the tpu-worker is stopped
+# (SIGSTOP) while depth 2's 3,072 posts reach the broker in the CLI's
+# 256-post batches, runs ORCH_FILL_S to take them in (its feed loop takes
+# 4 batches to a dispatch and the rest queue), stops past its next
+# heartbeat's time, and runs until that heartbeat reaches the orchestrator.
+# Stopped again there, the backlog it reported stands until the valve has
+# engaged and the rule fired; then it runs on and drains.
+ORCH_BEAT_S = 1.0                    # the workers' --telemetry-interval
+ORCH_FILL_S = 0.5
+ORCH_HOLD_S = 30.0                   # six distribute ticks
+ORCH_KILL_OUTAGE_S = 3.0
+ORCH_OFFSET_TOL = 0.05   # s: the fleet's estimate between two reads
+ORCH_DEADLINE_S = 300.0
+
+def orch_graph(np, seed):
+    """Seeded channel names: 8 seeds, each page with 4 children down to
+    depth 2 (a tree: 168 distinct pages)."""
+    rng = np.random.default_rng(seed + 15)
+    seeds = [f"ch{int(x):06x}" for x in rng.integers(0, 1 << 24,
+                                                     ORCH_SEEDS)]
+    check(len(set(seeds)) == ORCH_SEEDS, "seed names collide")
+    return seeds
+
+
+def orch_children(url):
+    return [f"{url}x{i}" for i in range(ORCH_FANOUT)]
+
+
+def orch_posts(np, url, seed):
+    """A page's 24 posts, their texts made as phase 4's are; uids from the
+    page, so a page crawled twice stores the same posts."""
+    from distributed_crawler_tpu_torch.datamodel.post import Post
+
+    rng = np.random.default_rng([seed, *url.encode()])
+    rows = synthetic_posts(np, rng, ORCH_POSTS_PER_PAGE, 0)
+    return [Post(post_uid=f"{url}:{i}", channel_name=url,
+                 description=r["description"]) for i, r in enumerate(rows)]
+
+
+class Hold:
+    """Lets the first ``free`` stand-in pages of one gate through and the
+    rest once the script calls `release` (or the deadline passes)."""
+
+    def __init__(self, free=0):
+        import threading
+
+        self.free = free
+        self.lock = threading.Lock()
+        self.released = threading.Event()
+        self.arrived = 0
+
+    def wait(self):
+        with self.lock:
+            self.arrived += 1
+            if self.arrived <= self.free:
+                return
+        self.released.wait(ORCH_DEADLINE_S)
+
+    def release(self):
+        self.released.set()
+
+
+class StandInCrawler:
+    """A crawl worker on the bus, as the reference's `Worker` is there
+    (`distributed_crawler_tpu/worker/worker.py:250-300`): heartbeats with
+    ``worker_type="crawl"`` (busy with the item's id while crawling), one
+    `ResultMessage` per `WorkQueueMessage` with the page's 4 children
+    while above the crawl's max depth, and the page's posts stored through
+    the shared `InferenceBridge`.  It fetches nothing and crawls a page at
+    once, but for the run's ``holds`` ({("posts" or "results", depth):
+    `Hold`}): the script's own load, not a feature of the port."""
+
+    def __init__(self, np, worker_id, address, bridge, seed, work, holds):
+        import concurrent.futures
+        import threading
+
+        from distributed_crawler_tpu_torch.bus.grpc_bus import RemoteBus
+        from distributed_crawler_tpu_torch.bus.messages import (
+            TOPIC_WORK_QUEUE,
+        )
+        from distributed_crawler_tpu_torch.bus.outbox import OutboxConfig
+
+        self.np, self.worker_id, self.bridge, self.seed = \
+            np, worker_id, bridge, seed
+        self.holds = holds
+        self.bus = RemoteBus(address, outbox=OutboxConfig(
+            dir=os.path.join(work, f"outbox_{worker_id}")))
+        self.pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=128, thread_name_prefix=worker_id)
+        self.lock = threading.Lock()
+        self.busy = {}
+        self.done = self.errors = 0
+        self.items = []
+        self.stop_beat = threading.Event()
+        self.t0 = time.monotonic()
+        self.beat("worker_started")
+        self.beater = threading.Thread(target=self._beat_loop, daemon=True)
+        self.beater.start()
+        self.bus.subscribe(TOPIC_WORK_QUEUE, self._on_work)
+
+    def beat(self, message_type="heartbeat"):
+        from distributed_crawler_tpu_torch.bus.messages import (
+            TOPIC_WORKER_STATUS,
+            StatusMessage,
+        )
+
+        with self.lock:
+            current = next(iter(self.busy), None)
+            n, err = self.done, self.errors
+        msg = StatusMessage.new(
+            self.worker_id, message_type, "busy" if current else "idle",
+            tasks_processed=n, tasks_success=n - err, tasks_error=err,
+            uptime_s=time.monotonic() - self.t0, worker_type="crawl")
+        msg.current_work = current
+        self.bus.publish(TOPIC_WORKER_STATUS, msg.to_dict())
+
+    def _beat_loop(self):
+        while not self.stop_beat.wait(ORCH_BEAT_S):
+            try:
+                self.beat()
+            except Exception as e:  # the broker may be down (run B)
+                logging.getLogger("chip_smoke").debug("beat: %s", e)
+
+    def _on_work(self, payload):
+        from distributed_crawler_tpu_torch.bus.messages import (
+            WorkQueueMessage,
+        )
+
+        msg = WorkQueueMessage.from_dict(payload)
+        item = msg.work_item
+        with self.lock:
+            self.busy[item.id] = item.url
+            self.items.append(item.id)
+        self.pool.submit(self._crawl, item)
+
+    def _hold(self, kind, depth):
+        hold = self.holds.get((kind, depth))
+        if hold is not None:
+            hold.wait()
+
+    def _crawl(self, item):
+        from distributed_crawler_tpu_torch.bus import codec
+        from distributed_crawler_tpu_torch.bus.messages import (
+            STATUS_SUCCESS,
+            TOPIC_RESULTS,
+            DiscoveredPage,
+            ResultMessage,
+            WorkResult,
+        )
+        from distributed_crawler_tpu_torch.utils import trace
+
+        t0 = time.monotonic()
+        with trace.span("crawl_worker.process", trace_id=item.trace_id,
+                        work_item=item.id, url=item.url, depth=item.depth):
+            self._hold("posts", item.depth)
+            posts = orch_posts(self.np, item.url, self.seed)
+            for p in posts:
+                self.bridge.store_post(item.url, p)
+            self._hold("results", item.depth)
+            found = [] if item.depth >= item.config.max_depth else [
+                DiscoveredPage(url=u, parent_id=item.parent_id,
+                               depth=item.depth + 1, platform=item.platform)
+                for u in orch_children(item.url)]
+            wr = WorkResult(work_item_id=item.id, worker_id=self.worker_id,
+                            status=STATUS_SUCCESS, processed_url=item.url,
+                            message_count=len(posts),
+                            processing_time_s=time.monotonic() - t0,
+                            completed_at=codec.utcnow())
+            self.bus.publish(TOPIC_RESULTS, ResultMessage.new(
+                wr, found, trace_id=item.trace_id).to_dict())
+        with self.lock:
+            self.busy.pop(item.id, None)
+            self.done += 1
+
+    def close(self):
+        self.stop_beat.set()
+        self.beater.join(timeout=5)
+        self.pool.shutdown(wait=True)
+        try:
+            self.beat("worker_stopping")
+        finally:
+            self.bus.close()
+
+
+def orch_argv(address, metrics_port, store, spool, journal, crawl_id,
+              seeds, dump):
+    rules = json.dumps([ORCH_RULE])
+    return ("--mode", "orchestrator", "--bus-address", address,
+            "--metrics-port", str(metrics_port), "--storage-root", store,
+            "--crawl-id", crawl_id, "--bus-spool-dir", spool,
+            "--journal-dir", journal, "--max-depth", str(ORCH_MAX_DEPTH),
+            "--urls", ",".join(seeds), "--skip-media", "--cluster-serve",
+            "--infer-backpressure-high", str(ORCH_VALVE[0]),
+            "--infer-backpressure-low", str(ORCH_VALVE[1]),
+            "--alert-rules", rules, "--dump-dir", dump, "--log-json")
+
+
+class StatusWatch:
+    """Polls the orchestrator's /status every 50 ms on a thread: the
+    valve's engaged time and transitions, the highest inference backlog,
+    and the last body seen."""
+
+    def __init__(self, url):
+        import threading
+
+        self.url = url
+        self.last = None
+        self.engaged_s = 0.0
+        self.transitions = []
+        self.max_backlog = 0
+        self.seen_resumed = False
+        self.on = False
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+
+    def _run(self):
+        prev_t, prev_on = None, False
+        while not self._stop.wait(0.05):
+            body = json_route(self.url, "/status")
+            if body is None:
+                continue
+            now = time.monotonic()
+            on = bool(body.get("backpressure_active"))
+            if prev_t is not None and prev_on:
+                self.engaged_s += now - prev_t
+            if on != prev_on:
+                self.transitions.append((round(now, 3), on,
+                                         body.get("inference_backlog")))
+            prev_t, prev_on = now, on
+            self.on = on
+            self.max_backlog = max(self.max_backlog,
+                                   body.get("inference_backlog") or 0)
+            self.seen_resumed |= bool(body.get("resumed"))
+            self.last = body
+
+    def close(self):
+        self._stop.set()
+        self._t.join(timeout=5)
+
+
+def orch_rows(store, crawl_id):
+    """Every result row the tpu-worker committed for ``crawl_id``."""
+    base = os.path.join(store, "inference", crawl_id, "batches")
+    rows = []
+    for name in sorted(os.listdir(base)) if os.path.isdir(base) else []:
+        with open(os.path.join(base, name), encoding="utf-8") as f:
+            rows += [json.loads(line) for line in f]
+    return rows
+
+
+ORCH_ROUTES = ("/cluster", "/dtraces", "/alerts", "/tenants")
+
+
+def orch_run(np, procs, work, tag, address, store, seed, holds, act):
+    """One crawl: an orchestrator process over the running workers, two
+    stand-ins and their shared bridge in this process.  ``act(run)`` steers
+    it once the stand-ins are up (`hold_backlog`, `kill_and_resume`); the
+    crawl then runs to completion."""
+    import types
+
+    from distributed_crawler_tpu_torch.bus.grpc_bus import RemoteBus
+    from distributed_crawler_tpu_torch.bus.messages import (
+        TOPIC_ALERTS,
+        TOPIC_SPANS,
+        SpanBatchMessage,
+    )
+    from distributed_crawler_tpu_torch.bus.outbox import OutboxConfig
+    from distributed_crawler_tpu_torch.config.crawler import InferenceConfig
+    from distributed_crawler_tpu_torch.inference.bridge import InferenceBridge
+    from distributed_crawler_tpu_torch.orchestrator.journal import (
+        CrawlJournal,
+    )
+    from distributed_crawler_tpu_torch.state.interface import StateConfig
+    from distributed_crawler_tpu_torch.state.local import LocalStateManager
+    from distributed_crawler_tpu_torch.utils import trace
+
+    crawl_id = f"orch-{tag}"
+    root = os.path.join(work, tag)
+    os.makedirs(root)
+    journal = os.path.join(root, "journal")
+    state = os.path.join(root, "state")
+    m_orch = free_port()
+    ourl = f"http://127.0.0.1:{m_orch}"
+    argv = orch_argv(address, m_orch, state, os.path.join(root, "spool"),
+                     journal, crawl_id, orch_graph(np, seed),
+                     os.path.join(root, "dump"))
+    run = types.SimpleNamespace(tag=tag, argv=argv, procs=procs, ourl=ourl,
+                                holds=holds, names=[f"orch_{tag}"],
+                                out={"crawl_id": crawl_id},
+                                restarted_at=None)
+    t0 = time.perf_counter()
+    run.orch = procs.start(run.names[-1], *argv)
+    poll_until(lambda: json_route(ourl, "/status"),
+               "the orchestrator's /status", procs=[run.orch], timeout_s=120)
+    run.watch = StatusWatch(ourl)
+    # A crawl worker's bridge at the CLI's defaults: 256-post batches,
+    # a partial one shipped 50 ms after its first post.
+    infer = InferenceConfig()
+    run.bridge_bus = RemoteBus(address, outbox=OutboxConfig(
+        dir=os.path.join(root, "outbox_bridge")))
+    run.bridge = InferenceBridge(
+        LocalStateManager(StateConfig(
+            storage_root=os.path.join(root, "posts"), crawl_id=crawl_id)),
+        run.bridge_bus, crawl_id=crawl_id, batch_size=infer.batch_size,
+        deadline_s=infer.batch_deadline_ms / 1000.0)
+    alerts_bus = RemoteBus(address)
+    run.alerts = []
+    alerts_bus.subscribe(TOPIC_ALERTS, run.alerts.append)
+    # The stand-ins' spans (and the bridge's batch dispatch spans) go to
+    # the collector as a worker's do.
+    exporter = trace.SpanExporter(name_prefixes=("crawl_worker.",
+                                                 "orchestrator.dispatch"))
+    crawlers = [StandInCrawler(np, f"crawl-{tag}{i}", address, run.bridge,
+                               seed, root, holds) for i in range(2)]
+    routes = {}
+    try:
+        act(run)
+        deadline = time.monotonic() + ORCH_DEADLINE_S
+        last_poll = 0.0
+        while run.orch.poll() is None:
+            check(time.monotonic() < deadline,
+                  f"{tag}: the crawl did not complete in "
+                  f"{ORCH_DEADLINE_S} s: {run.watch.last}")
+            if time.monotonic() - last_poll >= 0.5:
+                last_poll = time.monotonic()
+                spans, dropped = exporter.collect()
+                if spans:
+                    run.bridge_bus.publish(TOPIC_SPANS, SpanBatchMessage.new(
+                        "crawl-stand-ins", [s.to_dict() for s in spans],
+                        dropped).to_dict())
+                # The last poll in which every route answered.
+                got = {route: json_route(ourl, route)
+                       for route in ORCH_ROUTES}
+                if all(body is not None for body in got.values()):
+                    routes = got
+            time.sleep(0.02)
+        t_done = time.perf_counter()
+        procs.live.remove(run.orch)
+        check(run.orch.returncode == 0, f"{tag}: the orchestrator exited "
+              f"{run.orch.returncode}: {procs.tail(run.orch.name)}")
+    finally:
+        for hold in holds.values():
+            hold.release()
+        run.watch.close()
+        for c in crawlers:
+            c.close()
+        run.bridge.close()
+        run.bridge_bus.close()
+        alerts_bus.close()
+    log = []
+    for name in run.names:
+        with open(os.path.join(procs.work, f"{name}.log"),
+                  encoding="utf-8", errors="replace") as f:
+            log += [json.loads(ln) for ln in f if ln.startswith("{")]
+    with open(os.path.join(state, crawl_id, "state.json"),
+              encoding="utf-8") as f:
+        layers = json.load(f)["layers"]
+    out = run.out
+    out.update(
+        crawl_s=t_done - t0, watch=run.watch, routes=routes,
+        alerts=run.alerts, log=log, layers=layers,
+        journal=CrawlJournal(journal).replay(),
+        rows=orch_rows(store, crawl_id),
+        bridge={"batches": run.bridge.batches_published,
+                "posts": run.bridge.posts_bridged,
+                "deduped": run.bridge.posts_deduped},
+        items_taken=sum(len(c.items) for c in crawlers))
+    if run.restarted_at is not None:
+        out["restart_to_completion_s"] = t_done - run.restarted_at
+    return out
+
+
+def alert_states(alerts):
+    return [a["state"] for a in alerts if a.get("rule") == ORCH_RULE["name"]]
+
+
+def hold_backlog(run, tpu, tpu_id):
+    """Run A: depth 2's posts held at a stopped tpu-worker until the
+    orchestrator's valve has engaged and its rule fired on them; then the
+    worker drains and the valve releases (see ORCH_FILL_S)."""
+    import signal
+
+    posts, results = run.holds[("posts", 2)], run.holds[("results", 2)]
+    total = ORCH_PAGES * ORCH_POSTS_PER_PAGE
+
+    def tpu_row():
+        body = json_route(run.ourl, "/cluster") or {}
+        return body.get("workers", {}).get(tpu_id) or {}
+
+    poll_until(lambda: posts.arrived >= ORCH_DEPTH2,
+               "run A: depth 2 dispatched", procs=[run.orch],
+               timeout_s=ORCH_DEADLINE_S)
+    rec = {}
+    b0 = run.bridge.batches_published
+    tpu.send_signal(signal.SIGSTOP)
+    t_stop = time.monotonic()
+    try:
+        posts.release()
+        poll_until(lambda: run.bridge.posts_bridged >= total,
+                   "run A: depth 2's posts bridged", timeout_s=60)
+        # Past the bridge's 50 ms deadline, so its flush thread has shipped
+        # the last partial batch; then into the broker.
+        time.sleep(0.2)
+        run.bridge.flush()
+        check(run.bridge_bus.outbox.drain(timeout_s=60),
+              "run A: the bridge's outbox did not drain into the broker")
+        rec["batches_held"] = run.bridge.batches_published - b0
+        tpu.send_signal(signal.SIGCONT)
+        time.sleep(ORCH_FILL_S)
+        tpu.send_signal(signal.SIGSTOP)
+        time.sleep(ORCH_BEAT_S + 0.2)
+        seen = tpu_row().get("heartbeats", 0)
+        tpu.send_signal(signal.SIGCONT)
+        row = poll_until(
+            lambda: (lambda r: r if r.get("heartbeats", 0) > seen
+                     else None)(tpu_row()),
+            "run A: the tpu-worker's heartbeat after its fill",
+            timeout_s=10 * ORCH_BEAT_S, poll_s=0.002)
+        tpu.send_signal(signal.SIGSTOP)
+        rec["reported_queue"] = row["queue_length"]
+        check(row["queue_length"] >= ORCH_VALVE[0],
+              f"run A: the held tpu-worker reported a queue of "
+              f"{row['queue_length']} batches, under the valve's "
+              f"{ORCH_VALVE[0]} ({rec['batches_held']} held)")
+        t_held = time.monotonic()
+        poll_until(lambda: run.watch.on
+                   and "firing" in alert_states(run.alerts),
+                   "run A: the valve engaged and the rule fired on the "
+                   "held backlog", procs=[run.orch], timeout_s=ORCH_HOLD_S)
+        rec["engaged_after_s"] = time.monotonic() - t_held
+    finally:
+        tpu.send_signal(signal.SIGCONT)
+    rec["worker_stopped_s"] = time.monotonic() - t_stop
+    t_go = time.monotonic()
+    poll_until(lambda: not run.watch.on
+               and "resolved" in alert_states(run.alerts),
+               "run A: the valve released and the rule resolved as the "
+               "worker drained", procs=[run.orch, tpu], timeout_s=ORCH_HOLD_S)
+    rec["released_after_s"] = time.monotonic() - t_go
+    results.release()
+    run.out["hold"] = rec
+
+
+def kill_and_resume(run):
+    """Run B: SIGKILL the orchestrator once ORCH_B_FREE of depth 1's
+    results are applied and the others held, let them go into the outage,
+    and restart it over the same journal and spool after
+    ORCH_KILL_OUTAGE_S."""
+    want = ORCH_SEEDS + ORCH_B_FREE
+    poll_until(lambda: (run.watch.last or {}).get("work_stats", {}).get(
+        "completed_items", 0) >= want, f"run B: {want} results applied",
+        procs=[run.orch], timeout_s=ORCH_DEADLINE_S, poll_s=0.005)
+    run.procs.kill(run.orch)
+    applied = run.watch.last["work_stats"]["completed_items"]
+    check(applied == want, f"run B: {applied} results applied at the kill, "
+          f"not {want}")
+    run.out["applied_at_kill"] = applied
+    run.holds[("results", 1)].release()
+    time.sleep(ORCH_KILL_OUTAGE_S)
+    run.names.append(f"orch_{run.tag}_restart")
+    run.orch = run.procs.start(run.names[-1], *run.argv)
+    run.restarted_at = time.perf_counter()
+
+
+def commit_rate(store, crawl_id):
+    """The tpu-worker's commits of one crawl, grouped into bursts (files
+    written less than 2 s apart): the largest burst's rows over the time
+    from its first writeback to its last (a lower bound on the worker's
+    rate: the first file's batch was already processed)."""
+    base = os.path.join(store, "inference", crawl_id, "batches")
+    files = []
+    for name in os.listdir(base):
+        path = os.path.join(base, name)
+        with open(path, encoding="utf-8") as f:
+            files.append((os.path.getmtime(path), sum(1 for _ in f)))
+    files.sort()
+    bursts = [[files[0]]]
+    for prev, cur in zip(files, files[1:]):
+        if cur[0] - prev[0] > 2.0:
+            bursts.append([])
+        bursts[-1].append(cur)
+    big = max(bursts, key=lambda b: sum(r for _, r in b))
+    span = big[-1][0] - big[0][0]
+    rows = sum(r for _, r in big)
+    return {"files": len(files), "bursts": len(bursts),
+            "largest_burst": {"files": len(big), "rows": rows,
+                              "first_to_last_s": span,
+                              "posts_per_s": rows / span if span else None}}
+
+
+def check_crawl(np, run, seed, what):
+    """168 pages fetched and applied once; 4,032 posts, one row each."""
+    final = run["watch"].last or {}
+    check(final.get("crawl_completed") is True, f"{what}: last /status "
+          f"{final}")
+    stats = final["work_stats"]
+    check(stats["completed_items"] == ORCH_PAGES and stats["error_items"]
+          == 0, f"{what}: work stats {stats}")
+    pages = [p for layer in run["layers"] for p in layer["pages"]]
+    by_depth = [len(layer["pages"]) for layer in run["layers"]]
+    check(by_depth == [ORCH_SEEDS, ORCH_SEEDS * ORCH_FANOUT,
+                       ORCH_SEEDS * ORCH_FANOUT ** 2]
+          and all(p["status"] == "fetched" for p in pages)
+          and len({p["url"] for p in pages}) == ORCH_PAGES,
+          f"{what}: pages by depth {by_depth}, statuses "
+          f"{sorted({p['status'] for p in pages})}")
+    rec = run["journal"]
+    check(rec.completed_items == ORCH_PAGES and rec.error_items == 0
+          and len(rec.applied_results) == ORCH_PAGES
+          and not rec.active_work and rec.crawl_completed,
+          f"{what}: the journal's replay {rec.to_debug_dict()}")
+    uids = [r["post_uid"] for r in run["rows"]]
+    want = {f"{p['url']}:{i}" for p in pages
+            for i in range(ORCH_POSTS_PER_PAGE)}
+    check(len(uids) == len(want) == ORCH_PAGES * ORCH_POSTS_PER_PAGE
+          and set(uids) == want,
+          f"{what}: {len(uids)} result rows ({len(set(uids))} posts) for "
+          f"{len(want)} posts")
+    emb_ok = all(len(r["embedding"]) == 384 and np.isfinite(
+        r["embedding"]).all() for r in run["rows"][:64])
+    check(emb_ok, f"{what}: result embeddings not 384 finite floats")
+    return {"pages": len(pages), "pages_by_depth": by_depth,
+            "applied": len(rec.applied_results), "rows": len(uids),
+            "journal_events_replayed": rec.events_replayed}
+
+
+def check_surfaces(run, tpu_id):
+    """Run A's routes: the valve, /cluster, /dtraces, the alert, /tenants
+    and the cluster guide."""
+    watch, routes = run["watch"], run["routes"]
+    flips = [on for _, on, _ in watch.transitions]
+    check(True in flips and False in flips[flips.index(True):],
+          f"the valve: /status transitions {watch.transitions}")
+    msgs = [r.get("message", "") for r in run["log"]]
+    engaged = sum("inference backlog high" in m for m in msgs)
+    released = sum("inference backlog drained" in m for m in msgs)
+    check(engaged >= 1 and released >= 1,
+          f"the valve's log lines: {engaged} engaged, {released} released")
+    cluster = routes.get("/cluster") or {}
+    row = cluster.get("workers", {}).get(tpu_id) or {}
+    mem = sum(d.get("bytes_in_use", 0) for d in
+              row.get("telemetry", {}).get("device_memory", []))
+    check(row.get("worker_type") == "tpu" and mem > 0,
+          f"/cluster: {tpu_id} {row.get('worker_type')}, card memory {mem}")
+    # The collector moves a batch's span walls by the fleet's estimate at
+    # the time it folds the batch; the two routes are read in one poll.
+    offset = row["clock_offset_s"]
+    dtraces = routes.get("/dtraces") or {}
+    traces = dtraces.get("traces", [])
+    applied = dtraces.get("workers", {}).get(tpu_id, {}).get(
+        "applied_offset_s")
+    tpu_spans = [s for t in traces for s in t["spans"]
+                 if s.get("process") == tpu_id]
+    check(tpu_spans and applied is not None
+          and abs(applied - offset) <= ORCH_OFFSET_TOL
+          and all(isinstance(s.get("clock_offset_s"), float)
+                  for s in tpu_spans),
+          f"/dtraces: {len(tpu_spans)} spans of {tpu_id}, the last batch "
+          f"moved by {applied} s against the fleet's offset {offset} s")
+    joined = [t for t in traces
+              if any(s["name"] == "orchestrator.dispatch"
+                     and s["process"] == "orchestrator" for s in t["spans"])
+              and any(s["process"] == "crawl-stand-ins"
+                      for s in t["spans"])]
+    check(joined, "/dtraces: no trace joins the orchestrator's dispatch "
+          "span and a crawl worker's")
+    states = alert_states(run["alerts"])
+    check("firing" in states and "resolved" in states[states.index(
+        "firing"):], f"the alert on TOPIC_ALERTS: {states}")
+    body = routes.get("/alerts") or {}
+    rule = next((a for a in body.get("alerts", [])
+                 if a["rule"] == ORCH_RULE["name"]), {})
+    check(rule.get("fired_count", 0) >= 1, f"/alerts: {rule}")
+    chip_s = ((routes.get("/tenants") or {}).get("tenants", {})
+              .get("default", {}).get("spend", {}).get("chip_seconds", 0))
+    check(chip_s > 0, f"/tenants: default chip seconds {chip_s}")
+    guide = (watch.last or {}).get("cluster_guide") or {}
+    check(guide.get("step", 0) >= 1, f"/status cluster_guide {guide}")
+    return {"valve_transitions": watch.transitions,
+            "valve_log_engaged": engaged, "valve_log_released": released,
+            "tpu_card_memory_bytes": mem, "tpu_clock_offset_s": offset,
+            "tpu_applied_offset_s": applied,
+            "tpu_queue_history": row.get("history", []),
+            "dtraces": len(traces), "tpu_spans": len(tpu_spans),
+            "joined_traces": len(joined), "alert_states": states,
+            "alert_fired_count": rule["fired_count"],
+            "tenant_default_chip_s": chip_s, "cluster_guide": guide}
+
+
+def phase_orchestrator(np, attention, work, grpc_posts_s, seed, smi):
+    """Phase 15: ``--mode orchestrator`` over a card ``tpu-worker`` and a
+    ``cluster-worker``, two stand-in crawl workers, run A (the valve and
+    the routes) and run B (a SIGKILL and a resume)."""
+    try:
+        import grpc  # noqa: F401
+    except ImportError:
+        raise Fail("phase 15 needs grpc, and 'import grpc' failed") from None
+    t0 = time.perf_counter()
+    root = os.path.join(work, "orch")
+    os.makedirs(root)
+    procs = Procs(root)
+    quiet = {name: logging.getLogger(name).level
+             for name in ("dct.torch.resilience", "dct.torch.bus.outbox",
+                          "dct.torch.bus.grpc")}
+    for name in quiet:
+        logging.getLogger(name).setLevel(logging.ERROR)
+    address = f"127.0.0.1:{free_port()}"
+    store = os.path.join(root, "store")
+    m_tpu, m_clu = free_port(), free_port()
+    tpu_id, clu_id = "tpu-15", "cluster-15"
+    url = f"http://127.0.0.1:{m_tpu}"
+    try:
+        # Phase 11's flags: the CLI's defaults (E5-small, batch 256), no
+        # outbox; an unacked batch is redelivered after a broker restart.
+        tpu = procs.start("tpu", "--mode", "tpu-worker", "--bus-address",
+                          address, "--storage-root", store, "--worker-id",
+                          tpu_id, "--metrics-port", str(m_tpu),
+                          "--telemetry-interval", str(ORCH_BEAT_S),
+                          "--log-json")
+        clu = procs.start("cluster", "--mode", "cluster-worker",
+                          "--bus-address", address, "--storage-root", store,
+                          "--worker-id", clu_id, "--metrics-port",
+                          str(m_clu), "--cluster-k", "16",
+                          "--telemetry-interval", str(ORCH_BEAT_S),
+                          "--log-json")
+        warm, d0 = worker_ready(url, tpu)
+        wait_http_200(f"http://127.0.0.1:{m_clu}/healthz", clu, 600)
+        run_a = orch_run(np, procs, root, "A", address, store, seed,
+                         {("posts", 2): Hold(), ("results", 2): Hold()},
+                         lambda run: hold_backlog(run, tpu, tpu_id))
+        crawl_a = check_crawl(np, run_a, seed, "run A")
+        surfaces = check_surfaces(run_a, tpu_id)
+        run_b = orch_run(np, procs, root, "B", address, store, seed + 1,
+                         {("results", 1): Hold(ORCH_B_FREE)},
+                         kill_and_resume)
+        crawl_b = check_crawl(np, run_b, seed + 1, "run B")
+        check(run_b["watch"].seen_resumed, "run B: /status never said "
+              "resumed after the restart")
+        after, d1 = proc_counts(url)
+        launches = {p: after[p] - warm[p] for p in after}
+        check_sm90_only(launches, 12, d1 - d0, "the orchestrated tpu-worker")
+        procs.stop(clu)
+        procs.stop(tpu)
+    except BaseException:
+        for name in sorted(os.listdir(root)):
+            if name.endswith(".log"):
+                print(f"--- {name}", *procs.tail(name[:-4], 40), sep="\n",
+                      file=sys.stderr)
+        raise
+    finally:
+        procs.close()
+        for name, level in quiet.items():
+            logging.getLogger(name).setLevel(level)
+    posts = ORCH_PAGES * ORCH_POSTS_PER_PAGE
+    report = {}
+    for tag, run, crawl in (("A", run_a, crawl_a), ("B", run_b, crawl_b)):
+        report[tag] = {
+            "crawl_s": run["crawl_s"],
+            "pages_per_s": ORCH_PAGES / run["crawl_s"],
+            "posts_per_s": posts / run["crawl_s"],
+            "valve_engaged_s": run["watch"].engaged_s,
+            "max_backlog": run["watch"].max_backlog,
+            "restart_to_completion_s": run.get("restart_to_completion_s"),
+            "applied_at_kill": run.get("applied_at_kill"),
+            "items_taken": run["items_taken"], "bridge": run["bridge"],
+            "tpu_commits": commit_rate(store, run["crawl_id"]),
+            "hold": run.get("hold"), **crawl}
+    seconds = time.perf_counter() - t0
+    emit("orchestrator.run_a", **report["A"], **surfaces)
+    emit("orchestrator.run_b", **report["B"],
+         resumed=run_b["watch"].seen_resumed)
+    # A crawl's seconds and rates are set by the 5 s distribute tick (a
+    # layer waits for a dispatch tick and an advance tick) and, in run A,
+    # by the valve's hold: not by the card.  The card's own rate is the
+    # tpu-worker's over run A's held burst.
+    emit("times.orchestrator", **{
+        f"{k}_{tag.lower()}": v for tag in "AB" for k, v in report[tag].items()
+        if k in ("crawl_s", "pages_per_s", "posts_per_s", "valve_engaged_s",
+                 "restart_to_completion_s")},
+        paced_by="the 5 s distribute tick and run A's hold",
+        tpu_burst_posts_per_s=report["A"]["tpu_commits"]["largest_burst"][
+            "posts_per_s"],
+        hold_a=run_a["hold"],
+        phase11_grpc_posts_per_s=grpc_posts_s, dispatches=d1 - d0,
+        sm90_launches=launches["sm90"], prioritized_pages=surfaces[
+            "cluster_guide"].get("prioritized_items"),
+        phase_s=seconds, card=smi)
+    emit("slice.orchestrator", seconds=seconds,
+         kernel_launches_by_path=launches)
+    return {"launches": launches}
 
 
 KERNEL_SOURCES = {"sm90": "flash_attention_sm90.cu",
@@ -6159,26 +6927,41 @@ def main() -> int:
     gen = torch.Generator().manual_seed(args.seed)
     # Phase 7's checkpoint and WAV tree, kept for phase 11.
     work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
-    worst = phase_kernel(torch, attention, device, gen)
-    e5 = phase_slice(torch, np, args.seed, smi)
-    rows = phase_kernel_times(torch, np, attention, device, gen, args.seed,
-                              smi)
-    tiny = phase_tinybert(torch, np, args.seed, smi)
-    xlmr = phase_xlmr(torch, np, attention, device, gen, args.seed, smi)
-    asr = phase_asr(torch, np, attention, device, args.seed, smi,
-                    work.name)
-    clus = phase_cluster(torch, np, attention, device, gen, args.seed, smi)
-    moe = phase_moe(torch, np, device, gen, args.seed, smi)
-    ops = phase_ops(torch, np, args.seed, smi, e5["engine_rows"])
-    cli_ = phase_cli(torch, np, attention, device, work.name, args.seed, smi,
-                     e5, asr)
-    bus = phase_bus(np, attention, work.name, cli_["tpu"],
-                    cli_["grpc_posts_per_s"], smi)
+    seconds = {"build": time.perf_counter() - t_all}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    worst = timed("kernel", phase_kernel, torch, attention, device, gen)
+    e5 = timed("slice", phase_slice, torch, np, args.seed, smi)
+    rows = timed("kernel_times", phase_kernel_times, torch, np, attention,
+                 device, gen, args.seed, smi)
+    tiny = timed("tinybert", phase_tinybert, torch, np, args.seed, smi)
+    xlmr = timed("xlmr", phase_xlmr, torch, np, attention, device, gen,
+                 args.seed, smi)
+    asr = timed("asr", phase_asr, torch, np, attention, device, args.seed,
+                smi, work.name)
+    clus = timed("cluster", phase_cluster, torch, np, attention, device, gen,
+                 args.seed, smi)
+    moe = timed("moe", phase_moe, torch, np, device, gen, args.seed, smi)
+    ops = timed("ops", phase_ops, torch, np, args.seed, smi,
+                e5["engine_rows"])
+    cli_ = timed("cli", phase_cli, torch, np, attention, device, work.name,
+                 args.seed, smi, e5, asr)
+    bus = timed("bus", phase_bus, np, attention, work.name, cli_["tpu"],
+                cli_["grpc_posts_per_s"], smi)
+    orch = timed("orchestrator", phase_orchestrator, np, attention,
+                 work.name, cli_["grpc_posts_per_s"], args.seed, smi)
     work.cleanup()
-    train = phase_train(torch, np, attention, device, args.seed, smi)
+    train = timed("train", phase_train, torch, np, attention, device,
+                  args.seed, smi)
+    emit("times.phases", seconds=seconds, card=smi)
     launches = {p: sum(ph["launches"][p]
                        for ph in (e5, tiny, xlmr, asr, clus, moe, ops, cli_,
-                                  bus, train))
+                                  bus, orch, train))
                 for p in attention.PATHS}
     print(json.dumps({"kernels": [
         kernel_entry(path, rows, worst, launches)

@@ -31,9 +31,12 @@ Handler = Callable[[Dict[str, Any]], None]
 
 
 def serialize_payload(payload: Any) -> bytes:
-    """bytes pass through; the rest is UTF-8 JSON."""
+    """bytes pass through; a message object is sent as its ``to_dict()``;
+    the rest is UTF-8 JSON (the reference's rule, for every bus)."""
     if isinstance(payload, bytes):
         return payload
+    if hasattr(payload, "to_dict"):
+        payload = payload.to_dict()
     return json.dumps(payload, ensure_ascii=False).encode("utf-8")
 
 

@@ -1,5 +1,6 @@
-"""Bus constants and the envelopes the serving slices need — media,
-cluster, worker status and span export — copied from the reference's
+"""Bus constants and the envelopes of the port's services — media,
+cluster, worker status, span export, the crawl's work items and results,
+and watchtower alerts — copied from the reference's
 `distributed_crawler_tpu/bus/messages.py`.  The message types, topic
 strings and dict field names are a wire contract and must stay identical:
 a frame published by either package decodes in the other, so a port
@@ -39,9 +40,9 @@ WORKER_ERROR = "error"
 WORKER_OFFLINE = "offline"
 
 TOPIC_WORKER_STATUS = "worker-status"
-# The crawler's work queue and scheduled-job commands: no port worker
-# consumes them, but a broker the port hosts (``--mode bus``) queues them
-# for the reference's crawl workers, as the reference's broker does.
+# The crawler's work queue and scheduled-job commands: the orchestrator
+# publishes work items, and a broker the port hosts queues them for the
+# crawl workers, as the reference's broker does.
 TOPIC_WORK_QUEUE = "crawl-work-queue"
 TOPIC_JOBS = "job-commands"
 TOPIC_INFERENCE_BATCHES = "tpu-inference-batches"
@@ -55,9 +56,8 @@ TOPIC_CLUSTERS = "tpu-clusters"
 # Span batches (fan-out like worker-status; a missed batch costs one
 # trace's completeness, never correctness).
 TOPIC_SPANS = "tpu-spans"
-# The crawler's and the orchestrator's fan-out topics, which no port
-# worker publishes: the partitioned bus broadcasts them as the
-# reference's does (`bus/partition.py`).
+# The crawler's and the orchestrator's fan-out topics: the partitioned
+# bus broadcasts them as the reference's does (`bus/partition.py`).
 TOPIC_RESULTS = "crawl-results"
 TOPIC_ORCHESTRATOR = "orchestrator-commands"
 TOPIC_CHAOS = "chaos-commands"
@@ -492,6 +492,450 @@ class SpanBatchMessage:
             spans=[s for s in (d.get("spans") or [])
                    if isinstance(s, dict)],
             dropped=int(d.get("dropped") or 0),
+            timestamp=parse_time(d.get("timestamp")),
+            trace_id=d.get("trace_id", "") or "",
+        )
+
+
+# -- the crawl's work and results ---------------------------------------------
+# The orchestrator's side of the crawl protocol: work items out on
+# ``crawl-work-queue``, results (with the pages they discovered) back on
+# ``crawl-results``.  The reference's crawl workers read these frames, so
+# every dict key and default is the reference's.
+MSG_WORK_ITEM = "work_item"
+MSG_WORK_RESULT = "work_result"
+MSG_ALERT = "alert"
+
+STATUS_SUCCESS = "success"
+STATUS_ERROR = "error"
+STATUS_PARTIAL = "partial"
+STATUS_RETRY = "retry"
+
+PRIORITY_HIGH = 1
+PRIORITY_MEDIUM = 3
+PRIORITY_LOW = 5
+
+VALID_PLATFORMS = ("telegram", "youtube")
+
+
+def new_work_item_id() -> str:
+    """``work_<UTC yyyymmddHHMMSS>_<6 alphanumerics>``."""
+    stamp = codec.utcnow().strftime("%Y%m%d%H%M%S")
+    return "work_" + stamp + "_" + "".join(
+        secrets.choice(_ALPHANUM) for _ in range(6))
+
+
+@dataclass
+class WorkItemConfig:
+    """Crawl config carried inside a work item (`messages.go:89-108`)."""
+
+    storage_root: str = ""
+    concurrency: int = 1
+    timeout: int = 30
+    min_post_date: Optional[datetime] = None
+    post_recency: Optional[datetime] = None
+    date_between_min: Optional[datetime] = None
+    date_between_max: Optional[datetime] = None
+    sample_size: int = 0
+    max_comments: int = -1
+    max_posts: int = -1
+    max_depth: int = 0
+    max_pages: int = 0
+    min_users: int = 0
+    crawl_label: str = ""
+    skip_media_download: bool = False
+    youtube_api_key: str = ""
+    sampling_method: str = ""
+    min_channel_videos: int = 0
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "storage_root": self.storage_root,
+            "concurrency": self.concurrency,
+            "timeout": self.timeout,
+            "min_post_date": _opt_time(self.min_post_date),
+            "post_recency": _opt_time(self.post_recency),
+            "date_between_min": _opt_time(self.date_between_min),
+            "date_between_max": _opt_time(self.date_between_max),
+            "sample_size": self.sample_size,
+            "max_comments": self.max_comments,
+            "max_posts": self.max_posts,
+            "max_depth": self.max_depth,
+            "max_pages": self.max_pages,
+            "min_users": self.min_users,
+            "crawl_label": self.crawl_label,
+            "skip_media_download": self.skip_media_download,
+            "youtube_api_key": self.youtube_api_key,
+            "sampling_method": self.sampling_method,
+            "min_channel_videos": self.min_channel_videos,
+        }
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "WorkItemConfig":
+        return cls(
+            storage_root=d.get("storage_root", "") or "",
+            concurrency=int(d.get("concurrency") or 1),
+            timeout=int(d.get("timeout") or 30),
+            min_post_date=parse_time(d.get("min_post_date")),
+            post_recency=parse_time(d.get("post_recency")),
+            date_between_min=parse_time(d.get("date_between_min")),
+            date_between_max=parse_time(d.get("date_between_max")),
+            sample_size=int(d.get("sample_size") or 0),
+            max_comments=int(d.get("max_comments") if d.get("max_comments") is not None else -1),
+            max_posts=int(d.get("max_posts") if d.get("max_posts") is not None else -1),
+            max_depth=int(d.get("max_depth") or 0),
+            max_pages=int(d.get("max_pages") or 0),
+            min_users=int(d.get("min_users") or 0),
+            crawl_label=d.get("crawl_label", "") or "",
+            skip_media_download=bool(d.get("skip_media_download") or False),
+            youtube_api_key=d.get("youtube_api_key", "") or "",
+            sampling_method=d.get("sampling_method", "") or "",
+            min_channel_videos=int(d.get("min_channel_videos") or 0),
+        )
+
+
+@dataclass
+class WorkItem:
+    """A single crawl task (`messages.go:71-86`)."""
+
+    id: str = ""
+    url: str = ""
+    depth: int = 0
+    crawl_id: str = ""
+    platform: str = ""
+    config: WorkItemConfig = field(default_factory=WorkItemConfig)
+    parent_id: str = ""
+    retry_count: int = 0
+    assigned_to: str = ""
+    created_at: Optional[datetime] = None
+    assigned_at: Optional[datetime] = None
+    deadline: Optional[datetime] = None
+    metadata: Dict[str, Any] = field(default_factory=dict)
+    trace_id: str = ""
+
+    @classmethod
+    def new(cls, url: str, depth: int, parent_id: str, crawl_id: str,
+            platform: str, config: WorkItemConfig) -> "WorkItem":
+        """`messages.go:179-192`."""
+        return cls(id=new_work_item_id(), url=url, depth=depth,
+                   parent_id=parent_id, crawl_id=crawl_id, platform=platform,
+                   config=config, created_at=codec.utcnow(), trace_id=new_trace_id())
+
+    def validate(self) -> None:
+        """`messages.go:255-269`."""
+        if not self.id:
+            raise ValueError("work item ID cannot be empty")
+        if not self.url:
+            raise ValueError("work item URL cannot be empty")
+        if not self.platform:
+            raise ValueError("work item platform cannot be empty")
+        if self.platform not in VALID_PLATFORMS:
+            raise ValueError(f"unsupported platform: {self.platform}")
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "id": self.id,
+            "url": self.url,
+            "depth": self.depth,
+            "crawl_id": self.crawl_id,
+            "platform": self.platform,
+            "config": self.config.to_dict(),
+            "parent_id": self.parent_id,
+            "retry_count": self.retry_count,
+            "assigned_to": self.assigned_to,
+            "created_at": _opt_time(self.created_at),
+            "assigned_at": _opt_time(self.assigned_at),
+            "deadline": _opt_time(self.deadline),
+            "metadata": self.metadata,
+            "trace_id": self.trace_id,
+        }
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "WorkItem":
+        return cls(
+            id=d.get("id", "") or "",
+            url=d.get("url", "") or "",
+            depth=int(d.get("depth") or 0),
+            crawl_id=d.get("crawl_id", "") or "",
+            platform=d.get("platform", "") or "",
+            config=WorkItemConfig.from_dict(d.get("config") or {}),
+            parent_id=d.get("parent_id", "") or "",
+            retry_count=int(d.get("retry_count") or 0),
+            assigned_to=d.get("assigned_to", "") or "",
+            created_at=parse_time(d.get("created_at")),
+            assigned_at=parse_time(d.get("assigned_at")),
+            deadline=parse_time(d.get("deadline")),
+            metadata=dict(d.get("metadata") or {}),
+            trace_id=d.get("trace_id", "") or "",
+        )
+
+
+@dataclass
+class WorkQueueMessage:
+    """Work-queue envelope (`messages.go:61-68`)."""
+
+    message_type: str = MSG_WORK_ITEM
+    work_item: WorkItem = field(default_factory=WorkItem)
+    priority: int = PRIORITY_MEDIUM
+    timestamp: Optional[datetime] = None
+    ttl_seconds: int = 3600
+    trace_id: str = ""
+
+    @classmethod
+    def new(cls, item: WorkItem, priority: int = PRIORITY_MEDIUM,
+            ttl_seconds: int = 3600) -> "WorkQueueMessage":
+        """`messages.go:195-204` — except the envelope INHERITS the work
+        item's trace id instead of minting a fresh one, so the dispatch
+        span, the delivery span, and the worker's processing spans all
+        correlate to one trace (the reference generated an id per envelope
+        that nothing ever joined)."""
+        return cls(message_type=MSG_WORK_ITEM, work_item=item,
+                   priority=priority, timestamp=codec.utcnow(),
+                   ttl_seconds=ttl_seconds,
+                   trace_id=item.trace_id or new_trace_id())
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "message_type": self.message_type,
+            "work_item": self.work_item.to_dict(),
+            "priority": self.priority,
+            "timestamp": _opt_time(self.timestamp),
+            "ttl_seconds": self.ttl_seconds,
+            "trace_id": self.trace_id,
+        }
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "WorkQueueMessage":
+        return cls(
+            message_type=d.get("message_type", MSG_WORK_ITEM),
+            work_item=WorkItem.from_dict(d.get("work_item") or {}),
+            priority=int(d.get("priority") or PRIORITY_MEDIUM),
+            timestamp=parse_time(d.get("timestamp")),
+            ttl_seconds=int(d.get("ttl_seconds") or 3600),
+            trace_id=d.get("trace_id", "") or "",
+        )
+
+    def expired(self, now: Optional[datetime] = None) -> bool:
+        if self.timestamp is None or self.ttl_seconds <= 0:
+            return False
+        now = now or codec.utcnow()
+        return (now - self.timestamp).total_seconds() > self.ttl_seconds
+
+
+@dataclass
+class DiscoveredPage:
+    """A newly discovered page (`messages.go:135-140`)."""
+
+    url: str = ""
+    parent_id: str = ""
+    depth: int = 0
+    platform: str = ""
+
+    def validate(self) -> None:
+        """`messages.go:289-300`."""
+        if not self.url:
+            raise ValueError("discovered page URL cannot be empty")
+        if not self.platform:
+            raise ValueError("discovered page platform cannot be empty")
+        if self.depth < 0:
+            raise ValueError("discovered page depth cannot be negative")
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"url": self.url, "parent_id": self.parent_id,
+                "depth": self.depth, "platform": self.platform}
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "DiscoveredPage":
+        return cls(url=d.get("url", "") or "", parent_id=d.get("parent_id", "") or "",
+                   depth=int(d.get("depth") or 0), platform=d.get("platform", "") or "")
+
+
+@dataclass
+class WorkResult:
+    """Result of a completed work item (`messages.go:120-132`)."""
+
+    work_item_id: str = ""
+    worker_id: str = ""
+    status: str = STATUS_SUCCESS
+    processed_url: str = ""
+    message_count: int = 0
+    discovered_pages: List[DiscoveredPage] = field(default_factory=list)
+    error: str = ""
+    processing_time_s: float = 0.0
+    metadata: Dict[str, Any] = field(default_factory=dict)
+    completed_at: Optional[datetime] = None
+    retry_recommended: bool = False
+
+    def validate(self) -> None:
+        """`messages.go:272-286`."""
+        if not self.work_item_id:
+            raise ValueError("work result WorkItemID cannot be empty")
+        if not self.worker_id:
+            raise ValueError("work result WorkerID cannot be empty")
+        if self.status not in (STATUS_SUCCESS, STATUS_ERROR, STATUS_PARTIAL,
+                               STATUS_RETRY):
+            raise ValueError(f"invalid status: {self.status}")
+        if self.status == STATUS_ERROR and not self.error:
+            raise ValueError("error status requires error message")
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "work_item_id": self.work_item_id,
+            "worker_id": self.worker_id,
+            "status": self.status,
+            "processed_url": self.processed_url,
+            "message_count": self.message_count,
+            "discovered_pages": [p.to_dict() for p in self.discovered_pages],
+            "error": self.error,
+            "processing_time": self.processing_time_s,
+            "metadata": self.metadata,
+            "completed_at": _opt_time(self.completed_at),
+            "retry_recommended": self.retry_recommended,
+        }
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "WorkResult":
+        return cls(
+            work_item_id=d.get("work_item_id", "") or "",
+            worker_id=d.get("worker_id", "") or "",
+            status=d.get("status", STATUS_SUCCESS) or STATUS_SUCCESS,
+            processed_url=d.get("processed_url", "") or "",
+            message_count=int(d.get("message_count") or 0),
+            discovered_pages=[DiscoveredPage.from_dict(p)
+                              for p in (d.get("discovered_pages") or [])],
+            error=d.get("error", "") or "",
+            processing_time_s=float(d.get("processing_time") or 0.0),
+            metadata=dict(d.get("metadata") or {}),
+            completed_at=parse_time(d.get("completed_at")),
+            retry_recommended=bool(d.get("retry_recommended") or False),
+        )
+
+
+@dataclass
+class ResultMessage:
+    """Results envelope (`messages.go:111-117`)."""
+
+    message_type: str = MSG_WORK_RESULT
+    work_result: WorkResult = field(default_factory=WorkResult)
+    discovered_pages: List[DiscoveredPage] = field(default_factory=list)
+    timestamp: Optional[datetime] = None
+    trace_id: str = ""
+
+    @classmethod
+    def new(cls, result: WorkResult,
+            discovered_pages: Optional[List[DiscoveredPage]] = None,
+            trace_id: str = "") -> "ResultMessage":
+        """`messages.go:222-230`; pass the originating work item's
+        ``trace_id`` so the result leg joins the dispatch leg's trace
+        (a fresh id is minted only for untraced callers)."""
+        return cls(message_type=MSG_WORK_RESULT, work_result=result,
+                   discovered_pages=list(discovered_pages or []),
+                   timestamp=codec.utcnow(), trace_id=trace_id or new_trace_id())
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "message_type": self.message_type,
+            "work_result": self.work_result.to_dict(),
+            "discovered_pages": [p.to_dict() for p in self.discovered_pages],
+            "timestamp": _opt_time(self.timestamp),
+            "trace_id": self.trace_id,
+        }
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ResultMessage":
+        return cls(
+            message_type=d.get("message_type", MSG_WORK_RESULT),
+            work_result=WorkResult.from_dict(d.get("work_result") or {}),
+            discovered_pages=[DiscoveredPage.from_dict(p)
+                              for p in (d.get("discovered_pages") or [])],
+            timestamp=parse_time(d.get("timestamp")),
+            trace_id=d.get("trace_id", "") or "",
+        )
+
+
+# -- watchtower alerts (`utils/alerts.py`) -------------------------------------
+ALERT_STATES = ("pending", "firing", "resolved", "inactive")
+
+
+@dataclass
+class AlertMessage:
+    """One alert lifecycle transition on ``TOPIC_ALERTS``.
+
+    Published by the orchestrator's watchtower for ``firing`` and
+    ``resolved`` transitions (pending/inactive churn stays local to
+    ``/alerts``).  ``value`` is the rule's evaluated value at transition
+    time (a burn rate, a slope, an aggregate) and ``detail`` carries the
+    kind-specific context (fast/slow burn, threshold, matched-series
+    count).  The envelope's ``trace_id`` exists for registry uniformity
+    (the crawlint BUS contract); alerts are telemetry about the fleet,
+    they do not participate in a work item's trace."""
+
+    message_type: str = MSG_ALERT
+    rule: str = ""
+    kind: str = ""                   # threshold | trend | burn_rate
+    series: str = ""
+    state: str = ""                  # the state ENTERED (ALERT_STATES)
+    prev_state: str = ""
+    severity: str = "page"
+    value: Optional[float] = None
+    detail: Dict[str, Any] = field(default_factory=dict)
+    at_wall: float = 0.0             # sender epoch of the transition
+    timestamp: Optional[datetime] = None
+    trace_id: str = ""
+
+    @classmethod
+    def new(cls, rule: str, kind: str, series: str, state: str,
+            prev_state: str = "", severity: str = "page",
+            value: Optional[float] = None,
+            detail: Optional[Dict[str, Any]] = None,
+            at_wall: float = 0.0) -> "AlertMessage":
+        import time as _time
+
+        return cls(rule=rule, kind=kind, series=series, state=state,
+                   prev_state=prev_state, severity=severity, value=value,
+                   detail=dict(detail or {}),
+                   at_wall=at_wall or _time.time(),
+                   timestamp=codec.utcnow(), trace_id=new_trace_id())
+
+    def validate(self) -> None:
+        if self.message_type != MSG_ALERT:
+            raise ValueError(
+                f"invalid alert message type: {self.message_type}")
+        if not self.rule:
+            raise ValueError("alert message rule cannot be empty")
+        if self.state not in ALERT_STATES:
+            raise ValueError(f"invalid alert state: {self.state}")
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "message_type": self.message_type,
+            "rule": self.rule,
+            "kind": self.kind,
+            "series": self.series,
+            "state": self.state,
+            "prev_state": self.prev_state,
+            "severity": self.severity,
+            "value": self.value,
+            "detail": self.detail,
+            "at_wall": self.at_wall,
+            "timestamp": _opt_time(self.timestamp),
+            "trace_id": self.trace_id,
+        }
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "AlertMessage":
+        value = d.get("value")
+        return cls(
+            message_type=d.get("message_type", MSG_ALERT),
+            rule=d.get("rule", "") or "",
+            kind=d.get("kind", "") or "",
+            series=d.get("series", "") or "",
+            state=d.get("state", "") or "",
+            prev_state=d.get("prev_state", "") or "",
+            severity=d.get("severity", "page") or "page",
+            value=float(value) if value is not None else None,
+            detail=dict(d.get("detail") or {}),
+            at_wall=float(d.get("at_wall") or 0.0),
             timestamp=parse_time(d.get("timestamp")),
             trace_id=d.get("trace_id", "") or "",
         )

@@ -23,7 +23,13 @@ on the card and the broker between processes:
   --head-checkpoint`` serves;
 - ``bus``: a dedicated gRPC broker; with ``--bus-spool-dir`` it journals
   every pull-topic frame, resumes after a crash and keeps a dead-letter
-  queue, served at ``/dlq``.
+  queue, served at ``/dlq``;
+- ``orchestrator``: the crawl's coordinator (`orchestrator/`): it hosts
+  the broker, dispatches a BFS crawl from ``--urls``/``--url-file`` to the
+  crawl workers, pauses while the serving workers' backlog is over
+  ``--infer-backpressure-high``, recovers from its journal after a crash,
+  and serves ``/status``, ``/cluster``, ``/dtraces``, ``/alerts`` and
+  ``/tenants``.  ``--autoscaler`` is not ported yet.
 
 With ``--bus-spool-dir``, a worker's publishes go through a durable
 outbox under ``<spool-dir>/outbox/<worker-id>``, so a broker outage
@@ -36,7 +42,9 @@ object store (`state/objectstore.py`) instead of ``--storage-root``.
 The flags, their ``CRAWLER_*`` environment variables and the YAML config
 keys are the reference's, resolved through the same precedence (flags >
 env > config file > defaults; `config/precedence.py`).  The crawler's
-modes run from the reference's CLI; here they exit 2 and say so.  A
+modes other than the orchestrator (the crawl workers, standalone crawls,
+jobs and the Telegram gateway) run from the reference's CLI; here they
+exit 2 and say so.  A
 serving mesh and multi-process serving are not ported yet: they exit 2
 with a message that names where they wait in ROADMAP.md, never silently
 ignored.
@@ -62,11 +70,14 @@ logger = logging.getLogger("dct.cli")
 
 VERSION = "distributed_crawler_tpu_torch v0.1.0"
 DEVICE_MODES = ("tpu-worker", "asr-worker", "cluster-worker", "transcribe",
-                "cluster", "train-head", "bus")
+                "cluster", "train-head", "bus", "orchestrator")
 # The reference CLI's other modes: the crawler's half.
-CRAWLER_MODES = ("standalone", "launch", "orchestrator", "worker", "job",
-                 "job-submit", "dc-gateway", "gen-code")
+CRAWLER_MODES = ("standalone", "launch", "worker", "job", "job-submit",
+                 "dc-gateway", "gen-code")
 _WORKER_MODES = ("tpu-worker", "asr-worker", "cluster-worker")
+# The reference's sampling matrix (`config/sampling.py`).
+SAMPLING_METHODS = {"telegram": ["channel", "snowball", "random-walk"],
+                    "youtube": ["channel", "random", "snowball"]}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -83,9 +94,27 @@ def build_parser() -> argparse.ArgumentParser:
     a("--log-json", action="store_const", const=True, default=None)
     a("--mode", default=None,
       help="tpu-worker | asr-worker | cluster-worker | transcribe | "
-           "cluster | train-head | bus (the crawler's modes run from "
-           "distributed_crawler_tpu.cli)")
+           "cluster | train-head | bus | orchestrator (the crawler's other "
+           "modes run from distributed_crawler_tpu.cli)")
     a("--worker-id", default=None, help="worker identifier (worker modes)")
+    # The crawl's settings, carried to the crawl workers in every work
+    # item the orchestrator dispatches.
+    a("--concurrency", type=int, default=None)
+    a("--timeout", type=int, default=None, help="HTTP timeout seconds")
+    a("--sample-size", type=int, default=None)
+    a("--min-users", type=int, default=None)
+    a("--max-comments", type=int, default=None)
+    a("--max-depth", type=int, default=None)
+    a("--max-posts", type=int, default=None)
+    a("--max-pages", type=int, default=None)
+    a("--skip-media", action="store_const", const=True, default=None)
+    a("--youtube-api-key", default=None)
+    a("--sampling", default=None,
+      help="channel | random | snowball (random-walk needs the SQL graph "
+           "store, which runs from distributed_crawler_tpu.cli)")
+    a("--min-channel-videos", type=int, default=None)
+    a("--urls", default=None, help="comma-separated URLs to crawl")
+    a("--url-file", default=None, help="file with one URL per line")
     a("--storage-root", default=None)
     a("--crawl-id", default=None)
     a("--crawl-label", default=None)
@@ -160,13 +189,38 @@ def build_parser() -> argparse.ArgumentParser:
       help="rolling time-series retention in seconds (default 900)")
     a("--timeseries-max-samples", type=int, default=None,
       help="samples kept per time series (default 512)")
+    a("--alert-rules", default=None,
+      help="watchtower alert rules: inline JSON list or @path/to/"
+           "rules.json; each entry replaces the same-named rule of the "
+           "default pack (queue_wait_burn, batch_age_burn, "
+           "per_chip_goodput_collapse, dlq_growth, outbox_near_full, "
+           "stale_worker)")
     a("--tenant", default=None, help="tenant label (empty = 'default')")
+    a("--tenant-budgets", default=None,
+      help="per-tenant error budgets: inline JSON or @path/to/"
+           "budgets.json with {window_s, budgets: {tenant: {slo: "
+           "allowed_breaches}}}, reported at the orchestrator's /tenants")
+    a("--autoscaler", action="store_const", const=True, default=None,
+      help="the elastic-fleet autoscaler (not ported yet: exits 2)")
     a("--bus-serve", action="store_const", const=True, default=None,
       help="also host the gRPC broker at --bus-address (worker modes)")
     a("--infer", action="store_const", const=True, default=None,
       help="asr-worker and transcribe: transcripts re-enter the text "
            "path as posts on tpu-inference-batches")
     a("--infer-model", default=None, help="model registry key")
+    a("--infer-backpressure-high", type=int, default=None,
+      help="orchestrator pauses crawl distribution when live TPU workers' "
+           "summed queue depth crosses this (0 = valve off; default 64)")
+    a("--infer-backpressure-low", type=int, default=None,
+      help="distribution resumes once the backlog drains below this "
+           "(default 32)")
+    a("--journal-dir", default=None,
+      help="orchestrator crash-recovery journal directory (default: "
+           "<dump-dir>/orch-journal/<crawl-id> when --dump-dir is set, "
+           "else <storage-root>/<crawl-id>/orch-journal); an existing "
+           "journal or persisted crawl is RESUMED, not re-seeded")
+    a("--fresh", action="store_const", const=True, default=None,
+      help="discard any existing crawl state + journal and re-seed")
     a("--asr-pretrained-dir", default=None,
       help="local HF Whisper checkpoint dir")
     a("--transcribe-input", default=None,
@@ -259,6 +313,27 @@ _KEY_MAP = {
     "log_json": "logging.json",
     "mode": "distributed.mode",
     "worker_id": "distributed.worker_id",
+    "concurrency": "crawler.concurrency",
+    "timeout": "crawler.timeout",
+    "sample_size": "crawler.samplesize",
+    "min_users": "crawler.minusers",
+    "max_comments": "crawler.maxcomments",
+    "max_depth": "crawler.maxdepth",
+    "max_posts": "crawler.maxposts",
+    "max_pages": "crawler.maxpages",
+    "skip_media": "crawler.skipmedia",
+    "youtube_api_key": "youtube.api_key",
+    "sampling": "crawler.sampling",
+    "min_channel_videos": "crawler.min_channel_videos",
+    "urls": "crawler.urls",
+    "url_file": "crawler.url_file",
+    "alert_rules": "observability.alert_rules",
+    "tenant_budgets": "observability.tenant_budgets",
+    "autoscaler": "autoscaler.enabled",
+    "infer_backpressure_high": "distributed.inference_backpressure_high",
+    "infer_backpressure_low": "distributed.inference_backpressure_low",
+    "journal_dir": "orchestrator.journal_dir",
+    "fresh": "orchestrator.fresh",
     "storage_root": "storage.root",
     "crawl_id": "crawler.crawlid",
     "crawl_label": "crawler.crawllabel",
@@ -343,6 +418,18 @@ def resolve_config(args: argparse.Namespace,
     r = ConfigResolver(flags=flags, env=env, config_file=args.config)
 
     cfg = CrawlerConfig()
+    cfg.concurrency = r.get_int("crawler.concurrency", 1)
+    cfg.timeout = r.get_int("crawler.timeout", 30)
+    cfg.sample_size = r.get_int("crawler.samplesize", 0)
+    cfg.min_users = r.get_int("crawler.minusers", 100)
+    cfg.max_comments = r.get_int("crawler.maxcomments", -1)
+    cfg.max_depth = r.get_int("crawler.maxdepth", -1)
+    cfg.max_posts = r.get_int("crawler.maxposts", -1)
+    cfg.max_pages = r.get_int("crawler.maxpages", 108000)
+    cfg.skip_media_download = r.get_bool("crawler.skipmedia", False)
+    cfg.youtube_api_key = r.get_str("youtube.api_key")
+    cfg.sampling_method = r.get_str("crawler.sampling", "channel")
+    cfg.min_channel_videos = r.get_int("crawler.min_channel_videos", 10)
     cfg.storage_root = r.get_str("storage.root", "/tmp/crawl")
     cfg.crawl_id = r.get_str("crawler.crawlid") or generate_crawl_id()
     cfg.crawl_label = r.get_str("crawler.crawllabel")
@@ -454,6 +541,8 @@ def main(argv: Optional[List[str]] = None, env=None,
             return _run_cluster(cfg, r, device=device)
         elif mode == "train-head":
             return _run_train_head(cfg, r, device=device)
+        elif mode == "orchestrator":
+            _run_orchestrator(collect_urls(r), cfg, r)
         else:
             return _run_bus(r)
     except CliConfigError as e:
@@ -469,7 +558,7 @@ def _not_a_device_mode(mode: str) -> str:
     if mode in CRAWLER_MODES or not mode:
         return (f"--mode {mode or 'standalone'} runs from "
                 f"distributed_crawler_tpu.cli (the JAX package's CLI); "
-                f"this CLI runs the device modes {', '.join(DEVICE_MODES)}")
+                f"this CLI runs the modes {', '.join(DEVICE_MODES)}")
     return f"unknown execution mode: {mode}"
 
 
@@ -916,7 +1005,7 @@ def _build_asr_worker(cfg: CrawlerConfig, r: ConfigResolver, device=None):
         # to the text worker on the worker's own bus.
         from .inference.bridge import InferenceBridge
         from .media.bridge import TranscriptReentry
-        from .state.local import create_state_manager
+        from .modes.common import create_state_manager
 
         bridge = InferenceBridge(
             create_state_manager(cfg), worker.bus, crawl_id=cfg.crawl_id,
@@ -1039,6 +1128,180 @@ def _run_bus(r: ConfigResolver) -> int:
         finally:
             bus.close()
     return 0
+
+
+# -- the orchestrator ----------------------------------------------------------
+
+def collect_urls(r: ConfigResolver) -> List[str]:
+    """--urls + --url-file (one URL per line; blanks and '#' lines
+    skipped)."""
+    urls = list(r.get_list("crawler.urls"))
+    url_file = r.get_str("crawler.url_file")
+    if url_file:
+        try:
+            with open(url_file, "r", encoding="utf-8") as f:
+                lines = f.read().split("\n")
+        except OSError as e:
+            raise CliConfigError(f"cannot read --url-file: {e}") from None
+        urls.extend(ln.strip() for ln in lines
+                    if ln.strip() and not ln.strip().startswith("#"))
+    return urls
+
+
+def _json_option(r: ConfigResolver, key: str, flag: str):
+    """A config block given as YAML, or as inline JSON / ``@path`` by its
+    flag."""
+    import json
+
+    raw = r.get(key)
+    if isinstance(raw, str) and raw:
+        if raw.startswith("@"):
+            try:
+                with open(raw[1:], "r", encoding="utf-8") as f:
+                    raw = f.read()
+            except OSError as e:
+                raise CliConfigError(f"cannot read {flag} file: {e}")
+        try:
+            raw = json.loads(raw)
+        except ValueError as e:
+            raise CliConfigError(f"{flag} is not valid JSON: {e}")
+    return raw or None
+
+
+def _alert_rules(r: ConfigResolver):
+    """The watchtower's rules from ``observability.alert_rules``;
+    configured rules replace their same-named defaults, and a malformed
+    rule is a config error (exit 2)."""
+    from .utils.alerts import rules_from_config
+
+    raw = _json_option(r, "observability.alert_rules", "--alert-rules")
+    try:
+        return rules_from_config(raw)
+    except ValueError as e:
+        raise CliConfigError(f"bad alert rule: {e}")
+
+
+def _tenant_budgets(r: ConfigResolver):
+    """``(budgets, window_s)`` from ``observability.tenant_budgets``; a
+    malformed block is a config error (exit 2)."""
+    from .orchestrator.tenants import budgets_from_config
+
+    raw = _json_option(r, "observability.tenant_budgets",
+                       "--tenant-budgets")
+    try:
+        return budgets_from_config(raw)
+    except ValueError as e:
+        raise CliConfigError(f"bad tenant budget: {e}")
+
+
+def _check_orchestrator(urls: List[str], cfg: CrawlerConfig,
+                        r: ConfigResolver) -> None:
+    """What the reference refuses for this mode, and what the port does
+    not run yet — all before the broker starts."""
+    if r.get_bool("autoscaler.enabled", False):
+        raise CliConfigError(
+            "--autoscaler is not ported yet (ROADMAP Queue 1 item 7c, the "
+            "autoscaler); run the orchestrator without it, or from "
+            "distributed_crawler_tpu.cli")
+    supported = SAMPLING_METHODS.get(cfg.platform)
+    if supported is None:
+        raise CliConfigError(f"unsupported platform: {cfg.platform}")
+    if cfg.sampling_method not in supported:
+        raise CliConfigError(
+            f"sampling method '{cfg.sampling_method}' is not supported for "
+            f"platform '{cfg.platform}'. Supported methods: {supported}")
+    if cfg.sampling_method == "random-walk":
+        raise CliConfigError(
+            "--sampling random-walk needs the SQL graph store, which the "
+            "port does not have (ROADMAP Queue 3); run it from "
+            "distributed_crawler_tpu.cli")
+    if not urls and cfg.sampling_method != "random":
+        raise CliConfigError(
+            f"{cfg.sampling_method} sampling requires URLs to be provided. "
+            "Use --urls or --url-file to specify them")
+
+
+def _run_orchestrator(urls: List[str], cfg: CrawlerConfig,
+                      r: ConfigResolver) -> None:
+    """mode=orchestrator: host the broker and coordinate the crawl until
+    it completes (or the process is stopped)."""
+    from .modes.common import create_state_manager
+    from .orchestrator import CrawlJournal, Orchestrator, OrchestratorConfig
+    from .utils import metrics
+
+    _check_orchestrator(urls, cfg, r)
+    rules = _alert_rules(r)
+    budgets, budget_window_s = _tenant_budgets(r)
+    broker = _make_bus(r, serve=True)
+    bus = broker
+    outbox_cfg = _bus_outbox_config(r, "orchestrator")
+    if outbox_cfg is not None and hasattr(broker, "dlq_snapshot"):
+        # Bus durability on: the orchestrator's own publishes ride a
+        # durable outbox (the dispatch valve watches its depth), and the
+        # broker's dead-letter queue is served at /dlq.
+        from .bus.outbox import OutboxBus
+
+        bus = OutboxBus(broker, outbox_cfg, name="orchestrator")
+        metrics.set_dlq_provider(broker.dlq_snapshot)
+    ocfg = OrchestratorConfig(
+        inference_backpressure_high=r.get_int(
+            "distributed.inference_backpressure_high", 64),
+        inference_backpressure_low=r.get_int(
+            "distributed.inference_backpressure_low", 32),
+        state_retry_attempts=r.get_int("resilience.state_retry_attempts", 2),
+        state_breaker_threshold=r.get_int(
+            "resilience.state_breaker_threshold", 5),
+        state_breaker_recovery_s=r.get_float(
+            "resilience.state_breaker_recovery_s", 15.0),
+        publish_retry_attempts=r.get_int(
+            "resilience.publish_retry_attempts", 3))
+    journal_dir = r.get_str("orchestrator.journal_dir", "")
+    if not journal_dir:
+        # Keyed by crawl id, so a shared dump dir never hands one crawl
+        # another's journal.
+        dump_dir = r.get_str("observability.dump_dir", "")
+        crawl = cfg.crawl_id or "crawl"
+        journal_dir = (
+            os.path.join(dump_dir, "orch-journal", crawl) if dump_dir
+            else os.path.join(cfg.storage_root or "/tmp/crawl", crawl,
+                              "orch-journal"))
+    orch = Orchestrator(cfg.crawl_id, cfg, bus,
+                        create_state_manager(cfg, cfg.crawl_id), ocfg=ocfg,
+                        journal=CrawlJournal(journal_dir), alert_rules=rules)
+    orch.watchtower.tenants.configure(budgets=budgets,
+                                      window_s=budget_window_s)
+    providers = (("status", orch.get_status), ("cluster", orch.get_cluster),
+                 ("dtraces", orch.get_dtraces), ("alerts", orch.get_alerts),
+                 ("tenants", orch.get_tenants))
+    for kind, fn in providers:
+        getattr(metrics, f"set_{kind}_provider")(fn)
+    orch.start(urls, fresh=r.get_bool("orchestrator.fresh", False))
+    try:
+        _serve_forever(
+            running=lambda: orch.is_running and not orch.crawl_completed)
+    finally:
+        orch.stop()
+        for kind, fn in providers:
+            getattr(metrics, f"clear_{kind}_provider")(fn)
+        # This process hosts the broker: frames the crawl's consumers have
+        # not pulled yet (inference batches, say) would die with it.  A
+        # completed crawl drains first; an interrupted one exits promptly.
+        try:
+            drain = getattr(broker, "drain", None)
+            if callable(drain) and orch.crawl_completed:
+                drain_s = r.get_float("distributed.shutdown_drain_s", 30.0)
+                if bus is not broker:
+                    # Flush buffered publishes into the broker first.
+                    bus.outbox.drain(timeout_s=drain_s)
+                drain(timeout_s=drain_s)
+        finally:
+            try:
+                if bus is not broker:
+                    # The outbox alone: the broker closes last, below.
+                    bus.outbox.close()
+                    metrics.clear_dlq_provider(broker.dlq_snapshot)
+            finally:
+                broker.close()
 
 
 def _run_transcribe(cfg: CrawlerConfig, r: ConfigResolver,

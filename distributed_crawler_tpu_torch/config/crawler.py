@@ -3,9 +3,11 @@ media settings of the reference's `distributed_crawler_tpu/config/
 crawler.py`, at the reference's defaults.
 
 `InferenceConfig` and `MediaConfig` are copied whole.  `CrawlerConfig`
-keeps the fields the CLI's device modes read (the results sink, the crawl
-identity, the tenant, the object-store URL and the two blocks above); the
-crawl's own settings belong to the reference's crawler.
+keeps the fields the port's modes read: the results sink, the crawl
+identity, the tenant, the object-store URL, the two blocks above, and the
+crawl settings the orchestrator copies into every work item
+(`bus/messages.WorkItemConfig`).  The crawler's client, validator and
+chunker settings belong to the reference's crawler.
 """
 
 from __future__ import annotations
@@ -77,7 +79,7 @@ class MediaConfig:
 
 @dataclass
 class CrawlerConfig:
-    """What the device modes read of the crawl configuration."""
+    """What the port's modes read of the crawl configuration."""
 
     storage_root: str = "/tmp/crawls"
     crawl_id: str = ""
@@ -91,6 +93,23 @@ class CrawlerConfig:
     object_store_url: str = ""
     inference: InferenceConfig = field(default_factory=InferenceConfig)
     media: MediaConfig = field(default_factory=MediaConfig)
+    # The crawl's settings, carried to the crawl workers in each work item.
+    concurrency: int = 1
+    timeout: int = 30
+    min_post_date: Optional[datetime] = None
+    post_recency: Optional[datetime] = None
+    date_between_min: Optional[datetime] = None
+    date_between_max: Optional[datetime] = None
+    sample_size: int = 0
+    min_users: int = 0
+    max_comments: int = -1
+    max_posts: int = -1
+    max_depth: int = 0
+    max_pages: int = 108000
+    skip_media_download: bool = False
+    youtube_api_key: str = ""
+    sampling_method: str = "channel"  # channel | random | snowball
+    min_channel_videos: int = 0
 
 
 def generate_crawl_id(now: Optional[datetime] = None) -> str:

@@ -1,48 +1,98 @@
-"""The crawl's post sink on the local filesystem: what the transcript
-re-entry writes its synthetic posts through.
+"""Local-filesystem state manager: the crawl's page state and post sink.
 
-The part of the reference's `LocalStateManager`
-(`distributed_crawler_tpu/state/local.py`) that the ASR worker's re-entry
-reaches: `store_post` appends `Post.to_json()` to
-``<crawl_id>/<channel_id>/posts/posts.jsonl`` under the storage root, and
-`close` flushes the provider.  The reference's manager on this path never
-initializes, so its `close` writes no ``state.json``; neither does this
-one.  It always writes through a `LocalStorageProvider` on the storage
-root, also when ``--object-store`` sends the workers' results elsewhere:
-the reference builds its manager from `LocalConfig(base_path=
-storage_root)` (`modes/common.py:22-43`, `state/local.py:33-40`).
+The reference's `LocalStateManager` (`distributed_crawler_tpu/state/
+local.py`), with its layout under the storage root:
 
-Not ported (ROADMAP Queue 3): the reference's factory returns a
-`CompositeStateManager`, whose SQL graph store creates
-``<storage_root>/graph.sqlite`` and which holds the crawl's page state and
-media cache.  The re-entry reads and writes none of them; the random-walk
-graph belongs to the crawler's half.
+- ``<crawl_id>/state.json`` and ``<crawl_id>/metadata.json``: the page
+  state and crawl metadata, byte-equal to the reference's, so each
+  package resumes the other's files;
+- ``<crawl_id>/<channel>/posts/posts.jsonl``: `store_post` appends
+  `Post.to_json()` (the transcript re-entry's sink).
+
+`initialize` resumes a persisted ``state.json`` that has layers and seeds
+a fresh one otherwise; `close` saves the state only if `initialize` ran,
+so a post sink that never initialized writes no ``state.json``.  It always
+writes through a `LocalStorageProvider` on the storage root, also when
+``--object-store`` sends the workers' results elsewhere, as the
+reference's does (`LocalConfig(base_path=storage_root)`).
+
+Not ported: the media cache (``media-cache.json``), media files and page
+exports belong to the crawler's half; the reference's manager writes no
+media cache unless one was read or marked.
 """
 
 from __future__ import annotations
 
-from ..config.crawler import CrawlerConfig
+from typing import List, Optional, Tuple
+
 from ..datamodel.post import Post
+from .base import BaseStateManager
+from .datamodels import State
+from .interface import StateConfig
 from .providers import LocalStorageProvider
 
 
-class LocalStateManager:
-    """Posts appended per channel under ``<storage_root>/<crawl_id>``."""
+class LocalStateManager(BaseStateManager):
+    """Filesystem-backed page state and post sink."""
 
-    def __init__(self, storage_root: str, crawl_id: str):
-        self.crawl_id = crawl_id
-        self.provider = LocalStorageProvider(storage_root)
+    def __init__(self, config: StateConfig):
+        super().__init__(config)
+        base_path = (config.local.base_path if config.local else None) \
+            or config.storage_root
+        self.provider = LocalStorageProvider(base_path)
+        self.crawl_id = config.crawl_id
+        self._initialized = False
 
-    def store_post(self, channel_id: str, post: Post) -> None:
-        rel = f"{self.crawl_id}/{channel_id}/posts/posts.jsonl"
-        self.provider.append_jsonl(rel, post.to_json())
+    # --- paths -------------------------------------------------------------
+    def _state_path(self) -> str:
+        return f"{self.config.crawl_id}/state.json"
+
+    def _metadata_path(self, crawl_id: Optional[str] = None) -> str:
+        return f"{crawl_id or self.config.crawl_id}/metadata.json"
+
+    # --- lifecycle -----------------------------------------------------------
+    def initialize(self, seed_urls: List[str]) -> None:
+        """Load the persisted state if it has layers, else seed a fresh
+        one and save it (an empty ``state.json`` is not a crawl)."""
+        self._initialized = True
+        existing = self.provider.load_json(self._state_path())
+        if existing and existing.get("layers"):
+            self.set_state(State.from_dict(existing))
+            return
+        super().initialize(seed_urls)
+        self.save_state()
+
+    def save_state(self) -> None:
+        """Persist ``state.json`` and ``metadata.json``."""
+        state = self.get_state()
+        self.provider.save_json(self._state_path(), state.to_dict())
+        self.provider.save_json(self._metadata_path(),
+                                self.metadata.to_dict())
 
     def close(self) -> None:
+        if self._initialized:
+            self.save_state()
         self.provider.flush()
 
+    # --- posts ---------------------------------------------------------------
+    def store_post(self, channel_id: str, post: Post) -> None:
+        rel = f"{self.config.crawl_id}/{channel_id}/posts/posts.jsonl"
+        self.provider.append_jsonl(rel, post.to_json())
 
-def create_state_manager(cfg: CrawlerConfig) -> LocalStateManager:
-    """The crawl's post sink for ``cfg`` (the counterpart of the
-    reference's `modes/common.create_state_manager`, whose execution-id
-    argument only the crawl's page state reads)."""
-    return LocalStateManager(cfg.storage_root, cfg.crawl_id)
+    # --- resume --------------------------------------------------------------
+    def find_incomplete_crawl(self, crawl_id: str) -> Tuple[str, bool]:
+        """Also read the persisted metadata of this crawl and of the
+        previous executions it names."""
+        exec_id, found = super().find_incomplete_crawl(crawl_id)
+        if found:
+            return exec_id, True
+        meta = self.provider.load_json(self._metadata_path(crawl_id))
+        if meta:
+            if meta.get("status") != "completed" and meta.get("executionId"):
+                return meta["executionId"], True
+            for prev_id in meta.get("previousCrawlId") or []:
+                prev = self.provider.load_json(self._metadata_path(prev_id))
+                if prev and prev.get("status") != "completed" \
+                        and prev.get("executionId"):
+                    return prev["executionId"], True
+        return "", False

@@ -2,11 +2,13 @@
 
 The reference's `distributed_crawler_tpu/utils/flight.py`.  A bounded,
 thread-safe ring of structured events (batch outcomes, SLO breaches, slow
-batches, profiler captures, device stalls, kills) recorded by the workers,
-and on the way down a **postmortem bundle** — the flight ring, the trace
-export, the metrics exposition, the ``/clusters`` state, the partitioned
-bus's ``/shards`` table, the WARNING+ log ring, recent time series and the
-config fingerprint — written as one JSON file under the dump directory.
+batches, profiler captures, device stalls, kills, dispatches and alerts)
+recorded by the workers and the orchestrator, and on the way down a
+**postmortem bundle** — the flight ring, the trace export, the metrics
+exposition, the orchestrator's ``/dtraces``, ``/alerts`` and ``/tenants``,
+the ``/clusters`` state, the partitioned bus's ``/shards`` table, the
+WARNING+ log ring, recent time series and the config fingerprint —
+written as one JSON file under the dump directory.
 `tools/postmortem.py` renders a bundle.
 
 :func:`install` hooks the exits: chained ``sys.excepthook`` and
@@ -105,6 +107,18 @@ class FlightRecorder:
             "traces": traces,
             "metrics": metrics,
         }
+        # The orchestrator's assembled distributed traces, alert log and
+        # tenant ledger: a dead coordinator's /dtraces, /alerts and
+        # /tenants can no longer be scraped.
+        from .metrics import alerts_snapshot, dtraces_snapshot, \
+            tenants_snapshot
+
+        for key, snap in (("dtraces", dtraces_snapshot),
+                          ("alerts", alerts_snapshot),
+                          ("tenants", tenants_snapshot)):
+            body = snap()
+            if body is not None:
+                bundle[key] = body
         # The cluster worker's state: whether the centroid model was
         # healthy when the process died.
         from .metrics import clusters_snapshot

@@ -9,22 +9,23 @@ postmortem.py` and the orchestrator's fleet view):
 - `MetricsRegistry` and its `Counter`, `Gauge` and `Histogram` families,
   ``.labels(...)`` children, and ``expose()``;
 - the late-bound providers behind ``/status``, ``/costs``,
-  ``/clusters``, ``/dlq`` (a durable broker's dead-letter queue) and
-  ``/shards`` (a partitioned bus client's shard table), registered by
-  their owner once it exists;
-- `serve_metrics`: ``/healthz``, ``/metrics``, ``/traces``, ``/status``,
-  ``/costs``, ``/profile``, ``/clusters``, ``/dlq``, ``/shards``,
-  ``/timeseries`` and ``/logs`` (the WARNING+ ring of `utils/
-  structlog.py`, served always) on a daemon thread.  A provider route
-  with no provider answers 404, as the orchestrator's routes
-  (``/dtraces``, ``/alerts``, ``/autoscaler``, ``/tenants``,
-  ``/cluster``) always do: no orchestrator runs in the port.
+  ``/clusters``, ``/dlq`` (a durable broker's dead-letter queue),
+  ``/shards`` (a partitioned bus client's shard table), and the
+  orchestrator's ``/cluster`` (fleet view), ``/dtraces`` (assembled
+  distributed traces), ``/alerts`` and ``/tenants`` (the watchtower),
+  registered by their owner once it exists;
+- `serve_metrics`: ``/healthz``, ``/metrics``, ``/traces``, ``/profile``,
+  ``/timeseries``, ``/logs`` (the WARNING+ ring of `utils/
+  structlog.py`, served always) and the provider routes above on a
+  daemon thread.  A provider route with no provider answers 404, as
+  ``/autoscaler`` always does until the autoscaler is ported.
 """
 
 from __future__ import annotations
 
 import bisect
 import json
+import logging
 import threading
 import time
 from dataclasses import dataclass, field
@@ -98,6 +99,12 @@ class _LabeledMixin:
         return [(dict(m._label_items), m._read())
                 for m in [self] + self._child_snapshot()]
 
+    def remove_labels(self, **kv: object) -> None:
+        """Drop the child for this exact label set (no-op if absent), so
+        per-worker series go when their worker does."""
+        with self._lock:
+            self._children.pop(_label_key(kv), None)
+
     def _expose_values(self, kind: str) -> str:
         lines = [f"# HELP {self.name} {_escape_help(self.help)}",
                  f"# TYPE {self.name} {kind}"]
@@ -133,6 +140,7 @@ class Gauge(_LabeledMixin):
     def __init__(self, name: str, help_: str = ""):
         self.name, self.help = name, help_
         self._value = 0.0
+        self._fn = None
         self._lock = threading.Lock()
         self._children: Dict[LabelKey, "Gauge"] = {}
 
@@ -142,6 +150,28 @@ class Gauge(_LabeledMixin):
     def set(self, value: float) -> None:
         with self._lock:
             self._value = value
+
+    def set_fn(self, fn) -> None:
+        """Bind a zero-arg callable whose value is read at scrape time
+        (a staleness count is a function of now, not of the last tick);
+        None unbinds."""
+        self._fn = fn
+
+    def _read(self) -> float:
+        fn = self._fn
+        if fn is not None:
+            try:
+                value = float(fn())
+            except Exception as e:
+                # A scrape must not fail because one computed gauge broke:
+                # the last stored value stands.
+                logging.getLogger("dct.metrics").debug(
+                    "gauge %s value fn failed: %s", self.name, e)
+                return super()._read()
+            with self._lock:
+                self._value = value
+            return value
+        return super()._read()
 
     @property
     def value(self) -> float:
@@ -258,7 +288,9 @@ REGISTRY = MetricsRegistry()
 # so a stopping component never yanks one registered after it.
 _providers: Dict[str, object] = {"status": None, "costs": None,
                                  "clusters": None, "dlq": None,
-                                 "shards": None}
+                                 "shards": None, "cluster": None,
+                                 "dtraces": None, "alerts": None,
+                                 "tenants": None}
 
 
 def _set(kind: str, fn) -> None:
@@ -320,6 +352,46 @@ def clear_shards_provider(fn) -> None:
     _clear("shards", fn)
 
 
+def set_cluster_provider(fn) -> None:
+    """Register the orchestrator's zero-arg dict provider served at
+    /cluster, the fleet view (None clears)."""
+    _set("cluster", fn)
+
+
+def clear_cluster_provider(fn) -> None:
+    _clear("cluster", fn)
+
+
+def set_dtraces_provider(fn) -> None:
+    """Register the orchestrator's provider served at /dtraces, called as
+    ``fn(limit=N)`` (None clears)."""
+    _set("dtraces", fn)
+
+
+def clear_dtraces_provider(fn) -> None:
+    _clear("dtraces", fn)
+
+
+def set_alerts_provider(fn) -> None:
+    """Register the watchtower's zero-arg dict provider served at /alerts
+    (None clears)."""
+    _set("alerts", fn)
+
+
+def clear_alerts_provider(fn) -> None:
+    _clear("alerts", fn)
+
+
+def set_tenants_provider(fn) -> None:
+    """Register the watchtower's zero-arg dict provider served at
+    /tenants (None clears)."""
+    _set("tenants", fn)
+
+
+def clear_tenants_provider(fn) -> None:
+    _clear("tenants", fn)
+
+
 def _snapshot(kind: str):
     fn = _providers[kind]
     if fn is None:
@@ -341,6 +413,23 @@ def shards_snapshot():
     recorder puts it in postmortem bundles (which shard was parked or
     broken when the process went down)."""
     return _snapshot("shards")
+
+
+def dtraces_snapshot():
+    """The active /dtraces body, or None without a provider: a dead
+    coordinator's cross-process timeline goes into its bundle."""
+    return _snapshot("dtraces")
+
+
+def alerts_snapshot():
+    """The active /alerts body, or None without a provider: the alert
+    history a dead process can no longer serve."""
+    return _snapshot("alerts")
+
+
+def tenants_snapshot():
+    """The active /tenants body, or None without a provider."""
+    return _snapshot("tenants")
 
 
 def logs_snapshot():
@@ -386,7 +475,9 @@ class _Handler(BaseHTTPRequestHandler):
         code, ctype = 200, "application/json"
         kind = {"/status": "status", "/costs": "costs",
                 "/clusters": "clusters", "/dlq": "dlq",
-                "/shards": "shards"}.get(path)
+                "/shards": "shards", "/cluster": "cluster",
+                "/dtraces": "dtraces", "/alerts": "alerts",
+                "/tenants": "tenants"}.get(path)
         provider = self.providers.get(kind) or _providers.get(kind) \
             if kind else None
         if path in ("", "/health", "/healthz"):
@@ -406,6 +497,10 @@ class _Handler(BaseHTTPRequestHandler):
                 if kind == "dlq":
                     # ?topic=&id= returns one entry's full payload.
                     body = _dlq_body(provider, query)
+                elif kind == "dtraces":
+                    # ?limit=N caps the assembled trace count.
+                    body = json.dumps(provider(limit=_query_limit(query)),
+                                      default=str).encode("utf-8")
                 else:
                     body = json.dumps(provider(),
                                       default=str).encode("utf-8")

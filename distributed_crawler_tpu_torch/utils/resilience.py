@@ -19,11 +19,14 @@ reference's `distributed_crawler_tpu/utils/resilience.py`.
   half-open, 1 open), counts ``resilience_circuit_open_total{target}``
   on opening, and is flight-recorded (kind ``circuit``).
 
+- :class:`Policy` — retry and breaker behind one ``call``: the
+  orchestrator's state-store and publish operations run through it.
+
 Same defaults, the same cap and the same metrics as the reference:
 ``resilience_retries_total{op}`` counts every retried attempt, in the
-port's registry.  The composed ``Policy``/``with_policy`` is not ported:
-the outbox and the partitioned bus call `retry_call` with a breaker, as
-the reference's do, and nothing in the port needs a per-attempt timeout.
+port's registry.  The reference's per-attempt ``timeout_s`` of `Policy`
+and its ``with_policy`` decorator are not ported: no caller in the port
+sets a timeout or decorates a function.
 """
 
 from __future__ import annotations
@@ -178,6 +181,16 @@ class CircuitBreaker:
             self._maybe_half_open_locked()
             return self._state
 
+    @property
+    def is_open(self) -> bool:
+        """True while ops are shed: open and not yet probe-time, or
+        half-open with its one probe already out.  Takes no probe."""
+        with self._lock:
+            self._maybe_half_open_locked()
+            if self._state == CIRCUIT_HALF_OPEN:
+                return self._probing
+            return self._state == CIRCUIT_OPEN
+
     def _transition_locked(self, new_state: str) -> None:
         if new_state == self._state:
             return
@@ -224,3 +237,23 @@ class CircuitBreaker:
                     self._failures >= self.failure_threshold:
                 self._opened_at = self.clock()
                 self._transition_locked(CIRCUIT_OPEN)
+
+
+class Policy:
+    """Retry + breaker behind one ``call``: every attempt checks the
+    breaker (shedding is cheap: no call, no wait), failures feed it, and
+    retries follow the backoff schedule, all through :func:`retry_call`."""
+
+    def __init__(self, op: str, retry: RetryPolicy,
+                 breaker: Optional[CircuitBreaker] = None):
+        self.op = op
+        self.retry = retry
+        self.breaker = breaker
+
+    @property
+    def circuit_open(self) -> bool:
+        return self.breaker is not None and self.breaker.is_open
+
+    def call(self, fn: Callable[..., Any], *args: Any, **kwargs: Any) -> Any:
+        return retry_call(fn, *args, retry=self.retry, op=self.op,
+                          breaker=self.breaker, **kwargs)

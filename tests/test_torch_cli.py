@@ -34,6 +34,14 @@ package's, on the CPU.
   ``<spool-dir>/outbox/<who>``; ``--mode bus --bus-spool-dir`` serving
   ``/dlq``; ``--bus-shard-addresses`` building a `PartitionedBus` whose
   ``/shards`` body equals the reference's.
+- ``--mode orchestrator``: the crawl settings resolve as the reference's;
+  a malformed ``--alert-rules`` or ``--tenant-budgets``, ``--autoscaler``,
+  missing URLs and ``--sampling random-walk`` exit 2 before the broker
+  starts; a process serves ``/status``, ``/cluster``, ``/dtraces``,
+  ``/alerts``, ``/tenants`` and ``/dlq`` and journals the crawl; and
+  ``python -m distributed_crawler_tpu_torch --mode orchestrator`` hosts
+  the broker through which the reference's crawl `CrawlWorker` completes
+  a BFS crawl of the simulated Telegram network.
 
 Every test runs under `restored_logging`: both packages' `main()` run
 `setup_logging`, which stops the "dct" logger tree from propagating to
@@ -1109,3 +1117,232 @@ def test_main_leaves_the_logger_tree_as_it_was(tmp_path, capsys):
         assert rc == 2  # after setup_logging: missing --transcribe-input
         assert logging.getLogger("dct").propagate is False
     assert logging_state() == before
+
+
+# -- the orchestrator -------------------------------------------------------------
+ORCH_ARGV = ["--mode", "orchestrator", "--concurrency", "3", "--timeout",
+             "9", "--sample-size", "5", "--min-users", "7",
+             "--max-comments", "2", "--max-depth", "4", "--max-posts", "11",
+             "--max-pages", "99", "--skip-media", "--youtube-api-key", "k",
+             "--sampling", "snowball", "--min-channel-videos", "3",
+             "--urls", "a,b", "--infer-backpressure-high", "8",
+             "--infer-backpressure-low", "3", "--journal-dir", "/j",
+             "--fresh"]
+ORCH_FIELDS = ("concurrency", "timeout", "sample_size", "min_users",
+               "max_comments", "max_depth", "max_posts", "max_pages",
+               "skip_media_download", "youtube_api_key", "sampling_method",
+               "min_channel_videos", "storage_root", "platform")
+
+
+@pytest.mark.parametrize("argv", [["--mode", "orchestrator", "--urls", "a"],
+                                  ORCH_ARGV])
+def test_orchestrator_config_resolves_as_the_references(argv):
+    (t_cfg, t_r), (j_cfg, j_r) = (resolve(c, argv) for c in (tcli, jcli))
+    for name in ORCH_FIELDS:
+        assert getattr(t_cfg, name) == getattr(j_cfg, name), name
+    for key in ("distributed.inference_backpressure_high",
+                "distributed.inference_backpressure_low",
+                "orchestrator.journal_dir", "orchestrator.fresh",
+                "crawler.urls", "resilience.state_retry_attempts"):
+        assert t_r.get(key) == j_r.get(key), key
+    assert tcli.collect_urls(t_r) == jcli.collect_urls(j_r)
+    assert "orchestrator" in tcli.DEVICE_MODES
+    assert "orchestrator" not in tcli.CRAWLER_MODES
+
+
+def _orch_errors(tmp):
+    bad_rules = tmp / "rules.json"
+    if tmp.is_dir():
+        bad_rules.write_text("[{]")
+    base = ["--mode", "orchestrator", "--urls", "chana",
+            "--storage-root", str(tmp / "s"), "--bus-address",
+            "127.0.0.1:1"]
+    return {
+        "rules_json": (base + ["--alert-rules", "[{"], "--alert-rules is "
+                       "not valid JSON"),
+        "rules_file": (base + ["--alert-rules", f"@{bad_rules}"],
+                       "--alert-rules is not valid JSON"),
+        "rules_missing_file": (base + ["--alert-rules", "@/nonexistent"],
+                               "cannot read --alert-rules file"),
+        "rule_unknown_key": (base + ["--alert-rules", json.dumps([{
+            "name": "x", "kind": "threshold", "series": "s", "bogus": 1}])],
+            "bad alert rule: alert rule x: unknown key(s) bogus"),
+        "rule_bad_kind": (base + ["--alert-rules", json.dumps([{
+            "name": "x", "kind": "nope", "series": "s"}])],
+            "bad alert rule"),
+        "budgets_json": (base + ["--tenant-budgets", "{"],
+                         "--tenant-budgets is not valid JSON"),
+        "budgets_typo": (base + ["--tenant-budgets", json.dumps(
+            {"budgetz": {}})], "bad tenant budget: unknown "
+            "tenant_budgets key"),
+        "budgets_negative": (base + ["--tenant-budgets", json.dumps(
+            {"budgets": {"t": {"queue_wait": -1}}})],
+            "bad tenant budget"),
+        "autoscaler": (base + ["--autoscaler"],
+                       "ROADMAP Queue 1 item 7c"),
+        "no_urls": (["--mode", "orchestrator", "--storage-root",
+                     str(tmp / "s")], "channel sampling requires URLs"),
+        "random_walk": (base + ["--sampling", "random-walk"],
+                        "SQL graph store"),
+        "bad_sampling": (base + ["--sampling", "random"],
+                         "sampling method 'random' is not supported for "
+                         "platform 'telegram'"),
+        "bad_platform": (base + ["--platform", "myspace"],
+                         "unsupported platform: myspace"),
+        "url_file": (["--mode", "orchestrator", "--url-file",
+                      "/nonexistent"], "cannot read --url-file"),
+    }
+
+
+ORCH_ERRORS = sorted(_orch_errors(Path("/x")))
+
+
+@pytest.mark.parametrize("case", ORCH_ERRORS)
+def test_orchestrator_config_error_exits_2_before_the_broker(
+        tmp_path, monkeypatch, capsys, case):
+    argv, needle = _orch_errors(tmp_path)[case]
+
+    def no_broker(*a, **k):
+        raise AssertionError("the broker started")
+
+    monkeypatch.setattr(tcli, "_make_bus", no_broker)
+    rc, _, err = run_main(tcli, argv, capsys)
+    assert rc == 2, err
+    assert needle in err, err
+
+
+def test_orchestrator_error_messages_are_the_references(tmp_path, capsys):
+    """The rule and budget messages are the reference's word for word."""
+    for flag, raw in (("--alert-rules", "[{"),
+                      ("--alert-rules", json.dumps([{"name": "x"}])),
+                      ("--tenant-budgets", json.dumps({"window_s": 0}))):
+        errs = []
+        for cli in (tcli, jcli):
+            _, r = resolve(cli, ["--mode", "orchestrator", "--urls", "a",
+                                 flag, raw])
+            fn = cli._alert_rules if flag == "--alert-rules" \
+                else cli._tenant_budgets
+            with pytest.raises(ValueError) as e:
+                fn(r)
+            errs.append(str(e.value))
+        assert errs[0] == errs[1]
+
+
+def _orch_process(tmp_path, *extra):
+    port = free_port()
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=ROOT)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distributed_crawler_tpu_torch", "--mode",
+         "orchestrator", "--metrics-port", str(port), "--storage-root",
+         str(tmp_path / "store"), "--crawl-id", "c9", "--skip-media",
+         *extra], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE)
+    return proc, f"http://127.0.0.1:{port}"
+
+
+def _wait_route(proc, url, pred=lambda body: True, timeout_s=120):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline and proc.poll() is None:
+        try:
+            code, body = http_get(url)
+            if code == 200 and pred(json.loads(body)):
+                return json.loads(body)
+        except OSError:
+            pass
+        time.sleep(0.1)
+    raise AssertionError(f"{url}: {proc.poll()} "
+                         f"{proc.communicate()[1].decode()[-2000:]}")
+
+
+def test_orchestrator_process_serves_its_routes(tmp_path):
+    """The in-process bus, a durable spool dir (served at /dlq), budgets
+    and a rule: every route answers; SIGTERM gives 130; the journal and
+    ``state.json`` land where the reference puts them."""
+    proc, url = _orch_process(
+        tmp_path, "--urls", "chana,chanb", "--tenant-budgets", json.dumps(
+            {"budgets": {"default": {"queue_wait": 3}}}),
+        "--alert-rules", json.dumps([{"name": "deep", "kind": "threshold",
+                                      "series": "fleet_queue_depth",
+                                      "op": ">", "value": 2}]))
+    try:
+        status = _wait_route(proc, url + "/status")
+        assert status["crawl_id"] == "c9" and status["resumed"] is False
+        cluster = _wait_route(proc, url + "/cluster")
+        assert cluster["orchestrator"]["crawl_id"] == "c9"
+        assert _wait_route(proc, url + "/dtraces")["collector_process"] == \
+            "orchestrator"
+        alerts = _wait_route(proc, url + "/alerts")
+        assert alerts["alerts"][0]["rule"] == "deep"
+        tenants = _wait_route(proc, url + "/tenants")
+        assert tenants["tenants"]["default"]["budgets"]["queue_wait"][
+            "budget"] == 3.0
+        assert http_get(url + "/autoscaler")[0] == 404
+        # The first distribute tick (5 s) dispatches both seeds.
+        _wait_route(proc, url + "/status",
+                    lambda b: b["work_stats"]["active_work"] == 2)
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 130
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate()
+    base = tmp_path / "store" / "c9"
+    assert sorted(os.listdir(base / "orch-journal")) == [
+        "journal.jsonl", "snapshot.json"]
+    with open(base / "state.json", encoding="utf-8") as f:
+        state = json.load(f)
+    assert [p["status"] for p in state["layers"][0]["pages"]] == [
+        "processing", "processing"]
+    assert not (tmp_path / "store" / "graph.sqlite").exists()
+
+
+def test_orchestrator_process_crawls_with_the_references_worker(
+        tmp_path):
+    """``python -m distributed_crawler_tpu_torch --mode orchestrator``
+    hosts the broker; the reference's `CrawlWorker` on a `RemoteBus`
+    crawls the simulated network through it; the process exits 0 once
+    the crawl completes, every page fetched."""
+    pytest.importorskip("grpc")
+    from distributed_crawler_tpu.bus.grpc_bus import RemoteBus
+    from tests.test_torch_orchestrator import _ref_worker, install_pool
+    from distributed_crawler_tpu.clients import SimNetwork
+    from distributed_crawler_tpu.crawl import runner as crawl_runner
+    from tests.test_crawl_engine import text_msg
+
+    net = SimNetwork()
+    net.add_channel("chana", messages=[
+        text_msg("hello t.me/chanb", date=1700000000, view_count=5),
+    ], member_count=100)
+    net.add_channel("chanb", messages=[
+        text_msg("plain message", date=1700000100, view_count=3),
+    ], member_count=200)
+    install_pool(net)
+    address = f"127.0.0.1:{free_port()}"
+    proc, url = _orch_process(tmp_path, "--urls", "chana", "--bus-address",
+                              address, "--max-depth", "2")
+    remote = worker = None
+    try:
+        _wait_route(proc, url + "/status")
+        remote = RemoteBus(address)
+        worker = _ref_worker(remote, tmp_path)
+        worker.start(background=False)
+        assert proc.wait(timeout=90) == 0, proc.communicate()[1][-2000:]
+    finally:
+        if worker is not None:
+            worker.stop()
+        if remote is not None:
+            remote.close()
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate()
+        crawl_runner.shutdown_connection_pool()
+    with open(tmp_path / "store" / "c9" / "state.json",
+              encoding="utf-8") as f:
+        layers = json.load(f)["layers"]
+    assert [[(p["url"], p["status"]) for p in layer["pages"]]
+            for layer in layers] == [[("chana", "fetched")],
+                                     [("chanb", "fetched")]]
+    with open(tmp_path / "store" / "c9" / "metadata.json",
+              encoding="utf-8") as f:
+        assert json.load(f)["status"] == "completed"

@@ -62,6 +62,9 @@ from distributed_crawler_tpu_torch.inference import bridge as tbridge  # noqa: E
 from distributed_crawler_tpu_torch.media.bridge import (  # noqa: E402
     TranscriptReentry,
 )
+from distributed_crawler_tpu_torch.state.interface import (  # noqa: E402
+    StateConfig as TorchStateConfig,
+)
 from distributed_crawler_tpu_torch.state.local import (  # noqa: E402
     LocalStateManager,
 )
@@ -220,6 +223,11 @@ def _jax_sink(root, crawl_id):
         local=LocalConfig(base_path=root)))
 
 
+def _sink(root, crawl_id, cls=LocalStateManager):
+    """The port's post sink for ``crawl_id`` under ``root``."""
+    return cls(TorchStateConfig(storage_root=root, crawl_id=crawl_id))
+
+
 def _tree(root):
     """{relative path: bytes} of every file under ``root``."""
     out = {}
@@ -232,7 +240,7 @@ def _tree(root):
 
 
 def test_post_sink_writes_the_references_bytes(tmp_path):
-    mine = LocalStateManager(str(tmp_path / "port"), "c3")
+    mine = _sink(str(tmp_path / "port"), "c3")
     ref = _jax_sink(str(tmp_path / "ref"), "c3")
     rng_a, rng_b = np.random.default_rng(7), np.random.default_rng(7)
     for i in range(3):
@@ -260,7 +268,7 @@ def test_bridge_post_uid_window_absorbs_recrawl(tmp_path):
     bus = InMemoryBus(sync=True)
     shipped = _collect(bus, tmsg.TOPIC_INFERENCE_BATCHES)
     bridge = tbridge.InferenceBridge(
-        LocalStateManager(str(tmp_path), "d1"), bus, crawl_id="d1",
+        _sink(str(tmp_path), "d1"), bus, crawl_id="d1",
         batch_size=100, deadline_s=60.0)
     try:
         post = tpost.Post(post_uid="p1", channel_id="chan",
@@ -285,7 +293,7 @@ def test_bridge_full_batch_ships_at_once(tmp_path):
     bus = InMemoryBus(sync=True)
     shipped = _collect(bus, tmsg.TOPIC_INFERENCE_BATCHES)
     bridge = tbridge.InferenceBridge(
-        LocalStateManager(str(tmp_path), "d0"), bus, crawl_id="d0",
+        _sink(str(tmp_path), "d0"), bus, crawl_id="d0",
         batch_size=3, deadline_s=60.0)
     try:
         for p in _posts(tpost, 7):
@@ -304,7 +312,7 @@ def test_bridge_deadline_flush(tmp_path):
     bus = InMemoryBus(sync=True)
     shipped = _collect(bus, tmsg.TOPIC_INFERENCE_BATCHES)
     bridge = tbridge.InferenceBridge(
-        LocalStateManager(str(tmp_path), "d1"), bus, crawl_id="d1",
+        _sink(str(tmp_path), "d1"), bus, crawl_id="d1",
         batch_size=100, deadline_s=0.05)
     try:
         bridge.store_post("chan", tpost.Post(post_uid="p1", channel_id="chan",
@@ -320,7 +328,7 @@ def test_bridge_deadline_flush(tmp_path):
 
 
 def test_bridge_delegates_everything_else(tmp_path):
-    inner = LocalStateManager(str(tmp_path), "d2")
+    inner = _sink(str(tmp_path), "d2")
     bus = InMemoryBus(sync=True)
     bridge = tbridge.InferenceBridge(inner, bus, crawl_id="d2",
                                      batch_size=4, deadline_s=1.0)
@@ -328,7 +336,7 @@ def test_bridge_delegates_everything_else(tmp_path):
         assert bridge.crawl_id == "d2"
         assert bridge.provider is inner.provider
         with pytest.raises(AttributeError):
-            bridge.get_layer_by_depth  # noqa: B018 (not a port method)
+            bridge.update_message  # noqa: B018 (not a port method)
     finally:
         bridge.close()
         bus.close()
@@ -361,7 +369,8 @@ def test_bridge_publish_failure_is_logged_not_raised(tmp_path):
             closed.append(True)
             super().close()
 
-    bridge = tbridge.InferenceBridge(Sink(str(tmp_path), "d3"), _DeadBus(),
+    bridge = tbridge.InferenceBridge(_sink(str(tmp_path), "d3", Sink),
+                                     _DeadBus(),
                                      crawl_id="d3", batch_size=2,
                                      deadline_s=60.0)
     try:
@@ -411,7 +420,7 @@ def test_reentry_writes_and_ships_what_the_reference_does(tmp_path):
     trace.configure(capacity=8192)
     results = {}
     for name, bus, sink, bridge_cls, reentry_cls, kw in (
-            ("port", InMemoryBus(sync=True), LocalStateManager(
+            ("port", InMemoryBus(sync=True), _sink(
                 str(tmp_path / "port"), "r1"), tbridge.InferenceBridge,
              TranscriptReentry, {}),
             ("ref", JaxBus(sync=True), _jax_sink(str(tmp_path / "ref"), "r1"),
@@ -551,7 +560,7 @@ def test_crawl_audio_reenters_the_ports_text_path(tmp_path):
                                         heartbeat_s=60.0),
                     registry=registry)
     ibridge = tbridge.InferenceBridge(
-        LocalStateManager(str(tmp_path / "crawl"), "e2e"), bus,
+        _sink(str(tmp_path / "crawl"), "e2e"), bus,
         crawl_id="e2e", batch_size=4, deadline_s=60.0)
     mbridge = MediaBridge(NullSM(), bus, crawl_id="e2e", batch_size=2,
                           deadline_s=0.05)
