@@ -272,6 +272,36 @@ JSON line each:
    valve's engaged seconds and the hold's steps, restart to completion,
    the phase's seconds; crawl seconds, pages/s and posts/s end to end,
    which the 5 s distribute tick and the holds set.
+16. slice.autoscaler (after phase 15, on its machinery) — ``--mode
+   orchestrator --autoscaler`` with phase 15's crawl, spool, journal and
+   rule, ``--autoscaler-eval-interval 1`` and one pool ``tpu`` of one to
+   two E5-small ``tpu-worker`` children of the CLI on the card (phase
+   11's flags, ``--telemetry-interval 1``, ``--dump-dir`` per worker id),
+   scaled up by the rule, down once ``fleet_worker_queue_length`` has
+   averaged under 1 for 10 s (5 s cooldowns).  No worker is started by
+   this script: the autoscaler's growth to its minimum spawns
+   ``tpu-auto-1``.  Depth 2's posts wait until all of depth 2 is
+   dispatched; then ``tpu-auto-1`` is SIGSTOPped while half of them reach
+   the broker, takes them in and reports its backlog (phase 15's fill),
+   and stays stopped while the rule fires, the autoscaler decides ``up``
+   and spawns ``tpu-auto-2``, until that child's first heartbeat; the
+   other half then goes, both children drain the burst, the fleet holds
+   its headroom, the autoscaler decides ``down`` and retires
+   ``tpu-auto-2`` by SIGTERM; depth 2's results go after that, the crawl
+   completes and the orchestrator's teardown SIGTERMs ``tpu-auto-1``.
+   Checks: every page fetched and applied once and one result row per
+   post, none twice, across the retirement; ``/autoscaler`` with decisions
+   ``up`` (1 to 2) then ``down`` (2 to 1), desired and actual back at 1,
+   no actuation back-off or spawn churn; ``autoscaler_decisions_total``
+   up and down at 1 on ``/metrics``; both children retired with exit code
+   130 (the orchestrator's log); the retired child offline, not stale, on
+   ``/cluster``; both children's card memory on ``/cluster``; each
+   child's SIGTERM bundle with 12 sm90 launches per dispatch, none on
+   another path, and dispatches past its warm-up.  Times: the rule firing
+   to ``up``, ``up`` to the new child's first heartbeat (its start-up on
+   the card), each child's and the pair's posts/s over the burst beside
+   phase 15's single worker, the drain to ``down``, ``down`` to the
+   child's exit, the phase's seconds.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``.  Any failed phase raises and exits
@@ -1465,6 +1495,10 @@ ASR_F32_TOL = 2e-3
 # this: the two runs' bf16 encoder outputs differ by bf16 roundings, which
 # move the f32 logits by a few hundredths at most.
 ASR_NEAR_TIE = 0.1
+# Decode steps under torch.profiler (every step launches the same ~650
+# kernels): at 32 steps the profiled call took about 24 s on an H100's
+# host, of which the steps themselves take under half a second.
+ASR_PROFILE_STEPS = 8
 
 
 def whisper_state(np, seed):
@@ -1798,7 +1832,7 @@ def dispatch_ms_by_bucket():
     return out
 
 
-def profile_decode(torch, model, mel, steps=32):
+def profile_decode(torch, model, mel, steps=ASR_PROFILE_STEPS):
     """Decode steps at one bucket, under `torch.profiler`: the kernels the
     card ran per step and their summed device time, against the same steps'
     wall time without the profiler (the device's busy share of a decode
@@ -4912,10 +4946,11 @@ class Procs:
         self.work = work
         self.live = []
 
-    def start(self, name, *args):
+    def start(self, name, *args, env=None):
         log = open(os.path.join(self.work, f"{name}.log"), "a",
                    encoding="utf-8")
-        proc = subprocess.Popen(cli_argv(*args), cwd=ROOT, env=cli_env(),
+        proc = subprocess.Popen(cli_argv(*args), cwd=ROOT,
+                                env={**cli_env(), **(env or {})},
                                 stdout=log, stderr=subprocess.STDOUT)
         log.close()
         proc.name = name
@@ -6191,26 +6226,34 @@ def orch_posts(np, url, seed):
 
 
 class Hold:
-    """Lets the first ``free`` stand-in pages of one gate through and the
-    rest once the script calls `release` (or the deadline passes)."""
+    """Lets the first ``free`` stand-in pages of one gate through, ``n``
+    more on each `admit(n)`, and the rest once the script calls `release`
+    (or the deadline passes)."""
 
     def __init__(self, free=0):
         import threading
 
         self.free = free
-        self.lock = threading.Lock()
-        self.released = threading.Event()
+        self.cond = threading.Condition()
+        self.opened = False
         self.arrived = 0
 
     def wait(self):
-        with self.lock:
+        with self.cond:
             self.arrived += 1
-            if self.arrived <= self.free:
-                return
-        self.released.wait(ORCH_DEADLINE_S)
+            n = self.arrived
+            self.cond.wait_for(lambda: self.opened or n <= self.free,
+                               ORCH_DEADLINE_S)
+
+    def admit(self, n):
+        with self.cond:
+            self.free += n
+            self.cond.notify_all()
 
     def release(self):
-        self.released.set()
+        with self.cond:
+            self.opened = True
+            self.cond.notify_all()
 
 
 class StandInCrawler:
@@ -6336,15 +6379,19 @@ class StandInCrawler:
 
 
 def orch_argv(address, metrics_port, store, spool, journal, crawl_id,
-              seeds, dump):
+              seeds, dump, extra=("--cluster-serve",
+                                  "--infer-backpressure-high",
+                                  str(ORCH_VALVE[0]),
+                                  "--infer-backpressure-low",
+                                  str(ORCH_VALVE[1]))):
+    """Phase 15's orchestrator; ``extra`` (phase 15's clustering stage
+    and valve by default) is phase 16's autoscaler instead."""
     rules = json.dumps([ORCH_RULE])
     return ("--mode", "orchestrator", "--bus-address", address,
             "--metrics-port", str(metrics_port), "--storage-root", store,
             "--crawl-id", crawl_id, "--bus-spool-dir", spool,
             "--journal-dir", journal, "--max-depth", str(ORCH_MAX_DEPTH),
-            "--urls", ",".join(seeds), "--skip-media", "--cluster-serve",
-            "--infer-backpressure-high", str(ORCH_VALVE[0]),
-            "--infer-backpressure-low", str(ORCH_VALVE[1]),
+            "--urls", ",".join(seeds), "--skip-media", *extra,
             "--alert-rules", rules, "--dump-dir", dump, "--log-json")
 
 
@@ -6405,11 +6452,14 @@ def orch_rows(store, crawl_id):
 ORCH_ROUTES = ("/cluster", "/dtraces", "/alerts", "/tenants")
 
 
-def orch_run(np, procs, work, tag, address, store, seed, holds, act):
-    """One crawl: an orchestrator process over the running workers, two
-    stand-ins and their shared bridge in this process.  ``act(run)`` steers
-    it once the stand-ins are up (`hold_backlog`, `kill_and_resume`); the
-    crawl then runs to completion."""
+def orch_run(np, procs, work, tag, address, store, seed, holds, act,
+             extra=None):
+    """One crawl: an orchestrator process over the running workers (or,
+    with phase 16's ``extra`` flags, over the children its autoscaler
+    spawns), two stand-ins and their shared bridge in this process.
+    ``act(run)`` steers it once the stand-ins are up (`hold_backlog`,
+    `kill_and_resume`, `autoscale_burst`); the crawl then runs to
+    completion."""
     import types
 
     from distributed_crawler_tpu_torch.bus.grpc_bus import RemoteBus
@@ -6437,13 +6487,17 @@ def orch_run(np, procs, work, tag, address, store, seed, holds, act):
     ourl = f"http://127.0.0.1:{m_orch}"
     argv = orch_argv(address, m_orch, state, os.path.join(root, "spool"),
                      journal, crawl_id, orch_graph(np, seed),
-                     os.path.join(root, "dump"))
+                     os.path.join(root, "dump"),
+                     **({} if extra is None else {"extra": extra}))
     run = types.SimpleNamespace(tag=tag, argv=argv, procs=procs, ourl=ourl,
                                 holds=holds, names=[f"orch_{tag}"],
                                 out={"crawl_id": crawl_id},
                                 restarted_at=None)
     t0 = time.perf_counter()
-    run.orch = procs.start(run.names[-1], *argv)
+    # The autoscaler's children inherit the orchestrator's log. Unbuffered,
+    # every line of every process is one append, so no two run together.
+    run.orch = procs.start(run.names[-1], *argv, env=None if extra is None
+                           else {"PYTHONUNBUFFERED": "1"})
     poll_until(lambda: json_route(ourl, "/status"),
                "the orchestrator's /status", procs=[run.orch], timeout_s=120)
     run.watch = StatusWatch(ourl)
@@ -6501,18 +6555,26 @@ def orch_run(np, procs, work, tag, address, store, seed, holds, act):
         run.bridge.close()
         run.bridge_bus.close()
         alerts_bus.close()
-    log = []
+    log, broken = [], []
     for name in run.names:
         with open(os.path.join(procs.work, f"{name}.log"),
                   encoding="utf-8", errors="replace") as f:
-            log += [json.loads(ln) for ln in f if ln.startswith("{")]
+            for ln in f:
+                try:
+                    rec = json.loads(ln) if ln.startswith("{") else None
+                except ValueError:
+                    rec = None
+                if isinstance(rec, dict):
+                    log.append(rec)
+                elif '"logger"' in ln:
+                    broken.append(ln)  # a record another line cut into
     with open(os.path.join(state, crawl_id, "state.json"),
               encoding="utf-8") as f:
         layers = json.load(f)["layers"]
     out = run.out
     out.update(
         crawl_s=t_done - t0, watch=run.watch, routes=routes,
-        alerts=run.alerts, log=log, layers=layers,
+        alerts=run.alerts, log=log, broken_log_lines=broken, layers=layers,
         journal=CrawlJournal(journal).replay(),
         rows=orch_rows(store, crawl_id),
         bridge={"batches": run.bridge.batches_published,
@@ -6841,6 +6903,388 @@ def phase_orchestrator(np, attention, work, grpc_posts_s, seed, smi):
         phase_s=seconds, card=smi)
     emit("slice.orchestrator", seconds=seconds,
          kernel_launches_by_path=launches)
+    return {"launches": launches, "tpu_burst_posts_per_s": report["A"][
+        "tpu_commits"]["largest_burst"]["posts_per_s"]}
+
+
+# Phase 16 (slice.autoscaler): the orchestrator's autoscaler grows and
+# shrinks a pool of E5-small tpu-worker children on the card.  One pool,
+# `tpu`, of one to two children, scaled up by phase 15's rule.  The
+# headroom series is the rule's own, ``fleet_worker_queue_length`` (each
+# worker's last reported queue, sampled once per watchtower pass, every
+# 5 s): a drained fleet reads 0 there within a pass, while the
+# ``fleet_queue_depth`` series, a 60 s time-weighted mean, would hold the
+# fleet up for a minute after it drained.  A 10 s stabilization window
+# always holds two of its samples.
+AUTO_POOL = {"pool": "tpu", "min_workers": 1, "max_workers": 2,
+             "scale_up_alerts": [ORCH_RULE["name"]],
+             "up_cooldown_s": 5.0, "down_cooldown_s": 5.0,
+             "stabilization_s": 10.0,
+             "headroom_series": "fleet_worker_queue_length",
+             "headroom_below": 1.0}
+AUTO_EVAL_S = 1.0
+AUTO_CHILDREN = ("tpu-auto-1", "tpu-auto-2")
+# Depth 2's pages whose posts reach the broker while tpu-auto-1 is stopped
+# (its backlog, which fires the rule); the other 64 are held until
+# tpu-auto-2's first heartbeat, so that both children take part of the
+# burst.
+AUTO_FIRST_PAGES = 64
+AUTO_SIGTERM_RC = 130   # the CLI's graceful exit, as phase 11 checks it
+
+
+def proc_stat(pid):
+    """``/proc/<pid>/stat``'s fields after the command name (state,
+    parent pid, ...), or None once the process is gone."""
+    try:
+        with open(f"/proc/{pid}/stat", encoding="utf-8") as f:
+            return f.read().rsplit(")", 1)[1].split()
+    except OSError:
+        return None
+
+
+def child_pid(parent, worker_id):
+    """The pid of the autoscaler's child with ``worker_id``: a direct
+    child of the orchestrator process ``parent`` whose command line runs
+    that ``tpu-worker``. No other process on the machine matches."""
+    want = f"--worker-id\0{worker_id}\0"
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        stat = proc_stat(name)
+        if stat is None or int(stat[1]) != parent:
+            continue
+        try:
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                cmd = f.read().decode(errors="replace")
+        except OSError:
+            continue
+        if want in cmd and "--mode\0tpu-worker\0" in cmd:
+            return int(name)
+    return None
+
+
+def pid_exited(pid):
+    """True once ``pid`` has exited (a zombie not yet reaped, or gone)."""
+    stat = proc_stat(pid)
+    return stat is None or stat[0] in ("Z", "X")
+
+
+def auto_argv(store, children):
+    """The orchestrator's flags for phase 16: the autoscaler and its pool;
+    each child is a CLI ``tpu-worker`` at phase 11's flags with its own
+    postmortem directory under ``children``."""
+    return ("--autoscaler", "--autoscaler-eval-interval", str(AUTO_EVAL_S),
+            "--autoscaler-pools", json.dumps([AUTO_POOL]),
+            "--autoscaler-worker-args",
+            f"--telemetry-interval {ORCH_BEAT_S} --storage-root {store} "
+            f"--log-json --dump-dir {children}/{{worker_id}}")
+
+
+def autoscale_burst(run):
+    """Phase 16's sequence (see the module docstring): the burst on a
+    stopped tpu-auto-1, the rule, ``up``, tpu-auto-2's first heartbeat,
+    both children draining, headroom, ``down`` and tpu-auto-2's exit; then
+    depth 2's results go."""
+    import signal
+
+    posts, results = run.holds[("posts", 2)], run.holds[("results", 2)]
+    rec = run.out.setdefault("auto", {})
+    one, two = AUTO_CHILDREN
+
+    def row(wid):
+        body = json_route(run.ourl, "/cluster") or {}
+        return body.get("workers", {}).get(wid)
+
+    def decisions(direction):
+        body = json_route(run.ourl, "/autoscaler") or {}
+        return [d for d in body.get("decisions", [])
+                if d["direction"] == direction]
+
+    t_spawned = time.time()
+    poll_until(lambda: (row(one) or {}).get("heartbeats"),
+               f"{one}'s first heartbeat (the pool grown to its minimum)",
+               procs=[run.orch], timeout_s=ORCH_DEADLINE_S)
+    rec["first_child_up_s"] = time.time() - t_spawned
+    # Depth 0's posts wait for tpu-auto-1, as phase 15's reach a warm
+    # worker: queued at the broker before it starts, they would be the
+    # backlog of its first heartbeats and could fire the rule.
+    run.holds[("posts", 0)].release()
+    pid1 = poll_until(lambda: child_pid(run.orch.pid, one),
+                      f"{one}'s pid (a child of the orchestrator)",
+                      timeout_s=10)
+    poll_until(lambda: posts.arrived >= ORCH_DEPTH2,
+               "phase 16: depth 2 dispatched", procs=[run.orch],
+               timeout_s=ORCH_DEADLINE_S)
+    first = (ORCH_SEEDS + ORCH_SEEDS * ORCH_FANOUT + AUTO_FIRST_PAGES) \
+        * ORCH_POSTS_PER_PAGE
+    os.kill(pid1, signal.SIGSTOP)
+    t_stop = time.monotonic()
+    try:
+        posts.admit(AUTO_FIRST_PAGES)
+        poll_until(lambda: run.bridge.posts_bridged >= first,
+                   "phase 16: the first half of depth 2 bridged",
+                   timeout_s=60)
+        time.sleep(0.2)
+        run.bridge.flush()
+        check(run.bridge_bus.outbox.drain(timeout_s=60),
+              "phase 16: the bridge's outbox did not drain into the broker")
+        # tpu-auto-1 takes the burst in, then reports it (hold_backlog's
+        # fill, for a child of the orchestrator).
+        os.kill(pid1, signal.SIGCONT)
+        time.sleep(ORCH_FILL_S)
+        os.kill(pid1, signal.SIGSTOP)
+        time.sleep(ORCH_BEAT_S + 0.2)
+        seen = (row(one) or {}).get("heartbeats", 0)
+        os.kill(pid1, signal.SIGCONT)
+        beat = poll_until(
+            lambda: (lambda r: r if r and r["heartbeats"] > seen
+                     else None)(row(one)),
+            f"phase 16: {one}'s heartbeat after its fill",
+            timeout_s=10 * ORCH_BEAT_S, poll_s=0.002)
+        os.kill(pid1, signal.SIGSTOP)
+        t_beat = time.time()
+        rec["reported_queue"] = beat["queue_length"]
+        check(beat["queue_length"] > ORCH_RULE["value"],
+              f"phase 16: {one} reported a queue of {beat['queue_length']} "
+              f"batches, not over the rule's {ORCH_RULE['value']}")
+        fired = poll_until(
+            lambda: [a for a in run.alerts if a.get("rule")
+                     == ORCH_RULE["name"] and a.get("state") == "firing"
+                     and a["at_wall"] >= t_beat],
+            "phase 16: the rule fired on the held burst", procs=[run.orch],
+            timeout_s=ORCH_HOLD_S)[0]
+        up = poll_until(lambda: decisions("up"), "phase 16: the up decision",
+                        procs=[run.orch], timeout_s=ORCH_HOLD_S)[0]
+        rec["fired_to_up_s"] = up["at"] - fired["at_wall"]
+        two_row = poll_until(lambda: (row(two) or {}).get("heartbeats"),
+                             f"phase 16: {two}'s first heartbeat",
+                             procs=[run.orch], timeout_s=120, poll_s=0.02)
+        rec["up_to_first_heartbeat_s"] = time.time() - up["at"]
+        check(two_row, f"{two} on /cluster")
+    finally:
+        os.kill(pid1, signal.SIGCONT)
+    rec["first_child_stopped_s"] = time.monotonic() - t_stop
+    rec["t_go"] = time.time()
+    posts.release()
+    # Both children commit: the burst drains (every batch the bridge
+    # shipped processed, by the children's heartbeats), then both report
+    # their card memory (read while both run).
+    def processed():
+        rows = [row(w) or {} for w in AUTO_CHILDREN]
+        return sum(r.get("tasks", {}).get("processed", 0) for r in rows)
+
+    poll_until(lambda: run.bridge.posts_bridged >= ORCH_PAGES
+               * ORCH_POSTS_PER_PAGE and run.bridge_bus.outbox.drain(
+                   timeout_s=0.0) and processed()
+               >= run.bridge.batches_published,
+               "phase 16: the burst committed", procs=[run.orch],
+               timeout_s=ORCH_DEADLINE_S, poll_s=0.1)
+    rec["drained_s"] = time.time() - rec["t_go"]
+
+    def memory(wid):
+        tel = (row(wid) or {}).get("telemetry") or {}
+        return sum(d.get("bytes_in_use", 0)
+                   for d in tel.get("device_memory", []))
+
+    poll_until(lambda: all((row(w) or {}).get("telemetry")
+                           for w in AUTO_CHILDREN),
+        "phase 16: both children's telemetry on /cluster",
+        procs=[run.orch], timeout_s=30)
+    rec["card_memory_bytes"] = {w: memory(w) for w in AUTO_CHILDREN}
+    pid2 = child_pid(run.orch.pid, two)
+    check(pid2 is not None,
+          f"phase 16: {two} is not a child of the orchestrator")
+    t_drained = time.time()
+    down = poll_until(lambda: decisions("down"),
+                      "phase 16: the down decision (headroom held)",
+                      procs=[run.orch], timeout_s=120)[0]
+    rec["drained_to_down_s"] = down["at"] - t_drained
+    poll_until(lambda: pid_exited(pid2),
+               f"phase 16: {two} exited after the down decision",
+               timeout_s=60, poll_s=0.01)
+    rec["down_to_exit_s"] = time.time() - down["at"]
+    retired = poll_until(
+        lambda: (lambda r: r if r and r["status"] == "offline" else None)(
+            row(two)),
+        f"phase 16: {two} offline on /cluster", procs=[run.orch],
+        timeout_s=30)
+    cluster = json_route(run.ourl, "/cluster") or {}
+    rec["retired_row"] = {"status": retired["status"],
+                          "stale": retired["stale"],
+                          "in_stale_list": two in cluster.get(
+                              "fleet", {}).get("stale_workers", [])}
+    # The down decision is logged before its actuation, which waits for the
+    # child's exit; its ``actual_after`` follows.
+    rec["autoscaler"] = poll_until(
+        lambda: (lambda b: b if b and "actual_after" in b["decisions"][-1]
+                 else None)(json_route(run.ourl, "/autoscaler")),
+        "phase 16: the retirement's end on /autoscaler", procs=[run.orch],
+        timeout_s=60)
+    rec["metrics"] = {k: v for k, v in metric_lines(run.ourl).items()
+                      if k.startswith("autoscaler_")}
+    results.release()
+
+
+def child_bundle(children, wid):
+    """The child's postmortem bundle, written on SIGTERM."""
+    import glob
+
+    paths = glob.glob(os.path.join(children, wid,
+                                   "postmortem_*_sigterm.json"))
+    check(len(paths) == 1, f"{wid}: {len(paths)} SIGTERM bundles")
+    with open(paths[0], encoding="utf-8") as f:
+        return json.load(f)
+
+
+def bundle_counts(bundle, wid):
+    """Launches by path, dispatches (warm-up included) and first
+    dispatches by bucket and path (the warm-up's) of a child's bundle."""
+    launches = dict.fromkeys(KERNEL_SOURCES, 0)
+    dispatches = warm = 0
+    for line in bundle["metrics"].splitlines():
+        name, _, value = line.rpartition(" ")
+        if name.startswith('attention_kernel_launches_total{path="'):
+            launches[name.split('"')[1]] = int(float(value))
+        elif name == "tpu_inference_batch_seconds_count":
+            dispatches = int(float(value))
+        elif name.startswith("tpu_engine_compile_cache_misses_total{"):
+            warm += int(float(value))
+    check(dispatches - warm > 0, f"{wid}: no dispatch past its first "
+          f"per bucket")
+    check(launches == {"sm90": 12 * dispatches, "mma_sync": 0, "simt": 0},
+          f"{wid}: launches by path {launches} for {dispatches} dispatches "
+          f"(expected 12 sm90 per dispatch)")
+    return launches, dispatches, warm
+
+
+def burst_rates(bundles, t_go):
+    """Each child's posts/s from its committed batches (the bundle's
+    flight events) from the moment both ran to its last commit, and the
+    pair's to the last commit of either."""
+    out, total, last = {}, 0, t_go
+    for wid, bundle in bundles.items():
+        events = [e for e in bundle["flight"] if e.get("kind") == "batch"
+                  and e.get("outcome") == "ok" and e["ts"] >= t_go]
+        posts = sum(e["records"] for e in events)
+        end = max((e["ts"] for e in events), default=t_go)
+        out[wid] = {"batches": len(events), "posts": posts,
+                    "posts_per_s": posts / (end - t_go) if end > t_go
+                    else None}
+        check(posts > 0, f"{wid} committed no post of the burst")
+        total, last = total + posts, max(last, end)
+    out["pair"] = {"posts": total, "seconds": last - t_go,
+                   "posts_per_s": total / (last - t_go)}
+    return out
+
+
+def check_autoscaler(rec, log, broken):
+    """/autoscaler, /metrics, the retirement's exit code and /cluster; the
+    run log's spawns, retirements and spawn churn, none of them lost to a
+    line that did not parse (``broken``)."""
+    body = rec["autoscaler"] or {}
+    pool = body.get("pools", {}).get("tpu", {})
+    ds = body.get("decisions", [])
+    check([(d["direction"], d["from"], d["to"], d["actual_before"],
+            d["actual_after"]) for d in ds]
+          == [("up", 1, 2, 1, 2), ("down", 2, 1, 2, 1)]
+          and (pool.get("desired"), pool.get("actual")) == (1, 1),
+          f"/autoscaler: decisions {ds}, pool {pool}")
+    check(ds[0]["reason"] == ORCH_RULE["name"]
+          and ds[1]["reason"] == "headroom",
+          f"/autoscaler: reasons {[d['reason'] for d in ds]}")
+    check(pool.get("actuation_backoff_s") == 0.0,
+          f"/autoscaler: actuation backoff {pool.get('actuation_backoff_s')}")
+    lost = [ln for ln in broken if "autoscaler" in ln]
+    check(not lost, f"run log: the autoscaler's records cut into {lost}")
+    churn = [r for r in log if r.get("logger") == "dct.autoscaler"
+             and "keep dying" in r.get("message", "")]
+    check(not churn, f"spawn churn: {churn}")
+    m = rec["metrics"]
+    for direction in ("up", "down"):
+        key = (f'autoscaler_decisions_total{{direction="{direction}",'
+               f'pool="tpu"}}')
+        check(m.get(key) == 1.0, f"/metrics {key} = {m.get(key)}")
+    spawned = [r["message"] for r in log
+               if r.get("message", "").startswith("autoscaler spawned")]
+    retired = [r["message"] for r in log
+               if r.get("message", "").startswith("autoscaler retired")]
+    two = AUTO_CHILDREN[1]
+    check(len(spawned) == 2 and retired == [
+        f"autoscaler retired worker {two} (rc={AUTO_SIGTERM_RC})",
+        f"autoscaler retired worker {AUTO_CHILDREN[0]} "
+        f"(rc={AUTO_SIGTERM_RC})"],
+        f"spawns {spawned}, retirements {retired}")
+    check(rec["retired_row"] == {"status": "offline", "stale": False,
+                                 "in_stale_list": False},
+          f"/cluster: the retired {two} {rec['retired_row']}")
+    check(all(v > 0 for v in rec["card_memory_bytes"].values()),
+          f"/cluster card memory {rec['card_memory_bytes']}")
+    return {"decisions": ds, "spawned": spawned, "retired": retired}
+
+
+def phase_autoscaler(np, work, grpc_posts_s, orch_burst_posts_s, seed, smi):
+    """Phase 16: ``--mode orchestrator --autoscaler`` over its own
+    E5-small ``tpu-worker`` children, two stand-in crawl workers, the
+    burst that grows the pool and the headroom that shrinks it."""
+    t0 = time.perf_counter()
+    root = os.path.join(work, "auto")
+    os.makedirs(root)
+    procs = Procs(root)
+    quiet = {name: logging.getLogger(name).level
+             for name in ("dct.torch.resilience", "dct.torch.bus.outbox",
+                          "dct.torch.bus.grpc")}
+    for name in quiet:
+        logging.getLogger(name).setLevel(logging.ERROR)
+    address = f"127.0.0.1:{free_port()}"
+    store = os.path.join(root, "store")
+    children = os.path.join(root, "children")
+    try:
+        run = orch_run(np, procs, root, "P16", address, store, seed + 16,
+                       {("posts", 0): Hold(), ("posts", 2): Hold(),
+                        ("results", 2): Hold()},
+                       autoscale_burst, extra=auto_argv(store, children))
+        crawl = check_crawl(np, run, seed + 16, "phase 16")
+        rec = run["auto"]
+        surfaces = check_autoscaler(rec, run["log"],
+                                    run["broken_log_lines"])
+        bundles = {w: child_bundle(children, w) for w in AUTO_CHILDREN}
+        counts = {w: bundle_counts(b, w) for w, b in bundles.items()}
+        rates = burst_rates(bundles, rec["t_go"])
+    except BaseException:
+        for name in sorted(os.listdir(root)):
+            if name.endswith(".log"):
+                print(f"--- {name}", *procs.tail(name[:-4], 60), sep="\n",
+                      file=sys.stderr)
+        raise
+    finally:
+        procs.close()
+        for name, level in quiet.items():
+            logging.getLogger(name).setLevel(level)
+    launches = {p: sum(c[0][p] for c in counts.values())
+                for p in KERNEL_SOURCES}
+    seconds = time.perf_counter() - t0
+    emit("slice.autoscaler.run", **crawl, crawl_s=run["crawl_s"],
+         bridge=run["bridge"], reported_queue=rec["reported_queue"],
+         broken_log_lines=len(run["broken_log_lines"]),
+         first_child_stopped_s=rec["first_child_stopped_s"],
+         decisions=surfaces["decisions"], spawned=surfaces["spawned"],
+         retired=surfaces["retired"], retired_row=rec["retired_row"],
+         card_memory_bytes=rec["card_memory_bytes"],
+         children={w: {"launches": c[0], "dispatches": c[1],
+                       "first_dispatches": c[2]}
+                   for w, c in counts.items()})
+    emit("times.autoscaler",
+         first_child_up_s=rec["first_child_up_s"],
+         fired_to_up_s=rec["fired_to_up_s"],
+         up_to_first_heartbeat_s=rec["up_to_first_heartbeat_s"],
+         burst_drained_s=rec["drained_s"],
+         drained_to_down_s=rec["drained_to_down_s"],
+         down_to_exit_s=rec["down_to_exit_s"], burst=rates,
+         phase15_tpu_burst_posts_per_s=orch_burst_posts_s,
+         phase11_grpc_posts_per_s=grpc_posts_s, crawl_s=run["crawl_s"],
+         phase_s=seconds, card=smi)
+    emit("slice.autoscaler", seconds=seconds,
+         kernel_launches_by_path=launches)
     return {"launches": launches}
 
 
@@ -6955,13 +7399,16 @@ def main() -> int:
                 cli_["grpc_posts_per_s"], smi)
     orch = timed("orchestrator", phase_orchestrator, np, attention,
                  work.name, cli_["grpc_posts_per_s"], args.seed, smi)
+    auto = timed("autoscaler", phase_autoscaler, np, work.name,
+                 cli_["grpc_posts_per_s"], orch["tpu_burst_posts_per_s"],
+                 args.seed, smi)
     work.cleanup()
     train = timed("train", phase_train, torch, np, attention, device,
                   args.seed, smi)
     emit("times.phases", seconds=seconds, card=smi)
     launches = {p: sum(ph["launches"][p]
                        for ph in (e5, tiny, xlmr, asr, clus, moe, ops, cli_,
-                                  bus, orch, train))
+                                  bus, orch, auto, train))
                 for p in attention.PATHS}
     print(json.dumps({"kernels": [
         kernel_entry(path, rows, worst, launches)

@@ -29,7 +29,13 @@ on the card and the broker between processes:
   crawl workers, pauses while the serving workers' backlog is over
   ``--infer-backpressure-high``, recovers from its journal after a crash,
   and serves ``/status``, ``/cluster``, ``/dtraces``, ``/alerts`` and
-  ``/tenants``.  ``--autoscaler`` is not ported yet.
+  ``/tenants``; with ``--autoscaler`` it grows and shrinks a fleet of
+  ``tpu-worker`` children of this CLI from the watchtower's alerts
+  (`orchestrator/autoscaler.py`), served at ``/autoscaler``.  The date
+  flags (``--min-post-date``, ``--time-ago``, ``--date-between``) reach
+  every work item it dispatches. ``--max-crawl-duration`` resolves into
+  the config as the reference's does, but this mode ignores it, as the
+  reference's does (it warns when the flag is set).
 
 With ``--bus-spool-dir``, a worker's publishes go through a durable
 outbox under ``<spool-dir>/outbox/<worker-id>``, so a broker outage
@@ -107,6 +113,10 @@ def build_parser() -> argparse.ArgumentParser:
     a("--max-depth", type=int, default=None)
     a("--max-posts", type=int, default=None)
     a("--max-pages", type=int, default=None)
+    a("--min-post-date", default=None, help="YYYY-MM-DD")
+    a("--time-ago", default=None, help="e.g. 30d, 6h, 2w, 1m, 1y")
+    a("--max-crawl-duration", default=None, help="e.g. 48h, 24h30m")
+    a("--date-between", default=None, help="YYYY-MM-DD,YYYY-MM-DD")
     a("--skip-media", action="store_const", const=True, default=None)
     a("--youtube-api-key", default=None)
     a("--sampling", default=None,
@@ -200,8 +210,40 @@ def build_parser() -> argparse.ArgumentParser:
       help="per-tenant error budgets: inline JSON or @path/to/"
            "budgets.json with {window_s, budgets: {tenant: {slo: "
            "allowed_breaches}}}, reported at the orchestrator's /tenants")
+    # The elastic fleet (orchestrator mode): an alert-actuated autoscaler
+    # that spawns and retires `--mode tpu-worker` children of this CLI on
+    # the watchtower's firing alerts, flight-recorded and served at
+    # /autoscaler.
     a("--autoscaler", action="store_const", const=True, default=None,
-      help="the elastic-fleet autoscaler (not ported yet: exits 2)")
+      help="run the elastic-fleet autoscaler beside the orchestrator: "
+           "firing watchtower alerts scale a pool of tpu-worker child "
+           "processes up, sustained headroom scales it back down "
+           "(requires --bus-address so children can dial the broker)")
+    a("--autoscaler-pools", default=None,
+      help="full pool-policy list: inline JSON list or @path/to/"
+           "pools.json (fields: pool, min_workers, max_workers, "
+           "scale_up_alerts, up/down_cooldown_s, stabilization_s, "
+           "trend_series/trend_slope_per_s, headroom_series/"
+           "headroom_below); overrides the single-pool knobs below")
+    a("--autoscaler-min", type=int, default=None,
+      help="single-pool shortcut: minimum tpu-worker children "
+           "(default 1)")
+    a("--autoscaler-max", type=int, default=None,
+      help="single-pool shortcut: maximum tpu-worker children "
+           "(default 4)")
+    a("--autoscaler-up-cooldown", type=float, default=None,
+      help="seconds between scale-up steps (default 30)")
+    a("--autoscaler-down-cooldown", type=float, default=None,
+      help="seconds between scale-down steps (default 60)")
+    a("--autoscaler-stabilization", type=float, default=None,
+      help="seconds of sustained headroom required before any "
+           "scale-down (default 30)")
+    a("--autoscaler-eval-interval", type=float, default=None,
+      help="seconds between autoscaler control passes (default 5)")
+    a("--autoscaler-worker-args", default=None,
+      help="extra CLI args appended to every spawned tpu-worker child, "
+           'e.g. "--infer-model xlmr --metrics-port 0" (the bus address '
+           "and a generated --worker-id are supplied automatically)")
     a("--bus-serve", action="store_const", const=True, default=None,
       help="also host the gRPC broker at --bus-address (worker modes)")
     a("--infer", action="store_const", const=True, default=None,
@@ -321,6 +363,10 @@ _KEY_MAP = {
     "max_depth": "crawler.maxdepth",
     "max_posts": "crawler.maxposts",
     "max_pages": "crawler.maxpages",
+    "min_post_date": "crawler.minpostdate",
+    "time_ago": "crawler.timeago",
+    "max_crawl_duration": "crawler.maxcrawlduration",
+    "date_between": "crawler.datebetween",
     "skip_media": "crawler.skipmedia",
     "youtube_api_key": "youtube.api_key",
     "sampling": "crawler.sampling",
@@ -330,6 +376,14 @@ _KEY_MAP = {
     "alert_rules": "observability.alert_rules",
     "tenant_budgets": "observability.tenant_budgets",
     "autoscaler": "autoscaler.enabled",
+    "autoscaler_pools": "autoscaler.pools",
+    "autoscaler_min": "autoscaler.min_workers",
+    "autoscaler_max": "autoscaler.max_workers",
+    "autoscaler_up_cooldown": "autoscaler.up_cooldown_s",
+    "autoscaler_down_cooldown": "autoscaler.down_cooldown_s",
+    "autoscaler_stabilization": "autoscaler.stabilization_s",
+    "autoscaler_eval_interval": "autoscaler.eval_interval_s",
+    "autoscaler_worker_args": "autoscaler.worker_args",
     "infer_backpressure_high": "distributed.inference_backpressure_high",
     "infer_backpressure_low": "distributed.inference_backpressure_low",
     "journal_dir": "orchestrator.journal_dir",
@@ -470,7 +524,36 @@ def resolve_config(args: argparse.Namespace,
                                            media.max_windows_per_file)
     media.coalesce_batches = r.get_int("media.coalesce_batches",
                                        media.coalesce_batches)
+    _resolve_dates(cfg, r)
     return cfg, r
+
+
+def _resolve_dates(cfg: CrawlerConfig, r: ConfigResolver) -> None:
+    """The crawl's date window and duration, as the reference resolves
+    them: date-between wins over time-ago, which wins over min-post-date.
+    A malformed value raises ValueError (exit 2)."""
+    from .utils.timeparse import (
+        parse_date_between,
+        parse_duration,
+        parse_time_ago,
+    )
+
+    date_between = r.get_str("crawler.datebetween")
+    time_ago = r.get_str("crawler.timeago")
+    min_post_date = r.get_str("crawler.minpostdate")
+    if date_between:
+        cfg.date_between_min, cfg.date_between_max = \
+            parse_date_between(date_between)
+    elif time_ago:
+        cfg.post_recency = parse_time_ago(time_ago)
+    elif min_post_date:
+        from datetime import datetime, timezone
+
+        cfg.min_post_date = datetime.strptime(
+            min_post_date, "%Y-%m-%d").replace(tzinfo=timezone.utc)
+    duration = r.get_str("crawler.maxcrawlduration")
+    if duration:
+        cfg.max_crawl_duration_s = parse_duration(duration)
 
 
 def main(argv: Optional[List[str]] = None, env=None,
@@ -1194,15 +1277,78 @@ def _tenant_budgets(r: ConfigResolver):
         raise CliConfigError(f"bad tenant budget: {e}")
 
 
+def _autoscaler_config(r: ConfigResolver):
+    """``(pools, argv by pool)`` of the elastic fleet, or None without
+    ``--autoscaler``: the pool policies from ``autoscaler.pools`` (JSON or
+    ``@path``) or the single-pool knobs, and each pool's child command
+    line dialing this orchestrator's broker (or every shard).  Every
+    error is the reference's, raised before the broker starts."""
+    import shlex
+
+    if not r.get_bool("autoscaler.enabled", False):
+        return None
+    bus_address = r.get_str("distributed.bus_address")
+    shard_addresses = _parse_shard_addresses(r)
+    if not bus_address and not shard_addresses:
+        raise CliConfigError(
+            "--autoscaler requires --bus-address (or "
+            "--bus-shard-addresses on a partitioned control plane): "
+            "spawned workers must be able to dial the broker(s)")
+    from .orchestrator.autoscaler import (
+        PoolPolicy,
+        default_subprocess_argv,
+        pools_from_config,
+    )
+
+    raw = _json_option(r, "autoscaler.pools", "--autoscaler-pools")
+    try:
+        pools = pools_from_config(raw)
+        if not pools:
+            pools = [PoolPolicy(
+                pool="tpu",
+                min_workers=r.get_int("autoscaler.min_workers", 1),
+                max_workers=r.get_int("autoscaler.max_workers", 4),
+                up_cooldown_s=r.get_float("autoscaler.up_cooldown_s",
+                                          30.0),
+                down_cooldown_s=r.get_float("autoscaler.down_cooldown_s",
+                                            60.0),
+                stabilization_s=r.get_float("autoscaler.stabilization_s",
+                                            30.0))]
+            pools[0].validate()
+    except ValueError as e:
+        raise CliConfigError(f"bad autoscaler pool: {e}")
+    extra = shlex.split(r.get_str("autoscaler.worker_args", ""))
+    return pools, {
+        p.pool: default_subprocess_argv(
+            p.pool, bus_address, extra_args=extra,
+            shard_addresses=shard_addresses or None)
+        for p in pools}
+
+
+def _build_autoscaler(r: ConfigResolver, config, orch, bus):
+    """The autoscaler over a `SubprocessSupervisor` of ``config``'s pools,
+    reading the watchtower's alerts; not yet started."""
+    from .orchestrator.autoscaler import Autoscaler, SubprocessSupervisor
+
+    pools, pool_argv = config
+    autoscaler = Autoscaler(
+        SubprocessSupervisor(pool_argv), pools,
+        eval_interval_s=r.get_float("autoscaler.eval_interval_s", 5.0),
+        alerts_fn=orch.get_alerts)
+    # The bus seam too, as a remote autoscaler would subscribe (the
+    # in-process alerts_fn read stays authoritative).
+    try:
+        autoscaler.attach_bus(bus)
+    except Exception as e:
+        logger.warning("autoscaler TOPIC_ALERTS subscription failed: %s",
+                       e)
+    return autoscaler
+
+
 def _check_orchestrator(urls: List[str], cfg: CrawlerConfig,
                         r: ConfigResolver) -> None:
     """What the reference refuses for this mode, and what the port does
     not run yet — all before the broker starts."""
-    if r.get_bool("autoscaler.enabled", False):
-        raise CliConfigError(
-            "--autoscaler is not ported yet (ROADMAP Queue 1 item 7c, the "
-            "autoscaler); run the orchestrator without it, or from "
-            "distributed_crawler_tpu.cli")
     supported = SAMPLING_METHODS.get(cfg.platform)
     if supported is None:
         raise CliConfigError(f"unsupported platform: {cfg.platform}")
@@ -1230,8 +1376,14 @@ def _run_orchestrator(urls: List[str], cfg: CrawlerConfig,
     from .utils import metrics
 
     _check_orchestrator(urls, cfg, r)
+    if cfg.max_crawl_duration_s > 0:
+        # As in the reference: only the standalone, layers and layerless
+        # modes stop a crawl on its duration, and the port has none of them.
+        logger.warning("--max-crawl-duration is ignored in orchestrator "
+                       "mode: the crawl runs until its layers are done")
     rules = _alert_rules(r)
     budgets, budget_window_s = _tenant_budgets(r)
+    fleet = _autoscaler_config(r)
     broker = _make_bus(r, serve=True)
     bus = broker
     outbox_cfg = _bus_outbox_config(r, "orchestrator")
@@ -1275,11 +1427,29 @@ def _run_orchestrator(urls: List[str], cfg: CrawlerConfig,
                  ("tenants", orch.get_tenants))
     for kind, fn in providers:
         getattr(metrics, f"set_{kind}_provider")(fn)
+    # The elastic fleet: tpu-worker children of this CLI on this broker,
+    # their decisions served at /autoscaler.
+    autoscaler = None
+    if fleet is not None:
+        autoscaler = _build_autoscaler(r, fleet, orch, bus)
+        metrics.set_autoscaler_provider(autoscaler.snapshot)
     orch.start(urls, fresh=r.get_bool("orchestrator.fresh", False))
+    if autoscaler is not None:
+        autoscaler.start()
     try:
         _serve_forever(
             running=lambda: orch.is_running and not orch.crawl_completed)
     finally:
+        if autoscaler is not None:
+            # The control loop first, then every child through its
+            # graceful SIGTERM path: their un-acked frames requeue into
+            # the broker before it drains below.
+            autoscaler.stop()
+            try:
+                autoscaler.supervisor.stop_all()
+            except Exception as e:
+                logger.warning("autoscaler child teardown failed: %s", e)
+            metrics.clear_autoscaler_provider(autoscaler.snapshot)
         orch.stop()
         for kind, fn in providers:
             getattr(metrics, f"clear_{kind}_provider")(fn)

@@ -110,6 +110,8 @@ class CrawlerConfig:
     youtube_api_key: str = ""
     sampling_method: str = "channel"  # channel | random | snowball
     min_channel_videos: int = 0
+    # --max-crawl-duration, in seconds: 0 = unlimited.
+    max_crawl_duration_s: float = 0.0
 
 
 def generate_crawl_id(now: Optional[datetime] = None) -> str:

@@ -5,8 +5,8 @@ thread-safe ring of structured events (batch outcomes, SLO breaches, slow
 batches, profiler captures, device stalls, kills, dispatches and alerts)
 recorded by the workers and the orchestrator, and on the way down a
 **postmortem bundle** — the flight ring, the trace export, the metrics
-exposition, the orchestrator's ``/dtraces``, ``/alerts`` and ``/tenants``,
-the ``/clusters`` state, the partitioned bus's ``/shards`` table, the
+exposition, the orchestrator's ``/dtraces``, ``/alerts``, ``/tenants``
+and ``/autoscaler``, the ``/clusters`` state, the partitioned bus's ``/shards`` table, the
 WARNING+ log ring, recent time series and the config fingerprint —
 written as one JSON file under the dump directory.
 `tools/postmortem.py` renders a bundle.
@@ -107,14 +107,16 @@ class FlightRecorder:
             "traces": traces,
             "metrics": metrics,
         }
-        # The orchestrator's assembled distributed traces, alert log and
-        # tenant ledger: a dead coordinator's /dtraces, /alerts and
-        # /tenants can no longer be scraped.
-        from .metrics import alerts_snapshot, dtraces_snapshot, \
-            tenants_snapshot
+        # The orchestrator's assembled distributed traces, alert log,
+        # autoscaler decisions and tenant ledger: a dead coordinator's
+        # /dtraces, /alerts, /autoscaler and /tenants can no longer be
+        # scraped.
+        from .metrics import alerts_snapshot, autoscaler_snapshot, \
+            dtraces_snapshot, tenants_snapshot
 
         for key, snap in (("dtraces", dtraces_snapshot),
                           ("alerts", alerts_snapshot),
+                          ("autoscaler", autoscaler_snapshot),
                           ("tenants", tenants_snapshot)):
             body = snap()
             if body is not None:

@@ -12,13 +12,13 @@ postmortem.py` and the orchestrator's fleet view):
   ``/clusters``, ``/dlq`` (a durable broker's dead-letter queue),
   ``/shards`` (a partitioned bus client's shard table), and the
   orchestrator's ``/cluster`` (fleet view), ``/dtraces`` (assembled
-  distributed traces), ``/alerts`` and ``/tenants`` (the watchtower),
-  registered by their owner once it exists;
+  distributed traces), ``/alerts`` and ``/tenants`` (the watchtower) and
+  ``/autoscaler`` (the autoscaler's pools and decision log), registered
+  by their owner once it exists;
 - `serve_metrics`: ``/healthz``, ``/metrics``, ``/traces``, ``/profile``,
   ``/timeseries``, ``/logs`` (the WARNING+ ring of `utils/
   structlog.py`, served always) and the provider routes above on a
-  daemon thread.  A provider route with no provider answers 404, as
-  ``/autoscaler`` always does until the autoscaler is ported.
+  daemon thread.  A provider route with no provider answers 404.
 """
 
 from __future__ import annotations
@@ -290,7 +290,7 @@ _providers: Dict[str, object] = {"status": None, "costs": None,
                                  "clusters": None, "dlq": None,
                                  "shards": None, "cluster": None,
                                  "dtraces": None, "alerts": None,
-                                 "tenants": None}
+                                 "tenants": None, "autoscaler": None}
 
 
 def _set(kind: str, fn) -> None:
@@ -392,6 +392,17 @@ def clear_tenants_provider(fn) -> None:
     _clear("tenants", fn)
 
 
+def set_autoscaler_provider(fn) -> None:
+    """Register the autoscaler's zero-arg dict provider served at
+    /autoscaler: per-pool desired and actual workers, bounds, cooldowns
+    and the decision log (None clears)."""
+    _set("autoscaler", fn)
+
+
+def clear_autoscaler_provider(fn) -> None:
+    _clear("autoscaler", fn)
+
+
 def _snapshot(kind: str):
     fn = _providers[kind]
     if fn is None:
@@ -425,6 +436,12 @@ def alerts_snapshot():
     """The active /alerts body, or None without a provider: the alert
     history a dead process can no longer serve."""
     return _snapshot("alerts")
+
+
+def autoscaler_snapshot():
+    """The active /autoscaler body, or None without a provider: a
+    postmortem bundle carries what the autoscaler did before the crash."""
+    return _snapshot("autoscaler")
 
 
 def tenants_snapshot():
@@ -477,7 +494,8 @@ class _Handler(BaseHTTPRequestHandler):
                 "/clusters": "clusters", "/dlq": "dlq",
                 "/shards": "shards", "/cluster": "cluster",
                 "/dtraces": "dtraces", "/alerts": "alerts",
-                "/tenants": "tenants"}.get(path)
+                "/tenants": "tenants",
+                "/autoscaler": "autoscaler"}.get(path)
         provider = self.providers.get(kind) or _providers.get(kind) \
             if kind else None
         if path in ("", "/health", "/healthz"):

@@ -35,9 +35,9 @@ package's, on the CPU.
   ``/dlq``; ``--bus-shard-addresses`` building a `PartitionedBus` whose
   ``/shards`` body equals the reference's.
 - ``--mode orchestrator``: the crawl settings resolve as the reference's;
-  a malformed ``--alert-rules`` or ``--tenant-budgets``, ``--autoscaler``,
-  missing URLs and ``--sampling random-walk`` exit 2 before the broker
-  starts; a process serves ``/status``, ``/cluster``, ``/dtraces``,
+  a malformed ``--alert-rules`` or ``--tenant-budgets``, ``--autoscaler``
+  without a broker address or with malformed pools, missing URLs and
+  ``--sampling random-walk`` exit 2 before the broker starts; a process serves ``/status``, ``/cluster``, ``/dtraces``,
   ``/alerts``, ``/tenants`` and ``/dlq`` and journals the crawl; and
   ``python -m distributed_crawler_tpu_torch --mode orchestrator`` hosts
   the broker through which the reference's crawl `CrawlWorker` completes
@@ -1178,8 +1178,16 @@ def _orch_errors(tmp):
         "budgets_negative": (base + ["--tenant-budgets", json.dumps(
             {"budgets": {"t": {"queue_wait": -1}}})],
             "bad tenant budget"),
-        "autoscaler": (base + ["--autoscaler"],
-                       "ROADMAP Queue 1 item 7c"),
+        "autoscaler": (base[:-2] + ["--autoscaler"],
+                       "--autoscaler requires --bus-address"),
+        "autoscaler_pools_json": (base + ["--autoscaler",
+                                          "--autoscaler-pools", "[{"],
+                                  "--autoscaler-pools is not valid JSON"),
+        "autoscaler_pool_unknown_key": (base + [
+            "--autoscaler", "--autoscaler-pools",
+            json.dumps([{"pool": "tpu", "max_wrkers": 3}])],
+            "bad autoscaler pool: autoscaler pool tpu: unknown key(s) "
+            "max_wrkers"),
         "no_urls": (["--mode", "orchestrator", "--storage-root",
                      str(tmp / "s")], "channel sampling requires URLs"),
         "random_walk": (base + ["--sampling", "random-walk"],
