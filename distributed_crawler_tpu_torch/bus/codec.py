@@ -58,11 +58,13 @@ class RecordBatch:
                    tenant=normalize_tenant(tenant), records=list(records))
 
     @classmethod
-    def from_posts(cls, posts: List[Post],
-                   crawl_id: str = "") -> "RecordBatch":
+    def from_posts(cls, posts: List[Post], crawl_id: str = "",
+                   trace_id: str = "",
+                   tenant: str = DEFAULT_TENANT) -> "RecordBatch":
         """A new batch of ``posts``' dicts."""
         return cls.from_records([p.to_dict() for p in posts],
-                                crawl_id=crawl_id)
+                                crawl_id=crawl_id, trace_id=trace_id,
+                                tenant=tenant)
 
     def texts(self) -> List[str]:
         return [text_for_inference(r) for r in self.records]

@@ -939,3 +939,71 @@ class AlertMessage:
             timestamp=parse_time(d.get("timestamp")),
             trace_id=d.get("trace_id", "") or "",
         )
+
+
+# --- chaos injection (`loadgen/chaos.py`) ------------------------------------
+
+MSG_CHAOS_FAULT = "chaos_fault"
+# Fault actions the chaos controller knows how to apply; `validate()`
+# rejects anything else at decode time.
+CHAOS_ACTIONS = ("kill", "restart", "down", "stall", "wedge", "delay",
+                 "drop", "poison", "flood")
+
+
+@dataclass
+class ChaosMessage:
+    """One injected fault, announced on ``TOPIC_CHAOS`` the moment the
+    chaos controller applies it (`loadgen/chaos.py`): the reference's
+    frame.  ``at_s``/``until_s`` are offsets from scenario start; point
+    faults carry ``until_s=0``."""
+
+    message_type: str = MSG_CHAOS_FAULT
+    action: str = ""                 # one of CHAOS_ACTIONS
+    target_id: str = ""              # worker id or "bus"/"batch"
+    at_s: float = 0.0
+    until_s: float = 0.0             # 0 = point fault (no window)
+    parameters: Dict[str, Any] = field(default_factory=dict)
+    timestamp: Optional[datetime] = None
+    trace_id: str = ""
+
+    @classmethod
+    def new(cls, action: str, target_id: str, at_s: float,
+            until_s: float = 0.0,
+            parameters: Optional[Dict[str, Any]] = None) -> "ChaosMessage":
+        return cls(action=action, target_id=target_id, at_s=at_s,
+                   until_s=until_s, parameters=dict(parameters or {}),
+                   timestamp=codec.utcnow(), trace_id=new_trace_id())
+
+    def validate(self) -> None:
+        if self.message_type != MSG_CHAOS_FAULT:
+            raise ValueError(
+                f"invalid chaos message type: {self.message_type}")
+        if self.action not in CHAOS_ACTIONS:
+            raise ValueError(f"unknown chaos action: {self.action}")
+        if not self.target_id:
+            raise ValueError("chaos message target cannot be empty")
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "message_type": self.message_type,
+            "action": self.action,
+            "target_id": self.target_id,
+            "at_s": self.at_s,
+            "until_s": self.until_s,
+            "parameters": self.parameters,
+            "timestamp": _opt_time(self.timestamp),
+            "trace_id": self.trace_id,
+        }
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ChaosMessage":
+        return cls(
+            message_type=d.get("message_type", MSG_CHAOS_FAULT),
+            action=d.get("action", "") or "",
+            target_id=d.get("target_id", "") or "",
+            at_s=float(d.get("at_s") or 0.0),
+            until_s=float(d.get("until_s") or 0.0),
+            parameters=dict(d.get("parameters") or {}),
+            timestamp=parse_time(d.get("timestamp")),
+            trace_id=d.get("trace_id", "") or "",
+        )

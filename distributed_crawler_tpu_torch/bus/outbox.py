@@ -367,13 +367,16 @@ class DurableOutbox:
 class OutboxBus:
     """Any bus, with ``publish`` routed through a :class:`DurableOutbox`.
 
-    The wrapper owns the outbox and the inner bus: ``close()`` drains
-    and stops the outbox, then closes the inner bus."""
+    The wrapper owns the outbox: ``close()`` drains and stops the
+    outbox, then closes the inner bus (``close_inner=False`` keeps it
+    open, when the inner bus's lifetime belongs to the caller)."""
 
     def __init__(self, inner, cfg: OutboxConfig = OutboxConfig(),
                  name: str = OUTBOX_TARGET,
-                 registry: MetricsRegistry = REGISTRY):
+                 registry: MetricsRegistry = REGISTRY,
+                 close_inner: bool = True):
         self.inner = inner
+        self._close_inner = close_inner
         self.outbox = DurableOutbox(inner.publish, cfg, name=name,
                                     registry=registry)
 
@@ -382,9 +385,10 @@ class OutboxBus:
 
     def close(self) -> None:
         self.outbox.close()
-        close = getattr(self.inner, "close", None)
-        if callable(close):
-            close()
+        if self._close_inner:
+            close = getattr(self.inner, "close", None)
+            if callable(close):
+                close()
 
     def __getattr__(self, name):
         return getattr(self.inner, name)

@@ -91,19 +91,22 @@ def channel_of(url: str) -> str:
 class ShardMap:
     """Stable consistent-hash ring over shard ids.
 
-    Each shard owns :data:`RING_REPLICAS` points on a 64-bit ring derived
-    from ``md5(f"{shard}#{replica}")``; ``shard_for(key)`` walks clockwise from
-    ``md5(key)`` to the next point."""
+    Each shard owns ``replicas`` points (:data:`RING_REPLICAS` by
+    default) on a 64-bit ring derived from ``md5(f"{shard}#{replica}")``;
+    ``shard_for(key)`` walks clockwise from ``md5(key)`` to the next
+    point."""
 
-    def __init__(self, shard_ids: Iterable[str]):
+    def __init__(self, shard_ids: Iterable[str],
+                 replicas: int = RING_REPLICAS):
         self.shard_ids = list(shard_ids)
+        self.replicas = max(1, int(replicas))
         if not self.shard_ids:
             raise ValueError("ShardMap needs at least one shard id")
         if len(set(self.shard_ids)) != len(self.shard_ids):
             raise ValueError(f"duplicate shard ids in {self.shard_ids!r}")
         points = sorted((self._point(f"{sid}#{r}"), sid)
                         for sid in self.shard_ids
-                        for r in range(RING_REPLICAS))
+                        for r in range(self.replicas))
         self._points = [p for p, _ in points]
         self._owners = [s for _, s in points]
 
@@ -474,7 +477,7 @@ class PartitionedBus:
             "name": self.name,
             "shards": shards,
             "ring": {"shard_ids": list(self.shard_map.shard_ids),
-                     "replicas": RING_REPLICAS},
+                     "replicas": self.shard_map.replicas},
             "broadcast_frames": broadcast,
             "pull_topics": pull_topics,
             "outbox_depth_total": sum(

@@ -244,6 +244,27 @@ def build_parser() -> argparse.ArgumentParser:
       help="extra CLI args appended to every spawned tpu-worker child, "
            'e.g. "--infer-model xlmr --metrics-port 0" (the bus address '
            "and a generated --worker-id are supplied automatically)")
+    # The load gate (`python -m distributed_crawler_tpu_torch.loadgen`):
+    # no mode reads these; they resolve through the same precedence chain
+    # so a config file's `loadgen:` block pins a site's gate defaults.
+    a("--loadgen-scenario", default=None,
+      help="loadgen scenario: checked-in name (steady-state, "
+           "kill-worker, backend-wedge) or a JSON scenario file path")
+    a("--loadgen-seed", type=int, default=None,
+      help="loadgen workload seed (same seed -> identical batch shapes "
+           "and arrival schedule)")
+    a("--loadgen-duration-s", type=float, default=None,
+      help="loadgen load-phase duration in seconds")
+    a("--loadgen-arrival", default=None, choices=["poisson", "ramp"],
+      help="loadgen arrival process: open-loop poisson or closed-loop "
+           "concurrency ramp")
+    a("--loadgen-rate", type=float, default=None,
+      help="loadgen offered load in batches/s (poisson arrivals)")
+    a("--loadgen-platform-mix", default=None,
+      help='loadgen platform weights, e.g. "telegram=0.8,youtube=0.2"')
+    a("--loadgen-gate", default=None,
+      help="loadgen gate-envelope overrides: inline JSON object or "
+           "@path/to/gate.json (merged over the scenario's gate block)")
     a("--bus-serve", action="store_const", const=True, default=None,
       help="also host the gRPC broker at --bus-address (worker modes)")
     a("--infer", action="store_const", const=True, default=None,
@@ -384,6 +405,13 @@ _KEY_MAP = {
     "autoscaler_stabilization": "autoscaler.stabilization_s",
     "autoscaler_eval_interval": "autoscaler.eval_interval_s",
     "autoscaler_worker_args": "autoscaler.worker_args",
+    "loadgen_scenario": "loadgen.scenario",
+    "loadgen_seed": "loadgen.seed",
+    "loadgen_duration_s": "loadgen.duration_s",
+    "loadgen_arrival": "loadgen.arrival",
+    "loadgen_rate": "loadgen.rate_batches_per_s",
+    "loadgen_platform_mix": "loadgen.platform_mix",
+    "loadgen_gate": "loadgen.gate",
     "infer_backpressure_high": "distributed.inference_backpressure_high",
     "infer_backpressure_low": "distributed.inference_backpressure_low",
     "journal_dir": "orchestrator.journal_dir",

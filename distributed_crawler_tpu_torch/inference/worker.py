@@ -125,6 +125,21 @@ class TPUWorkerConfig:
     span_sample_rate: float = 1.0
 
 
+def iter_results(provider, crawl_id: str,
+                 storage_prefix: str = "inference"):
+    """Yield result dicts across all per-batch files of a crawl, in
+    batch-file order — the read side of the idempotent writeback
+    (``provider`` has ``list_dir`` and ``get_text``)."""
+    base = f"{storage_prefix}/{crawl_id}/batches"
+    for name in provider.list_dir(base):
+        if not name.endswith(".jsonl"):
+            continue
+        text = provider.get_text(f"{base}/{name}")
+        for line in (text or "").splitlines():
+            if line:
+                yield json.loads(line)
+
+
 class TPUWorker:
     """Consume RecordBatches from the bus, run the engine, write results.
 

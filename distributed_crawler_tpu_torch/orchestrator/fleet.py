@@ -84,7 +84,9 @@ class WorkerTrack:
 class FleetView:
     """Thread-safe heartbeat fold; the data behind ``/cluster``."""
 
-    def __init__(self, registry: MetricsRegistry = REGISTRY):
+    def __init__(self, registry: MetricsRegistry = REGISTRY,
+                 stale_after_s: float = STALE_AFTER_S):
+        self.stale_after_s = stale_after_s
         self._mu = threading.Lock()
         self._workers: Dict[str, WorkerTrack] = {}
         self.m_queue = registry.gauge(
@@ -215,10 +217,10 @@ class FleetView:
 
     def _is_stale(self, t: WorkerTrack, now: datetime) -> bool:
         """The ONE staleness rule (mirrors check_worker_health): silent
-        beyond ``STALE_AFTER_S`` and not cleanly offline."""
+        beyond ``stale_after_s`` and not cleanly offline."""
         return (t.status != WORKER_OFFLINE and t.last_seen is not None
                 and (now - t.last_seen).total_seconds()
-                > STALE_AFTER_S)
+                > self.stale_after_s)
 
     def stale_count(self, now: Optional[datetime] = None) -> int:
         """Stale workers computed against ``now`` AT CALL TIME — the
@@ -238,7 +240,7 @@ class FleetView:
 
         Eviction keeps the fleet view bounded for long-lived
         orchestrators whose workers restart under fresh ids (pod-name
-        worker_ids): a track silent past ``10 * STALE_AFTER_S`` is
+        worker_ids): a track silent past ``10 * stale_after_s`` is
         dropped along with its per-worker gauge children — a worker that
         comes back simply re-registers on its next beat."""
         now = now or utcnow()
@@ -249,7 +251,7 @@ class FleetView:
                 if t.last_seen is None:
                     continue
                 age = (now - t.last_seen).total_seconds()
-                if age > 10 * STALE_AFTER_S:
+                if age > 10 * self.stale_after_s:
                     del self._workers[wid]
                     evicted.append(wid)
                 elif self._is_stale(t, now):
@@ -266,7 +268,7 @@ class FleetView:
     def export(self, now: Optional[datetime] = None) -> Dict[str, Any]:
         """The ``/cluster`` JSON body: per-worker maps + a fleet rollup
         whose staleness rule mirrors `Orchestrator.check_worker_health`
-        (silence beyond ``STALE_AFTER_S`` == presumed dead)."""
+        (silence beyond ``stale_after_s`` == presumed dead)."""
         now = now or utcnow()
         workers: Dict[str, Any] = {}
         stale = []
@@ -316,7 +318,7 @@ class FleetView:
                 "crawl_workers": counts.get("crawl", 0),
                 "tpu_workers": counts.get("tpu", 0),
                 "stale_workers": stale,
-                "stale_after_s": STALE_AFTER_S,
+                "stale_after_s": self.stale_after_s,
                 "generated_at": now.isoformat(),
             },
         }

@@ -67,11 +67,11 @@ from ..bus.messages import (
 )
 from .fleet import STALE_AFTER_S, FleetView
 from .tracecollect import TraceCollector
-from .watchtower import Watchtower
+from .watchtower import EVAL_INTERVAL_S, Watchtower
 from .journal import CrawlJournal
 from ..config.crawler import CrawlerConfig
 from ..utils import flight, resilience, trace
-from ..utils.metrics import REGISTRY
+from ..utils.metrics import REGISTRY, MetricsRegistry
 from ..state.datamodels import (
     PAGE_ABANDONED,
     PAGE_ERROR,
@@ -131,6 +131,11 @@ class OrchestratorConfig:
     state_breaker_threshold: int = 5
     state_breaker_recovery_s: float = 15.0
     publish_retry_attempts: int = 3
+    # Heartbeat silence before a worker is offline (and stale on
+    # /cluster), and the watchtower's evaluation cadence; the load gate
+    # shrinks both to its scenario's timescale.
+    worker_timeout_s: float = WORKER_TIMEOUT_S
+    alert_eval_interval_s: float = EVAL_INTERVAL_S
 
 
 @dataclass
@@ -154,7 +159,8 @@ class Orchestrator:
 
     def __init__(self, crawl_id: str, config: CrawlerConfig, bus, sm,
                  ocfg: Optional[OrchestratorConfig] = None, *,
-                 journal: CrawlJournal, alert_rules=None):
+                 journal: CrawlJournal, alert_rules=None,
+                 registry: Optional[MetricsRegistry] = None):
         self.crawl_id = crawl_id
         self.config = config
         self.bus = bus
@@ -162,7 +168,7 @@ class Orchestrator:
         self.ocfg = ocfg or OrchestratorConfig()
         self.clock = time.monotonic
         self.journal = journal
-        registry = REGISTRY
+        registry = registry if registry is not None else REGISTRY
 
         self.workers: Dict[str, WorkerInfo] = {}
         self.active_work: Dict[str, WorkItem] = {}
@@ -193,7 +199,8 @@ class Orchestrator:
         self._outbox_backpressure = False
         # Telemetry-rich per-worker fold behind /cluster; its staleness
         # rule tracks the same timeout check_worker_health enforces.
-        self.fleet = FleetView(registry=registry)
+        self.fleet = FleetView(registry=registry,
+                               stale_after_s=self.ocfg.worker_timeout_s)
         # The watchtower (orchestrator/watchtower.py): rolling history
         # for every heartbeat series + the declarative alert engine,
         # evaluated on the orchestrator tick and served at /alerts.
@@ -201,7 +208,7 @@ class Orchestrator:
         # the time-series store keys samples by epoch.
         self.watchtower = Watchtower(
             self.fleet, rules=alert_rules, registry=registry,
-            bus=bus)
+            bus=bus, eval_interval_s=self.ocfg.alert_eval_interval_s)
         # Distributed-trace assembly behind /dtraces: workers ship
         # completed spans on TOPIC_SPANS; the collector corrects each
         # worker's span walls by the clock offset the fleet estimates
@@ -651,7 +658,7 @@ class Orchestrator:
                 if w.worker_type == "tpu" and w.status != WORKER_OFFLINE
                 and w.last_seen is not None
                 and (now - w.last_seen).total_seconds()
-                <= WORKER_TIMEOUT_S)
+                <= self.ocfg.worker_timeout_s)
 
     def _backpressure_engaged(self) -> bool:
         """Hysteresis valve: engage at HIGH, release below LOW.  A LOW at
@@ -1188,7 +1195,7 @@ class Orchestrator:
                 if worker.status == WORKER_OFFLINE or worker.last_seen is None:
                     continue
                 silence = (now - worker.last_seen).total_seconds()
-                if silence > WORKER_TIMEOUT_S:
+                if silence > self.ocfg.worker_timeout_s:
                     logger.warning("worker appears to have failed", extra={
                         "worker_id": worker_id,
                         "last_seen": str(worker.last_seen)})

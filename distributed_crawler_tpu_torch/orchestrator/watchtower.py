@@ -36,8 +36,8 @@ from .tenants import TenantBudgetLedger
 
 logger = logging.getLogger("dct.watchtower")
 
-# Seconds between alert evaluations: the reference orchestrator's
-# ``alert_eval_interval_s`` default, which no port caller changes.
+# Seconds between alert evaluations: the orchestrator's default
+# ``alert_eval_interval_s`` (the load gate evaluates at its own cadence).
 EVAL_INTERVAL_S = 5.0
 
 
@@ -47,8 +47,10 @@ class Watchtower:
     def __init__(self, fleet,
                  rules: Optional[List[AlertRule]] = None,
                  registry: MetricsRegistry = REGISTRY,
-                 bus=None):
+                 bus=None,
+                 eval_interval_s: float = EVAL_INTERVAL_S):
         self.fleet = fleet
+        self.eval_interval_s = float(eval_interval_s)
         self.store = STORE
         self.bus = bus
         self.clock = time.time
@@ -173,13 +175,13 @@ class Watchtower:
     def tick(self, now: Optional[float] = None,
              force: bool = False) -> List[Dict[str, Any]]:
         """One watchtower pass: registry self-sample + alert evaluation.
-        Rate-limited to ``EVAL_INTERVAL_S`` (the orchestrator calls this
+        Rate-limited to ``eval_interval_s`` (the orchestrator calls this
         from both its distribute and health ticks); ``force=True``
         bypasses the limiter.  Returns the alert transitions this pass
         produced."""
         now = self.clock() if now is None else now
         with self._mu:
-            if not force and now - self._last_eval < EVAL_INTERVAL_S:
+            if not force and now - self._last_eval < self.eval_interval_s:
                 return []
             self._last_eval = now
             self._ticks += 1
@@ -217,7 +219,7 @@ class Watchtower:
         with self._mu:
             body["watchtower"] = {
                 "ticks": self._ticks,
-                "eval_interval_s": EVAL_INTERVAL_S,
+                "eval_interval_s": self.eval_interval_s,
                 "series_count": len(self.store.keys()),
             }
         return body

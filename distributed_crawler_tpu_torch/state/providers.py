@@ -17,7 +17,7 @@ from __future__ import annotations
 import json
 import os
 import threading
-from typing import Any, List, Optional, Protocol, runtime_checkable
+from typing import Any, Dict, List, Optional, Protocol, runtime_checkable
 
 
 @runtime_checkable
@@ -103,3 +103,86 @@ class LocalStorageProvider:
         if not os.path.isdir(path):
             return []
         return sorted(os.listdir(path))
+
+
+class InMemoryStorageProvider:
+    """A provider that keeps every write in memory and records each call:
+    the reference's, and the load gate's writeback sink (its
+    reconciliation reads the batch files back through ``list_dir`` /
+    ``get_text``)."""
+
+    def __init__(self):
+        self.json_store: Dict[str, Any] = {}
+        self.jsonl_store: Dict[str, List[str]] = {}
+        self.flushes = 0
+        self.text_store: Dict[str, str] = {}
+        self.files: Dict[str, bytes] = {}
+        self.calls: List[tuple] = []
+
+    def flush(self) -> None:
+        self.calls.append(("flush", ""))
+        self.flushes += 1
+
+    def save_json(self, rel_path: str, data: Any) -> None:
+        self.calls.append(("save_json", rel_path))
+        self.json_store[rel_path] = json.loads(json.dumps(data))
+
+    def load_json(self, rel_path: str) -> Optional[Any]:
+        self.calls.append(("load_json", rel_path))
+        return self.json_store.get(rel_path)
+
+    def append_jsonl(self, rel_path: str, line: str) -> None:
+        self.calls.append(("append_jsonl", rel_path))
+        if rel_path in self.text_store:
+            # Appending to a put_text file: byte-append exactly as the
+            # filesystem provider would (no line re-normalization of the
+            # prior content).
+            self.text_store[rel_path] += line.rstrip("\n") + "\n"
+            return
+        self.jsonl_store.setdefault(rel_path, []).append(line.rstrip("\n"))
+
+    def put_text(self, rel_path: str, text: str) -> None:
+        # Byte-exact round trip, matching LocalStorageProvider's atomic
+        # whole-file write (no line normalization).
+        self.calls.append(("put_text", rel_path))
+        self.text_store[rel_path] = text
+        self.jsonl_store.pop(rel_path, None)  # put_text overwrites appends
+
+    def get_text(self, rel_path: str) -> Optional[str]:
+        if rel_path in self.text_store:
+            return self.text_store[rel_path]
+        lines = self.jsonl_store.get(rel_path)
+        if lines is None:
+            return None
+        return "\n".join(lines) + "\n"
+
+    def store_file(self, rel_path: str, source_path: str,
+                   delete_source: bool = True) -> str:
+        self.calls.append(("store_file", rel_path, source_path))
+        with open(source_path, "rb") as f:
+            self.files[rel_path] = f.read()
+        if delete_source:
+            try:
+                os.remove(source_path)
+            except OSError:
+                pass
+        return rel_path
+
+    def exists(self, rel_path: str) -> bool:
+        return (rel_path in self.json_store or rel_path in self.jsonl_store
+                or rel_path in self.text_store or rel_path in self.files)
+
+    def list_dir(self, rel_path: str) -> List[str]:
+        prefix = rel_path.rstrip("/") + "/"
+        names = set()
+        for key in (list(self.json_store) + list(self.jsonl_store)
+                    + list(self.text_store) + list(self.files)):
+            if key.startswith(prefix):
+                names.add(key[len(prefix):].split("/", 1)[0])
+        return sorted(names)
+
+    def delete(self, rel_path: str) -> None:
+        self.json_store.pop(rel_path, None)
+        self.jsonl_store.pop(rel_path, None)
+        self.text_store.pop(rel_path, None)
+        self.files.pop(rel_path, None)

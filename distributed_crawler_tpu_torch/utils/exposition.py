@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import re
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 # name{labels} value — histogram/summary suffixes parse like any sample.
 _SAMPLE_RE = re.compile(
@@ -59,3 +59,15 @@ def parse_exposition(text: str) -> List[Sample]:
         out.append(Sample(name=m.group(1), value=value, labels=labels,
                           labels_str=labels_str, line=stripped))
     return out
+
+
+def metric_samples(text: str, name: str) -> List[Tuple[str, float]]:
+    """[(labels_str, value)] for every sample of exactly ``name``."""
+    return [(s.labels_str, s.value) for s in parse_exposition(text)
+            if s.name == name]
+
+
+def moving_samples(text: str) -> List[str]:
+    """Raw sample lines whose value is non-zero (the "metrics that moved"
+    digest of a bundle)."""
+    return [s.line for s in parse_exposition(text) if s.value != 0.0]

@@ -616,6 +616,12 @@ class TestGrpcShardFailover:
                               {"batch_id": k, "records": []})
             assert local.drain_outboxes(DEADLINE_S)
             assert wait_until(lambda: set(keys[:5]) <= set(seen()))
+            # Every delivered frame acked before the kill: an ack still in
+            # flight when the broker dies leaves its frame in the spool, and
+            # the restart redelivers it (at least once, by design).
+            assert wait_until(lambda: all(
+                h.server.pending_count(TOPIC_INFERENCE_BATCHES) == 0
+                for h in handles.values()), timeout_s=60.0)
             handles[victim].kill()
             for k in keys[5:]:
                 local.publish(TOPIC_INFERENCE_BATCHES,

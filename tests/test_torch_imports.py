@@ -15,8 +15,9 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "distributed_crawler_tpu_torch"
 # ``safetensors`` too: the card's machine has no such package, so the
 # port reads the format itself (`models/hf_convert.read_safetensors`).
+# ``tools`` too: the reference's operator tools import the JAX package.
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "safetensors",
-             "distributed_crawler_tpu")
+             "distributed_crawler_tpu", "tools")
 
 
 def _port_files():
@@ -57,6 +58,7 @@ def test_no_jax_imports(path):
 def test_forbidden_rule_is_exact():
     assert _forbidden("distributed_crawler_tpu.ops")
     assert _forbidden("jax.numpy")
+    assert _forbidden("tools.loadtest")
     assert not _forbidden("distributed_crawler_tpu_torch.ops")
 
 
