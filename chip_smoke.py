@@ -150,9 +150,10 @@ JSON line each:
    batches published into it through `RemoteBus`, its rows checked as
    before, one heartbeat's card memory read back (a ``cli.grpc`` line
    says which) and the process's own attention launches and dispatches
-   read from its /metrics (``attention_kernel_launches_total{path}``); ``mode=transcribe`` over phase 7's checkpoint and WAV tree
-   (plus a non-WAV file named ``.wav``) against phase 7's
-   `transcribe_files`; ``mode=cluster`` on 2048 text rows through E5-large
+   read from its /metrics (``attention_kernel_launches_total{path}``);
+   ``mode=transcribe`` over phase 7's checkpoint and three of its WAVs
+   (the two shortest and the 48 kHz stereo one, plus a non-WAV file
+   named ``.wav``) against phase 7's `transcribe_files`; ``mode=cluster`` on 2048 text rows through E5-large
    (k 8, 25 iterations) against `fit` on the same engine's `embed`, and on
    4096 x 1024 embedding rows (seconds split into reading, fitting and
    writing); `_build_asr_worker` and `_build_cluster_worker` at the CLI's
@@ -185,23 +186,25 @@ JSON line each:
    per bucket.
 13. slice.train (run last) — ``--mode train-head`` through the CLI's
    `main` at XLM-R-base's published widths (phase 6's synthetic HF
-   checkpoint as ``inference.pretrained_dir``, values from ``--seed``,
-   `HashingTokenizer`): 1024 posts of 4 classes with token-disjoint
-   vocabularies, 8-200 words each, string labels, written as the posts and
-   labels JSONL files.  Head scope (20 epochs, the CLI's defaults): the
-   feature pass launches `simt` only (12 per batch of 32), the loss ends
-   below ln 4, the encoder is saved unchanged, ``labels.json`` holds the
-   vocabulary; card f32 features against the CPU's on 64 posts.  LoRA
-   scope (rank 8, 2 epochs, on the first 256 posts): no kernel launch, the merged checkpoint
-   moves the kernels and serves.  Full scope (2 epochs on the first 256,
+   checkpoint, kept for this phase, as ``inference.pretrained_dir``,
+   values from ``--seed``, `HashingTokenizer`): 512 posts of 4 classes
+   with token-disjoint vocabularies, 8-200 words each, string labels,
+   written as the posts and labels JSONL files.  Head scope (20 epochs,
+   the CLI's defaults): the feature pass launches `simt` only (12 per
+   batch of 32), the loss ends below ln 4, the encoder is saved
+   unchanged, ``labels.json`` holds the vocabulary; card f32 features
+   against the CPU's on the shortest post of each bucket the feature pass
+   uses, in batches of 32 rows as it runs them.  LoRA scope (rank 8, 2 epochs, on the
+   first 128 posts): no kernel launch, the merged checkpoint moves the
+   kernels and serves.  Full scope (2 epochs on the first 128,
    ``--train-grad-accum 2``, ``--train-state-dir``): stopped after epoch 1
    and resumed, against an uninterrupted run through the CLI's own
-   examples, engine and full-scope training in the script's process
-   (per-epoch losses, weights; `uninterrupted_full_run`),
-   no kernel launch; one full step on the card against the CPU from the
+   examples, starting weights and full-scope training in the script's
+   process (per-epoch losses, weights; `uninterrupted_full_run`), no
+   kernel launch; one full step on the card against the CPU from the
    same params and batch (loss, per-leaf gradient cosine).  Serving:
    `_build_tpu_worker` with ``--head-checkpoint`` and
-   ``--infer-param-dtype bfloat16`` over 2048 held-out posts (12 sm90
+   ``--infer-param-dtype bfloat16`` over 512 held-out posts (12 sm90
    launches per dispatch, nothing else; a row per post with its label
    name; labels equal to the f32 trainer model's off a 5e-2 margin;
    accuracy >= 0.6).  Times: the feature pass (posts/s; by CUDA-graph
@@ -210,7 +213,11 @@ JSON line each:
    one batch per bucket held against the plain version), ms per step and
    tokens/s of each scope at batch 16, the full step's TFLOP/s against the
    FP32 and TF32 peaks, peak memory per CLI run, checkpoint bytes and
-   seconds, CLI start to the summary line, serving posts/s.
+   seconds (the CLI's own writes and reads), CLI start to the summary
+   line, serving posts/s, and the phase's seconds by part.  Its sizes
+   are cut for the script's budget (it trained 1024 posts, 256 in the
+   LoRA and full scopes, checked 64 features on the CPU and served 2048
+   before phase 17 ran the crawl leg).
 14. slice.bus (run after phase 11) — the bus's durability and
    partitioning between the CLI's processes (``grpc`` required), phase
    11's eight batches of 256 posts, E5-small at full width behind it.
@@ -308,7 +315,7 @@ JSON line each:
 
 17. slice.loadgen (after phase 16) — the load and chaos gate: ``python -m
    distributed_crawler_tpu_torch.loadgen --scenario <file> --dump-bundle
-   <dir>`` as a subprocess on four of the port's scenario files, each with
+   <dir>`` as a subprocess on six of the port's scenario files, each with
    its ``engine`` block replaced by E5-small at the port's `EngineConfig`
    defaults (8 labels, batch 256, buckets 32-512, full width and depth)
    and everything else the scenario's own but for flash-crowd's forcing
@@ -316,17 +323,25 @@ JSON line each:
    model's): ``kill-worker`` (gRPC, the worker killed at 1.5 s and
    restarted at 3 s, the burn alerts and ``forbid_lock_cycles``),
    ``flash-crowd`` (the gate's in-process autoscaler under a step to 80
-   batches/s of 24 posts), ``asr-steady``
-   (the gate's tiny f32 Whisper, transcripts re-entering E5-small) and
-   ``cluster-steady`` (E5-small embeddings into `ClusterWorker`).  Checks:
-   each verdict ``pass`` with ``lost`` and ``duplicates`` 0;
-   ``kill-worker`` 2 worker generations and a clean lock-witness summary;
-   ``flash-crowd`` an ``up`` decision in its fault window; ``asr-steady``
-   every transcript embedded; ``cluster-steady`` one assignment per
-   embedded post; each run's bundle with sm90 launches (and simt for the
-   ASR run's Whisper), none on another path.  Times: each run's seconds,
-   its verdict's goodput and tail p95s, the flash crowd's time to
-   converge.
+   batches/s of 24 posts), ``asr-steady`` (the gate's tiny f32 Whisper,
+   transcripts re-entering E5-small), ``cluster-steady`` (E5-small
+   embeddings into `ClusterWorker`), and with the crawl leg (the port's
+   `SimNetwork`, connection pool, channel crawl and `CrawlWorker` feeding
+   E5-small through an `InferenceBridge`) ``steady-state`` and
+   ``kill-orchestrator`` (gRPC, the orchestrator down from 1.2 to 2.4 s,
+   then resumed from its journal). Each scenario runs alone but ASR with
+   cluster, which run as a pair (`LOADGEN_GROUPS`). Checks: each verdict
+   ``pass`` with ``lost`` and ``duplicates`` 0; ``kill-worker`` 2 worker
+   generations and a clean lock-witness summary; ``flash-crowd`` an ``up``
+   decision in its fault window; ``asr-steady`` every transcript embedded;
+   ``cluster-steady`` one assignment per embedded post; ``steady-state`` a
+   trace across 2 processes and no scale event; ``kill-orchestrator`` 2
+   orchestrator generations, resumed, both pages fetched once, and the kill
+   and resume flight events; each run's bundle with sm90 launches (and simt
+   for the ASR run's Whisper), none on another path. Times: each run's
+   seconds, its verdict's goodput and tail p95s, its sm90 launches, the
+   flash crowd's time to converge, and the crawl's pages and seconds until
+   fetched (from the bundle's flight events).
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``.  Any failed phase raises and exits
@@ -336,9 +351,11 @@ non-zero before that line.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import logging
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -697,7 +714,25 @@ def phase_kernel_times(torch, np, attention, device, gen, seed, smi):
         torch.cuda.empty_cache()
     rows += tinybert_kernel_times(torch, F, attention, device, gen, gen_np,
                                   smi)
-    rows += whisper_f32_kernel_times(torch, F, attention, device, gen, smi)
+    for tiny in (False, True):
+        f32 = whisper_f32_kernel_times(torch, F, attention, device, gen, smi,
+                                       tiny=tiny)
+        parts = {p: sum(r["bound_parts_ms"][p] for r in f32)
+                 for p in f32[0]["bound_parts_ms"]}
+        emit("times.kernel.sum", name="flash_attention",
+             model=f32[0]["model"],
+             at=f"{f32[0]['heads']} heads of {f32[0]['head_dim']} over "
+                f"{f32[0]['seq']} tokens, f32, no mask: one call at each "
+                f"of batch {', '.join(str(r['batch']) for r in f32)}, summed",
+             ms=sum(r["ms"] for r in f32),
+             plain_ms=sum(r["plain_ms"] for r in f32),
+             library_ms=sum(r["library_ms"] for r in f32),
+             bound_parts_ms=parts, bound_ms=bound_of(parts)[0],
+             bound_by=bound_of(parts)[1],
+             bound_fp32_ms=sum(r["bound_fp32_ms"] for r in f32),
+             max_abs_err=max(r["max_abs_err"]["simt"] for r in f32),
+             card=smi)
+        rows += f32
     return rows
 
 
@@ -738,29 +773,37 @@ def tinybert_kernel_times(torch, F, attention, device, gen, gen_np, smi):
     return rows
 
 
-def whisper_f32_kernel_times(torch, F, attention, device, gen, smi):
+# The load gate's ASR Whisper (`models/whisper.WHISPER_TEST`, f32): its
+# encoder attends over 16 audio frames with 4 heads of 8, in dispatch
+# groups of 1, 2 or 4 windows (the gate's window buckets).
+WHISPER_TEST_SHAPE = (16, 4, 8)
+WHISPER_TEST_BATCHES = (1, 2, 4)
+
+
+def whisper_f32_kernel_times(torch, F, attention, device, gen, smi,
+                             tiny=False):
     """The f32 (3xTF32) kernel at Whisper-small's encoder shape
-    [B, 1500, 12, 64], B = 1/2/4/8, no mask, beside its plain version,
+    [B, 1500, 12, 64], B = 1/2/4/8, or with ``tiny`` at the load gate's
+    Whisper's [B, 16, 4, 8], B = 1/2/4; no mask, beside its plain version,
     SDPA in f32 and the bound."""
+    ctx, heads, head_dim = (WHISPER_TEST_SHAPE if tiny else
+                            (WHISPER_CTX, WHISPER_HEADS, WHISPER_HEAD_DIM))
     rows = []
-    for b in ASR_BUCKETS:
-        q, k, v = (torch.randn((b, WHISPER_CTX, WHISPER_HEADS,
-                                WHISPER_HEAD_DIM), generator=gen).to(device)
-                   for _ in range(3))
+    for b in WHISPER_TEST_BATCHES if tiny else ASR_BUCKETS:
+        q, k, v = (torch.randn((b, ctx, heads, head_dim),
+                               generator=gen).to(device) for _ in range(3))
         times, errs, pairs = _time_bucket(torch, F, attention, q, k, v, None,
-                                          None, f"whisper f32 B={b}")
-        parts = attention_bound_ms(pairs, b, WHISPER_CTX, WHISPER_HEADS,
-                                   WHISPER_HEAD_DIM, "float32", 4, False,
-                                   has_mask=False)
-        row = {"model": "whisper_small", "batch": b, "seq": WHISPER_CTX,
-               "heads": WHISPER_HEADS, "head_dim": WHISPER_HEAD_DIM,
+                                          None, f"whisper f32 {ctx} B={b}")
+        parts = attention_bound_ms(pairs, b, ctx, heads, head_dim,
+                                   "float32", 4, False, has_mask=False)
+        row = {"model": "whisper_test" if tiny else "whisper_small",
+               "batch": b, "seq": ctx, "heads": heads, "head_dim": head_dim,
                "dtype": "float32", "mask": None, "max_abs_err": errs,
                "ms": times["simt"], "eager_ms": times["eager"],
                "plain_ms": times["plain"], "library_ms": times["sdpa"],
                "bound_ms": bound_of(parts)[0], "bound_by": bound_of(parts)[1],
                "bound_parts_ms": parts,
-               "bound_fp32_ms": fp32_bound_ms(parts, pairs, WHISPER_HEADS,
-                                              WHISPER_HEAD_DIM),
+               "bound_fp32_ms": fp32_bound_ms(parts, pairs, heads, head_dim),
                "allowed_pairs": pairs, "card": smi}
         rows.append(row)
         emit("times.kernel", name="flash_attention", **row)
@@ -1337,11 +1380,21 @@ def time_int8_parts(torch, engine, smi):
     return rows
 
 
-def phase_xlmr(torch, np, attention, device, gen, seed, smi):
-    """XLM-R-base served int8 from a local HF checkpoint through
-    `TPUWorker`; int8 and int8_static against bf16 on the same weights;
-    the int8 products against the CPU; times."""
-    import tempfile
+def write_xlmr_checkpoint(np, ckpt, seed):
+    """Phase 6's synthetic XLM-R-base checkpoint (``config.json`` and
+    ``model.safetensors``) in ``ckpt``; phase 13 trains from the same
+    files."""
+    with open(os.path.join(ckpt, "config.json"), "w") as f:
+        json.dump(XLMR_HF_CONFIG, f)
+    write_safetensors(os.path.join(ckpt, "model.safetensors"),
+                      xlmr_state(np, seed))
+
+
+def phase_xlmr(torch, np, attention, device, gen, seed, smi, ckpt_dir):
+    """XLM-R-base served int8 from a local HF checkpoint (written to
+    ``ckpt_dir``) through `TPUWorker`; int8 and int8_static against bf16
+    on the same weights; the int8 products against the CPU; times."""
+    import contextlib
 
     from distributed_crawler_tpu_torch.bus import RecordBatch
     from distributed_crawler_tpu_torch.inference import engine as engine_mod
@@ -1352,12 +1405,9 @@ def phase_xlmr(torch, np, attention, device, gen, seed, smi):
 
     EngineConfig = engine_mod.EngineConfig
     InferenceEngine = engine_mod.InferenceEngine
-    with tempfile.TemporaryDirectory(prefix="xlmr_ckpt_") as ckpt:
+    with contextlib.nullcontext(ckpt_dir) as ckpt:
         t0 = time.perf_counter()
-        with open(os.path.join(ckpt, "config.json"), "w") as f:
-            json.dump(XLMR_HF_CONFIG, f)
-        write_safetensors(os.path.join(ckpt, "model.safetensors"),
-                          xlmr_state(np, seed))
+        write_xlmr_checkpoint(np, ckpt, seed)
         write_s = time.perf_counter() - t0
         ckpt_bytes = os.path.getsize(os.path.join(ckpt, "model.safetensors"))
 
@@ -1529,6 +1579,10 @@ ASR_NEAR_TIE = 0.1
 # kernels): at 32 steps the profiled call took about 24 s on an H100's
 # host, of which the steps themselves take under half a second.
 ASR_PROFILE_STEPS = 8
+# The decode length of a bucket no served dispatch used, timed alone (the
+# served ones decode the full 448 tokens; per step, the short decode reads
+# a shorter cache).
+ASR_TIMING_LEN = 64
 
 
 def whisper_state(np, seed):
@@ -1913,8 +1967,9 @@ def time_asr(torch, wh, attention, pipeline, smi, served_ms):
     """Per window bucket: log-mel, encoder and cross-K/V by CUDA events;
     one whole dispatch by the host clock — the median of the served
     dispatches of that bucket (``served_ms``), or one `transcribe_features`
-    call where none was served — and its decode share (the dispatch less
-    those three) in all and per step; the achieved TFLOP/s by
+    call of ASR_TIMING_LEN tokens where none was served — and its decode
+    share (the dispatch less those three) in all and per step; the
+    achieved TFLOP/s by
     `whisper_forward_flops`; the sm90 kernel at [B, 1500, 12, 64] beside
     its plain version, SDPA and its bound."""
     import torch.nn.functional as F
@@ -1942,22 +1997,22 @@ def time_asr(torch, wh, attention, pipeline, smi, served_ms):
                 lambda: model.decoder.cross_kv(xa), min_iters=3,
                 max_iters=20)
             served = sorted(served_ms.get(b, []))
+            length = pipeline.max_len if served else ASR_TIMING_LEN
             if served:
                 total_ms = served[len(served) // 2]
             else:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                out = wh.transcribe_features(model, audio,
-                                             max_len=pipeline.max_len)
+                out = wh.transcribe_features(model, audio, max_len=length)
                 torch.cuda.synchronize()
                 total_ms = (time.perf_counter() - t0) * 1e3
-                check(tuple(out.shape) == (b, pipeline.max_len),
+                check(tuple(out.shape) == (b, length),
                       f"tokens {tuple(out.shape)}")
         profile = profile_decode(torch, model, mel) if b == max(
             ASR_BUCKETS) else None
-        steps = pipeline.max_len - 1
+        steps = length - 1
         decode_ms = total_ms - mel_ms - enc_ms - kv_ms
-        flops = whisper_forward_flops(cfg, b, pipeline.max_len)
+        flops = whisper_forward_flops(cfg, b, length)
         row = {"bucket": b, "log_mel_ms": mel_ms, "encoder_ms": enc_ms,
                "cross_kv_ms": kv_ms, "dispatch_ms": total_ms,
                "served_dispatches": len(served),
@@ -2101,20 +2156,29 @@ def phase_asr(torch, np, attention, device, seed, smi, work):
 
 
 def expected_cli_transcripts(pipeline, media, files):
-    """What ``mode=transcribe`` must write for this tree (phase 11): the
-    WAV files plus a copy of the non-WAV file under a ``.wav`` name, in
-    the order the CLI walks them, through `transcribe_files` on this
-    pipeline (the CLI's defaults: batch 8, window buckets 1/2/4/8)."""
+    """What ``mode=transcribe`` must write for its input (phase 11): a
+    tree of copies of phase 7's two shortest WAVs and its 48 kHz stereo
+    WAV, plus a copy of the non-WAV file under a ``.wav`` name (one
+    dispatch; the whole tree took two), in the order the CLI walks them,
+    through `transcribe_files` on this pipeline (the CLI's defaults:
+    batch 8, window buckets 1/2/4/8)."""
+    tree = os.path.join(os.path.dirname(media), "transcribe_in")
+    os.makedirs(tree)
+    wavs = sorted((sec, p) for p, sec in files if sec is not None)
+    chosen = [p for _, p in wavs[:2]] + [os.path.join(media,
+                                                      "voice_05.wav")]
+    for p in chosen:
+        shutil.copyfile(p, os.path.join(tree, os.path.basename(p)))
     bad = next(p for p, sec in files if sec is None)
     with open(bad, "rb") as src, \
-            open(os.path.join(media, "not_a_wav.wav"), "wb") as dst:
+            open(os.path.join(tree, "not_a_wav.wav"), "wb") as dst:
         dst.write(src.read())
-    paths = sorted(os.path.join(media, n) for n in os.listdir(media)
-                   if n.endswith(".wav"))
+    paths = sorted(os.path.join(tree, n) for n in os.listdir(tree))
     t0 = time.perf_counter()
     results = pipeline.transcribe_files(paths)
-    return {"seconds": time.perf_counter() - t0,
-            "rows": [{"path": os.path.relpath(r.path, media),
+    return {"seconds": time.perf_counter() - t0, "input": tree,
+            "audio_seconds": sum(sec for p, sec in files if p in chosen),
+            "rows": [{"path": os.path.relpath(r.path, tree),
                       "tokens": r.tokens, "windows": r.windows,
                       "error": r.error} for r in results]}
 
@@ -4478,8 +4542,9 @@ class _CountCalls:
 
 
 def cli_transcribe(attention, work, asr, smi):
-    """Step 3: ``main(["--mode", "transcribe", ...])`` over phase 7's WAV
-    tree and checkpoint, against phase 7's `transcribe_files`."""
+    """Step 3: ``main(["--mode", "transcribe", ...])`` over three of phase
+    7's WAVs and its non-WAV file, with its checkpoint, against phase 7's
+    `transcribe_files`."""
     from distributed_crawler_tpu_torch.inference.asr import ASRPipeline
     from distributed_crawler_tpu_torch.models.whisper import WHISPER_SMALL
 
@@ -4487,7 +4552,8 @@ def cli_transcribe(attention, work, asr, smi):
     zero_launches(attention)
     with _CountCalls(ASRPipeline, "transcribe_audio") as dispatches:
         rc, summary, wall = cli_main([
-            "--mode", "transcribe", "--transcribe-input", asr["media"],
+            "--mode", "transcribe", "--transcribe-input",
+            asr["transcribe"]["input"],
             "--asr-pretrained-dir", asr["ckpt"], "--transcribe-output",
             out_path, "--storage-root", os.path.join(work, "cli_asr")])
     launches = read_launches(attention)
@@ -4508,7 +4574,7 @@ def cli_transcribe(attention, work, asr, smi):
           f"the non-WAV file's row {bad}")
     check(summary == {"transcribed": len(rows) - 1, "failed": 1,
                       "output": out_path}, f"summary {summary}")
-    audio_s = sum(sec for _, sec in asr["files"] if sec is not None)
+    audio_s = asr["transcribe"]["audio_seconds"]
     windows = sum(r["windows"] for r in rows)
     emit("cli.transcribe", rows=len(rows), windows=windows,
          dispatches=dispatches.calls, kernel_launches_by_path=launches)
@@ -5482,10 +5548,11 @@ def phase_bus(np, attention, work, tpu, grpc_posts_s, smi):
 
 # Phase 13 (slice.train): train-head at XLM-R-base's published widths.
 TRAIN_LABELS = ("news", "politics", "sports", "tech")
-TRAIN_POSTS, TRAIN_SERVE_POSTS, TRAIN_CPU_POSTS = 1024, 2048, 64
-# The LoRA and full scopes train on the first TRAIN_SCOPE_POSTS of them
-# (the script's budget; their checks hold at any size).
-TRAIN_SCOPE_POSTS = 256
+# Sizes cut for the script's budget (1024, 2048 and 256 before phase 17
+# ran the crawl leg; every check holds at these sizes).
+TRAIN_POSTS, TRAIN_SERVE_POSTS = 512, 512
+# The LoRA and full scopes train on the first TRAIN_SCOPE_POSTS of them.
+TRAIN_SCOPE_POSTS = 128
 TRAIN_WORDS = (8, 200)          # words per post
 TRAIN_VOCAB = 64                # words per class
 TRAIN_STEP_BATCH = 16
@@ -5558,10 +5625,10 @@ def train_run(torch, attention, argv, env):
 def uninterrupted_full_run(argv, env, device=None):
     """The uninterrupted full-scope run a resumed one is held against, in
     this process, through the CLI's own steps from the same flags and
-    environment: its examples (`cli._train_examples`), engine
-    (`cli._make_engine`), tokens and full-scope training (`cli._train_full`),
-    with no train state, checkpoint or summary written.  Returns (params
-    tree, per-epoch losses, seconds)."""
+    environment: its examples (`cli._train_examples`), starting weights
+    (`cli._train_weights`), tokens and full-scope training
+    (`cli._train_full`), with no train state, checkpoint or summary
+    written.  Returns (params tree, per-epoch losses, seconds)."""
     from distributed_crawler_tpu_torch import cli
 
     t0 = time.perf_counter()
@@ -5571,12 +5638,11 @@ def uninterrupted_full_run(argv, env, device=None):
                                    r.get_str("train.labels_file"))
     check(examples is not None, "train-head examples did not read")
     texts, labels, n_labels, _ = examples
-    engine = cli._make_engine(cfg, r, n_labels=n_labels, cast_params=False,
-                              device=device)
+    weights = cli._train_weights(cfg, r, n_labels, device=device)
     params, history = cli._train_full(
-        engine, r, engine.tokenizer.encode_batch(texts), labels,
+        weights, r, weights[2].encode_batch(texts), labels,
         epochs=r.get_int("train.epochs", 20))
-    del engine
+    del weights
     return params["params"], [h["loss"] for h in history], \
         time.perf_counter() - t0
 
@@ -5598,8 +5664,8 @@ STEP_KERNEL_KINDS = (
 )
 
 
-def profile_train_step(torch, call, steps=3):
-    """A few steps under `torch.profiler`: the device time per step by
+def profile_train_step(torch, call, steps=1):
+    """``steps`` steps under `torch.profiler`: the device time per step by
     kind of kernel (`STEP_KERNEL_KINDS`, the rest "elementwise/other"), the
     kernels per step, the ten longest kernels, and the busy share against
     the same steps' wall time without the profiler.  None where the
@@ -5675,6 +5741,7 @@ def train_step_times(torch, np, tm, lora_mod, fcfg, tree, ids, mask,
                 lambda: call(st), min_total_s=0.5, min_iters=3,
                 max_iters=50)
 
+        t_scope = time.perf_counter()
         (st, ms), peak = peak_memory(torch, run)
         row = {"scope": scope, "batch": b, "seq": tokens, "ms": ms,
                "tokens_per_s": b * tokens / (ms * 1e-3),
@@ -5688,8 +5755,11 @@ def train_step_times(torch, np, tm, lora_mod, fcfg, tree, ids, mask,
                        share_of_fp32_peak_67=rate / H100_PEAK_FLOPS[
                            "float32"],
                        share_of_tf32_peak_494_7=rate / H100_TF32_FLOPS)
+        t_profile = time.perf_counter()
         if scope != "head":
             row["profile"] = profile_train_step(torch, lambda: call(st))
+        row["build_and_time_s"] = t_profile - t_scope
+        row["profile_s"] = time.perf_counter() - t_profile
         emit("times.train", step=f"{scope}_step", **row)
         rows.append(row)
         del st
@@ -5697,9 +5767,9 @@ def train_step_times(torch, np, tm, lora_mod, fcfg, tree, ids, mask,
     return rows
 
 
-def check_step_vs_cpu(torch, np, tm, fcfg, tree, toks, labels, device):
-    """One full step's loss and gradients, card against CPU, from the same
-    params and a batch of 4 posts cut to 64 tokens."""
+def step_grads(tm, fcfg, tree, toks, labels, device):
+    """One full step's (loss, per-leaf gradients) on ``device``, from
+    ``tree`` and a batch of 4 posts cut to 64 tokens."""
     from distributed_crawler_tpu_torch.models.from_jax import (
         flatten_tree,
         flax_grads,
@@ -5707,27 +5777,30 @@ def check_step_vs_cpu(torch, np, tm, fcfg, tree, toks, labels, device):
 
     ids, mask, y = tm.prepare_finetune_arrays(
         fcfg, [t[:64] for t in toks[:4]], labels[:4], 1)
-    tc = tm.TrainConfig(warmup_steps=10)
-    out = {}
-    for name, dev in (("cpu", "cpu"), ("card", device)):
-        st = tm.make_train_step(fcfg, tc, tree, dev)
-        m = st.grads(ids, mask, y)
-        out[name] = (float(m["loss"]),
-                     flatten_tree(flax_grads(st.model)["params"]))
-        del st
+    st = tm.make_train_step(fcfg, tm.TrainConfig(warmup_steps=10), tree,
+                            device)
+    m = st.grads(ids, mask, y)
+    return float(m["loss"]), flatten_tree(flax_grads(st.model)["params"])
+
+
+def check_step_vs_cpu(torch, np, tm, fcfg, tree, toks, labels, device):
+    """One full step's loss and gradients, card against CPU, from the same
+    params and batch (`step_grads`)."""
+    l_cpu, g_cpu = step_grads(tm, fcfg, tree, toks, labels, "cpu")
+    l_card, g_card = step_grads(tm, fcfg, tree, toks, labels, device)
     torch.cuda.empty_cache()
-    (l_cpu, g_cpu), (l_card, g_card) = out["cpu"], out["card"]
     rel = abs(l_card - l_cpu) / abs(l_cpu)
     check(rel <= TRAIN_STEP_LOSS_RTOL,
           f"full step loss card {l_card} vs cpu {l_cpu} ({rel:.3g} rel)")
     worst, worst_leaf = 1.0, None
     for path, gc in g_cpu.items():
-        a = gc.astype(np.float64).ravel()
-        b = g_card[path].astype(np.float64).ravel()
-        na, nb = np.linalg.norm(a), np.linalg.norm(b)
+        # Per-leaf cosine in f64, on the card (278M gradients).
+        a = torch.from_numpy(gc).to(device, torch.float64).ravel()
+        b = torch.from_numpy(g_card[path]).to(device, torch.float64).ravel()
+        na, nb = float(a.norm()), float(b.norm())
         if na == 0 and nb == 0:
             continue
-        cos = float(a @ b / (na * nb)) if na and nb else 0.0
+        cos = float(a @ b) / (na * nb) if na and nb else 0.0
         if cos < worst:
             worst, worst_leaf = cos, path
     check(worst >= TRAIN_STEP_GRAD_COS,
@@ -5740,20 +5813,37 @@ def check_step_vs_cpu(torch, np, tm, fcfg, tree, toks, labels, device):
 
 def check_features(torch, np, tm, attention, fcfg, tree, toks, buckets,
                    device, smi):
-    """Card f32 features against the CPU's on 64 posts; then the feature
-    pass over every post timed, with its simt kernels' device time."""
+    """Card f32 features against the CPU's on the shortest post of each
+    bucket the feature pass uses, in its batches of 32 rows (padding rows
+    included); then the feature pass over every post timed, with its simt
+    kernels' device time."""
     from distributed_crawler_tpu_torch.models.encoder import Classifier
     from distributed_crawler_tpu_torch.models.from_jax import (
         load_flax_params,
     )
+    from distributed_crawler_tpu_torch.ops.padding import (
+        BucketSpec,
+        bucket_for,
+    )
 
-    cpu = tm.encode_cls_features(fcfg, tree, toks[:TRAIN_CPU_POSTS],
-                                 batch_size=32, buckets=buckets,
-                                 device="cpu")
-    model = Classifier(fcfg)
+    spec = BucketSpec(tuple(sorted(buckets)))
+    shortest = {}
+    for t in toks:
+        b = bucket_for(len(t), spec)
+        if b not in shortest or len(t) < len(shortest[b]):
+            shortest[b] = t
+    sample = [shortest[b] for b in sorted(shortest)]
+    parts = {}
+    t_part = time.perf_counter()
+    cpu = tm.encode_cls_features(fcfg, tree, sample, batch_size=32,
+                                 buckets=buckets, device="cpu")
+    parts["cpu_features_s"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    with torch.device(device):
+        model = Classifier(fcfg)
     load_flax_params(model, tree)
-    enc = model.encoder.to(device)
-    card = tm.cls_features(enc, toks[:TRAIN_CPU_POSTS], 32, buckets)
+    enc = model.encoder
+    card = tm.cls_features(enc, sample, 32, buckets)
     err = float(np.abs(card - cpu).max())
     cos = _min_cosine(np, card, cpu)
     check(err <= TRAIN_FEATURE_TOL[0] and cos >= TRAIN_FEATURE_TOL[1],
@@ -5766,9 +5856,12 @@ def check_features(torch, np, tm, attention, fcfg, tree, toks, buckets,
     seconds = time.perf_counter() - t0
     del enc, model
     torch.cuda.empty_cache()
+    parts["card_features_s"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
     simt, per_bucket = feature_pass_simt_ms(torch, attention, fcfg, toks,
                                             buckets, device)
-    row = {"posts": len(toks), "seconds": seconds,
+    parts["simt_timing_s"] = time.perf_counter() - t_part
+    row = {"posts": len(toks), "seconds": seconds, "parts": parts,
            "posts_per_s": len(toks) / seconds, "simt_ms": simt["ms"],
            "simt_calls": simt["calls"], "simt_plain_ms": simt["plain_ms"],
            "simt_library_ms": simt["library_ms"],
@@ -5780,7 +5873,8 @@ def check_features(torch, np, tm, attention, fcfg, tree, toks, buckets,
     for r in per_bucket:
         emit("times.train", step="feature_pass_simt_bucket", card=smi, **r)
     return {"max_abs_err": err, "min_cosine": cos,
-            "tol": list(TRAIN_FEATURE_TOL), "posts": TRAIN_CPU_POSTS}, row
+            "tol": list(TRAIN_FEATURE_TOL), "buckets": sorted(shortest),
+            "tokens": [len(t) for t in sample]}, row
 
 
 def feature_pass_simt_ms(torch, attention, fcfg, toks, buckets, device):
@@ -5879,9 +5973,10 @@ def f32_labels(torch, np, tm, fcfg, params, texts, tokenizer, device):
         pack_batch,
     )
 
-    model = Classifier(tm.train_config(fcfg, attention="xla"))
+    with torch.device(device):
+        model = Classifier(tm.train_config(fcfg, attention="xla"))
     load_flax_params(model, params)
-    model = model.to(device).eval()
+    model = model.eval()
     toks = tokenizer.encode_batch(texts)
     scores = np.zeros((len(toks), fcfg.n_labels), np.float64)
     with torch.no_grad(), tm.full_f32():
@@ -5930,7 +6025,9 @@ def serve_trained(torch, np, tm, attention, fcfg, ckpt, vocab_names,
           and ecfg.n_labels == len(vocab_names)
           and engine.label_names == list(vocab_names),
           f"served engine {ecfg} labels {engine.label_names}")
+    t0 = time.perf_counter()
     worker.warmup()
+    warmup_s = time.perf_counter() - t0
     frames = []
     worker.bus.subscribe(TOPIC_INFERENCE_RESULTS, frames.append)
     batches = [RecordBatch.from_records(records[i:i + BATCH],
@@ -5962,9 +6059,11 @@ def serve_trained(torch, np, tm, attention, fcfg, ckpt, vocab_names,
     tokenizer = engine.tokenizer
     del worker, engine
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     params = load_params(latest_step_dir(ckpt))
     scores = f32_labels(torch, np, tm, fcfg, params, texts, tokenizer,
                         device)
+    f32_s = time.perf_counter() - t0
     top2 = np.sort(scores, axis=1)[:, -2:]
     clear = (top2[:, 1] - top2[:, 0]) > TRAIN_SERVE_MARGIN
     served = np.asarray([r["label"] for r in rows])
@@ -5977,16 +6076,56 @@ def serve_trained(torch, np, tm, attention, fcfg, ckpt, vocab_names,
     posts_s = len(rows) / (t_end - t_start)
     emit("times.train", step="serve", posts=len(rows),
          seconds=t_end - t_start, posts_per_s=posts_s, build_s=build_s,
-         card=smi)
+         warmup_s=warmup_s, f32_labels_s=f32_s, card=smi)
     return {"launches": launches, "dispatches": dispatches,
             "rows": len(rows), "accuracy": acc,
             "labels_compared": int(clear.sum()),
             "label_margin": TRAIN_SERVE_MARGIN}
 
 
-def phase_train(torch, np, attention, device, seed, smi):
+class _CheckpointTimer:
+    """Wall seconds of each call of the checkpoint module's readers and
+    writers while installed, as (function, path, seconds): the CLI's own
+    calls (it imports them at call time), nested ones included."""
+
+    NAMES = ("save_params", "load_params", "save_train_state",
+             "load_train_state")
+
+    def __init__(self, ck):
+        self.ck = ck
+        self.calls = []
+        self.orig = {n: getattr(ck, n) for n in self.NAMES}
+
+    def __enter__(self):
+        for name, fn in self.orig.items():
+            def timed(path, *a, _fn=fn, _name=name, **kw):
+                t0 = time.perf_counter()
+                out = _fn(path, *a, **kw)
+                self.calls.append((_name, os.path.abspath(path),
+                                   time.perf_counter() - t0))
+                return out
+            setattr(self.ck, name, timed)
+        return self
+
+    def seconds(self, name, path, count=1):
+        """The last of the ``count`` calls of ``name`` on a path under
+        ``path``."""
+        root = os.path.abspath(path)
+        found = [t for n, p, t in self.calls if n == name
+                 and (p == root or p.startswith(root + os.sep))]
+        check(len(found) == count,
+              f"{name}({path}): {len(found)} calls of {self.calls}")
+        return found[-1]
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.ck, name, fn)
+
+
+def phase_train(torch, np, attention, device, seed, smi, hf):
     """Phase 13: train-head (head, LoRA, full) on the card through the
-    CLI at XLM-R-base's published widths, and the checkpoint served."""
+    CLI at XLM-R-base's published widths, from phase 6's checkpoint in
+    ``hf`` (`write_xlmr_checkpoint`), and the checkpoint served."""
     import math
 
     from distributed_crawler_tpu_torch.inference import checkpoint as ck
@@ -6013,14 +6152,17 @@ def phase_train(torch, np, attention, device, seed, smi):
     from distributed_crawler_tpu_torch.utils.metrics import MetricsRegistry
 
     t_phase = time.perf_counter()
+    laps = {}
+    t_lap = [t_phase]
+
+    def lap(name):
+        """The seconds since the previous lap, under ``name``."""
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+
     work = tempfile.TemporaryDirectory(prefix="train_")
     root = work.name
-    hf = os.path.join(root, "xlmr")
-    os.makedirs(hf)
-    with open(os.path.join(hf, "config.json"), "w") as f:
-        json.dump(XLMR_HF_CONFIG, f)
-    write_safetensors(os.path.join(hf, "model.safetensors"),
-                      xlmr_state(np, seed))
     ecfg, tree = load_hf_encoder(hf, arch="embedder_classifier",
                                  n_labels=None)
     fcfg = replace(ecfg, dtype="float32")
@@ -6058,6 +6200,7 @@ def phase_train(torch, np, attention, device, seed, smi):
          tokens_min=min(map(len, toks)), tokens_max=max(map(len, toks)),
          setup_s=time.perf_counter() - t_phase)
     main_launches = dict.fromkeys(attention.PATHS, 0)
+    lap("setup")
 
     # (a) head scope: 20 epochs at the CLI's defaults.
     ckpt_head = os.path.join(root, "ckpt_head")
@@ -6088,9 +6231,11 @@ def phase_train(torch, np, attention, device, seed, smi):
     emit("train.head", summary=head, seconds=head_s,
          kernel_launches_by_path=launches, peak_mem_bytes=head_mem,
          card=smi)
+    lap("head")
     features, feature_row = check_features(
         torch, np, tm, attention, fcfg, tree, toks, buckets, device, smi)
     emit("train.features", **features)
+    lap("features")
 
     # (b) LoRA scope: rank 8, 2 epochs; no kernel launches.
     ckpt_lora = os.path.join(root, "ckpt_lora")
@@ -6121,14 +6266,17 @@ def phase_train(torch, np, attention, device, seed, smi):
     emit("train.lora", summary=lora, seconds=lora_s,
          kernel_launches_by_path=launches, peak_mem_bytes=lora_mem,
          served=len(out), card=smi)
+    lap("lora")
 
     # (c) full scope: 2 epochs with --train-grad-accum 2, stopped after
     # epoch 1 and resumed, against an uninterrupted run of the CLI's own
     # training in this process (no train state or checkpoint written).
+    # The checkpoint's write and read seconds are the CLI's own calls.
     full = ["--train-scope", "full", "--train-grad-accum", "2"]
     sd1 = os.path.join(root, "state1")
     ckpt_full = os.path.join(root, "ckpt_full")
     runs = {}
+    ck_timer = _CheckpointTimer(ck)
     for name, argv in (
             ("first_epoch", full + ["--train-epochs", "1",
                                     "--train-state-dir", sd1,
@@ -6136,14 +6284,16 @@ def phase_train(torch, np, attention, device, seed, smi):
             ("resumed", full + ["--train-epochs", "2",
                                 "--train-state-dir", sd1,
                                 "--head-checkpoint", ckpt_full])):
-        summary, seconds, launches, mem = train_run(
-            torch, attention, scope + argv, env)
+        with ck_timer:
+            summary, seconds, launches, mem = train_run(
+                torch, attention, scope + argv, env)
         check(launches == dict.fromkeys(attention.PATHS, 0),
               f"full scope ({name}) launched {launches}")
         runs[name] = {"summary": summary, "seconds": seconds,
                       "peak_mem_bytes": mem}
     check(sorted(os.listdir(sd1)) == ["epoch_1"], f"state dir {sd1}: "
           f"{sorted(os.listdir(sd1))}")
+    lap("full_cli")
     zero_launches(attention)
     (straight_tree, straight_losses, straight_s), straight_mem = \
         peak_memory(torch, lambda: uninterrupted_full_run(
@@ -6161,8 +6311,9 @@ def phase_train(torch, np, attention, device, seed, smi):
                    for a, b in zip(hist["resumed"], hist["straight"]))
     check(len(hist["resumed"]) == 2 and loss_rel <= TRAIN_RESUME_LOSS_RTOL,
           f"resumed losses {hist['resumed']} vs {hist['straight']}")
-    resumed = flatten_tree(ck.load_params(
-        runs["resumed"]["summary"]["checkpoint"])["params"])
+    with ck_timer:
+        resumed = flatten_tree(ck.load_params(
+            runs["resumed"]["summary"]["checkpoint"])["params"])
     straight = flatten_tree(straight_tree)
     del straight_tree
     start = flatten_tree(tree["params"])
@@ -6173,39 +6324,36 @@ def phase_train(torch, np, attention, device, seed, smi):
     check(movement > 0 and diff <= TRAIN_RESUME_PARAM_SHARE * movement,
           f"resumed weights off the uninterrupted run's by {diff} "
           f"(largest movement {movement})")
-    t0 = time.perf_counter()
-    _, st_params, st_opt, _ = ck.load_train_state(
-        ck.latest_train_state(sd1))
-    state_read_s = time.perf_counter() - t0
+    # Each run wrote its epoch's train state (the resumed run's is
+    # timed), the resumed run read the first's and wrote its checkpoint,
+    # and this script read that checkpoint.
+    resumed_ckpt = runs["resumed"]["summary"]["checkpoint"]
+    times = {"params_write_s": ck_timer.seconds("save_params", resumed_ckpt),
+             "params_read_s": ck_timer.seconds("load_params", resumed_ckpt),
+             "train_state_write_s": ck_timer.seconds("save_train_state",
+                                                     sd1, count=2),
+             "train_state_read_s": ck_timer.seconds("load_train_state",
+                                                    sd1)}
     state_bytes = os.path.getsize(os.path.join(sd1, "epoch_1",
                                                ck.PARAMS_FILE))
-    t0 = time.perf_counter()
-    ck.save_train_state(os.path.join(root, "state3"), 0, st_params, st_opt,
-                        [])
-    state_write_s = time.perf_counter() - t0
-    del st_params, st_opt
-    t0 = time.perf_counter()
-    params_bytes = ck.save_params(os.path.join(root, "copy"), {
-        "params": nest_tree(resumed)})
-    params_write_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ck.load_params(os.path.join(root, "copy"))
-    params_read_s = time.perf_counter() - t0
+    params_bytes = os.path.getsize(os.path.join(resumed_ckpt,
+                                                ck.PARAMS_FILE))
     emit("train.full", runs=runs, loss_history=hist, loss_max_rel=loss_rel,
          weights_max_abs_diff=diff, largest_movement=movement,
          tol=[TRAIN_RESUME_LOSS_RTOL, TRAIN_RESUME_PARAM_SHARE], card=smi)
     emit("times.train", step="checkpoint", params_bytes=params_bytes,
-         params_write_s=params_write_s, params_read_s=params_read_s,
-         train_state_bytes=state_bytes, train_state_write_s=state_write_s,
-         train_state_read_s=state_read_s, card=smi)
+         train_state_bytes=state_bytes, **times, card=smi)
     del resumed, straight, merged, saved
+    lap("full_straight_and_checks")
 
     step_cpu = check_step_vs_cpu(torch, np, tm, fcfg, tree, toks, label_ids,
                                  device)
     emit("train.step_vs_cpu", **step_cpu)
+    lap("step_vs_cpu")
     ids, mask, y = tm.prepare_finetune_arrays(fcfg, toks, label_ids, 1)
     step_rows = train_step_times(torch, np, tm, lora_mod, fcfg, tree, ids,
                                  mask, y, device, smi)
+    lap("step_times")
 
     # (d) the head checkpoint served in bf16 through the CLI's worker.
     served = serve_trained(torch, np, tm, attention, fcfg, ckpt_head, names,
@@ -6220,6 +6368,8 @@ def phase_train(torch, np, attention, device, seed, smi):
                             for k, v in runs.items()}},
          card=smi)
     work.cleanup()
+    lap("serve")
+    emit("times.train", step="parts", seconds=laps, card=smi)
     emit("slice.train", seconds=time.perf_counter() - t_phase,
          kernel_launches_by_path=main_launches,
          feature_posts_per_s=feature_row["posts_per_s"],
@@ -7350,8 +7500,16 @@ def phase_autoscaler(np, work, grpc_posts_s, orch_burst_posts_s, seed, smi):
 
 
 # -- phase 17: the load and chaos gate ---------------------------------------
-LOADGEN_SCENARIOS = ("kill-worker", "flash-crowd", "asr-steady",
-                     "cluster-steady")
+# The scenarios with a crawl leg (a "crawl" block): the port's SimNetwork,
+# connection pool, channel crawl and CrawlWorker feed E5-small.
+LOADGEN_CRAWL = ("steady-state", "kill-orchestrator")
+# Run in this order, the scenarios of a group at once, one process each:
+# the ASR and cluster gates leave the card idle most of their time and
+# their budgets are wide, so they run as a pair; the fault scenarios run
+# alone, their recovery timed, and so does steady-state.
+LOADGEN_GROUPS = (("kill-worker",), ("flash-crowd",),
+                  ("asr-steady", "cluster-steady"), ("steady-state",),
+                  ("kill-orchestrator",))
 LOADGEN_TIMEOUT_S = 300
 # The one knob changed beside the engine block: flash-crowd's forcing
 # queue-wait SLO, which exists only to make the step breach (its own
@@ -7434,28 +7592,41 @@ def run_loadgen(root, name):
     return verdict, bundle, seconds
 
 
-def phase_loadgen(np, work, smi):
-    """Phase 17: four of the gate's scenarios at E5-small through the
-    port's loadgen entry point, one process each."""
-    t0 = time.perf_counter()
-    root = os.path.join(work, "loadgen")
-    os.makedirs(root)
-    runs = {name: run_loadgen(root, name) for name in LOADGEN_SCENARIOS}
+def crawl_leg(bundle):
+    """(the crawl's pages, the seconds from the run's start until the last
+    of them was fetched) from a run's flight events: the crawl worker's
+    ``work_start`` (its page's URL) and ``work_done`` events after the
+    gate's ``loadgen_run_start``."""
+    events = bundle["flight"]
+    t0 = next(e["ts"] for e in events if e["kind"] == "loadgen_run_start")
+    urls = {e["work_item"]: e["url"] for e in events
+            if e["kind"] == "work_start"}
+    done = [e for e in events if e["kind"] == "work_done"
+            and e["status"] == "success"]
+    check(done and all(e["work_item"] in urls for e in done),
+          f"crawl leg: {len(done)} pages fetched, work items {sorted(urls)}")
+    return len({urls[e["work_item"]] for e in done}), \
+        max(e["ts"] for e in done) - t0
 
-    v = runs["kill-worker"][0]
+
+def check_kill_worker(v):
     check(v["worker_generations"] == 2,
           f"kill-worker: {v['worker_generations']} worker generations")
     witness = v["lockwitness"] or {}
     check(witness.get("new_cycles") == 0 and witness.get("cycles") == 0
           and witness.get("instrumented_sites", 0) > 0,
           f"kill-worker: lock witness {witness}")
-    v = runs["flash-crowd"][0]
+
+
+def check_flash_crowd(v):
     up = v["checks"].get("scale_event_tpu_up_fault", {})
     check(up.get("ok") and up.get("value", 0) >= 1
           and v["autoscaler"]["fleet_sizes"]["max"] >= 2,
           f"flash-crowd: no up decision in the fault window ({up}, "
           f"{v['autoscaler']})")
-    v = runs["asr-steady"][0]
+
+
+def check_asr_steady(v):
     check(v["checks"]["reentered"]["ok"]
           and v["checks"]["reentered"]["value"] == 0
           and v["processed_media"] > 0
@@ -7463,11 +7634,59 @@ def phase_loadgen(np, work, smi):
           f"asr-steady: transcripts not all embedded "
           f"({v['checks']['reentered']}, {v['reentered_posts']} posts for "
           f"{v['processed_media']} media)")
-    v = runs["cluster-steady"][0]
+
+
+def check_cluster_steady(v):
     check(v["cluster_lost"] == 0 and v["cluster_duplicates"] == 0
           and v["assigned_records"] == v["embedded_records"] > 0,
           f"cluster-steady: {v['assigned_records']} assignments for "
           f"{v['embedded_records']} embedded posts")
+
+
+def check_steady_state(v):
+    check(v["checks"]["dtrace_processes"]["ok"]
+          and v["dtraces"]["multi_process"] >= 1,
+          f"steady-state: no trace across 2 processes ({v['dtraces']}, "
+          f"{v['checks']['dtrace_processes']})")
+    check(v["autoscaler"]["decisions"] == 0
+          and v["checks"]["scale_events"]["value"] == 0,
+          f"steady-state: scale events {v['autoscaler']}")
+
+
+def check_kill_orchestrator(v):
+    o = v["orchestrator"]
+    check(o["generations"] == 2 and o["resumed"] is True
+          and o["pages_by_status"] == {"fetched": 2}
+          and o["completed_items"] == 2,
+          f"kill-orchestrator: orchestrator {o}")
+    names = ("flight_orch_kill", "flight_orch_resume", "orch_pages_lost",
+             "orch_result_duplicates")
+    check(all(v["checks"][c]["ok"] for c in names),
+          f"kill-orchestrator: checks "
+          f"{json.dumps({c: v['checks'].get(c) for c in names})}")
+
+
+LOADGEN_CHECKS = {"kill-worker": check_kill_worker,
+                  "flash-crowd": check_flash_crowd,
+                  "asr-steady": check_asr_steady,
+                  "cluster-steady": check_cluster_steady,
+                  "steady-state": check_steady_state,
+                  "kill-orchestrator": check_kill_orchestrator}
+
+
+def phase_loadgen(np, work, smi):
+    """Phase 17: the gate's scenarios at E5-small through the port's
+    loadgen entry point, one process each, by LOADGEN_GROUPS."""
+    t0 = time.perf_counter()
+    root = os.path.join(work, "loadgen")
+    os.makedirs(root)
+    runs = {}
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for group in LOADGEN_GROUPS:
+            runs.update(zip(group, pool.map(
+                lambda n: run_loadgen(root, n), group)))
+    for name, (v, _, _) in runs.items():
+        LOADGEN_CHECKS[name](v)
 
     launches = dict.fromkeys(KERNEL_SOURCES, 0)
     per_run = {}
@@ -7484,8 +7703,13 @@ def phase_loadgen(np, work, smi):
         goodput = next(v[k] for k in ("goodput_posts_per_s",
                                       "goodput_media_per_s",
                                       "goodput_vectors_per_s") if k in v)
+        crawl = {}
+        if name in LOADGEN_CRAWL:
+            pages, fetched_s = crawl_leg(bundle)
+            crawl = {"crawl_pages": pages, "crawl_fetched_s": fetched_s}
         emit("times.loadgen", scenario=name, seconds=seconds,
              verdict_duration_s=v["duration_s"], goodput=goodput,
+             sm90_launches=got["sm90"], **crawl,
              tail_queue_wait_p95_ms=v.get("tail_queue_wait_p95_ms"),
              tail_batch_p95_ms=v.get("tail_batch_p95_ms"),
              tail_asr_batch_p95_ms=v.get("tail_asr_batch_p95_ms"),
@@ -7493,11 +7717,13 @@ def phase_loadgen(np, work, smi):
              converge_s=(v.get("autoscaler") or {}).get("converge_s"),
              fleet_sizes=(v.get("autoscaler") or {}).get("fleet_sizes"),
              fault_breaches=v["fault_breaches"],
-             worker_generations=v["worker_generations"], card=smi)
+             worker_generations=v["worker_generations"],
+             orchestrator=v.get("orchestrator"), dtraces=v.get("dtraces"),
+             card=smi)
     seconds = time.perf_counter() - t0
     emit("slice.loadgen", seconds=seconds, scenarios=list(runs),
-         kernel_launches_by_path=per_run, lockwitness=runs[
-             "kill-worker"][0]["lockwitness"],
+         kernel_launches_by_path=per_run,
+         lockwitness=runs["kill-worker"][0]["lockwitness"],
          checks={name: sorted(v["checks"]) for name, (v, _, _)
                  in runs.items()})
     return {"launches": launches}
@@ -7599,8 +7825,10 @@ def main() -> int:
     rows = timed("kernel_times", phase_kernel_times, torch, np, attention,
                  device, gen, args.seed, smi)
     tiny = timed("tinybert", phase_tinybert, torch, np, args.seed, smi)
+    # Phase 6's checkpoint, kept for phase 13.
+    xlmr_ckpt = tempfile.TemporaryDirectory(prefix="xlmr_ckpt_")
     xlmr = timed("xlmr", phase_xlmr, torch, np, attention, device, gen,
-                 args.seed, smi)
+                 args.seed, smi, xlmr_ckpt.name)
     asr = timed("asr", phase_asr, torch, np, attention, device, args.seed,
                 smi, work.name)
     clus = timed("cluster", phase_cluster, torch, np, attention, device, gen,
@@ -7620,7 +7848,8 @@ def main() -> int:
     gate = timed("loadgen", phase_loadgen, np, work.name, smi)
     work.cleanup()
     train = timed("train", phase_train, torch, np, attention, device,
-                  args.seed, smi)
+                  args.seed, smi, xlmr_ckpt.name)
+    xlmr_ckpt.cleanup()
     emit("times.phases", seconds=seconds, card=smi)
     launches = {p: sum(ph["launches"][p]
                        for ph in (e5, tiny, xlmr, asr, clus, moe, ops, cli_,

@@ -990,21 +990,16 @@ def _check_serve_address(r: ConfigResolver) -> None:
 
 # -- engines and workers ----------------------------------------------------
 
-def _make_engine(cfg: CrawlerConfig, r: ConfigResolver,
-                 n_labels: Optional[int] = None,
-                 with_checkpoint: bool = False, cast_params: bool = True,
-                 with_mesh: bool = False, device=None):
-    """One engine-wiring path for tpu-worker, train-head and cluster.
+def _engine_config(cfg: CrawlerConfig, r: ConfigResolver,
+                   n_labels: Optional[int] = None,
+                   with_checkpoint: bool = False, cast_params: bool = True):
+    """The `EngineConfig` of the device modes: ``cast_params=False``
+    (train-head) ignores ``inference.param_dtype``, ``quantize``,
+    ``attention`` and ``moe_dispatch``, so the trainer starts from, and
+    saves, full-precision weights even when the same config serves bf16
+    or int8."""
+    from .inference.engine import EngineConfig
 
-    ``cast_params=False`` (train-head) ignores ``inference.param_dtype``,
-    ``quantize``, ``attention`` and ``moe_dispatch`` and builds the model
-    in f32, so the trainer starts from, and saves, full-precision weights
-    even when the same config serves bf16 or int8; the trainer builds its
-    own plain-attention model for the scopes it differentiates."""
-    from .inference.engine import EngineConfig, InferenceEngine
-
-    if with_mesh:
-        _refuse_mesh(cfg)
     inf = cfg.inference
     kw = dict(
         model=inf.embed_model.replace("-", "_"),
@@ -1020,9 +1015,36 @@ def _make_engine(cfg: CrawlerConfig, r: ConfigResolver,
         kw["n_labels"] = n_labels
     if with_checkpoint:
         kw["checkpoint_dir"] = r.get_str("train.checkpoint_dir") or None
+    return EngineConfig(**kw)
+
+
+def _train_weights(cfg: CrawlerConfig, r: ConfigResolver, n_labels: int,
+                   device=None):
+    """train-head's starting point, ``(encoder config, f32 params,
+    tokenizer, device)``: the engine's weights in f32, without building
+    its model (the trainer builds its own, plain-attention where it
+    differentiates)."""
+    from .inference.engine import training_weights
+
+    return training_weights(_engine_config(cfg, r, n_labels=n_labels,
+                                           cast_params=False),
+                            device=device)
+
+
+def _make_engine(cfg: CrawlerConfig, r: ConfigResolver,
+                 n_labels: Optional[int] = None,
+                 with_checkpoint: bool = False, with_mesh: bool = False,
+                 device=None):
+    """One engine-wiring path for tpu-worker and cluster."""
+    from .inference.engine import InferenceEngine
+
+    if with_mesh:
+        _refuse_mesh(cfg)
+    inf = cfg.inference
     try:
-        return InferenceEngine(EngineConfig(**kw), device=device,
-                               dtype=None if cast_params else "float32")
+        return InferenceEngine(
+            _engine_config(cfg, r, n_labels, with_checkpoint),
+            device=device)
     except ValueError as e:
         if inf.attention != "xla":
             raise
@@ -1637,10 +1659,11 @@ def _train_examples(posts_file: str, labels_file: str):
             n_labels, vocab)
 
 
-def _train_full(engine, r: ConfigResolver, token_lists, labels,
+def _train_full(weights, r: ConfigResolver, token_lists, labels,
                 epochs: int, state_dir: str = ""):
-    """train-head's full scope on ``engine``'s params: its batch,
-    accumulation and optimizer settings from ``r``; (params, history)."""
+    """train-head's full scope from ``weights`` (`_train_weights`): its
+    batch, accumulation and optimizer settings from ``r``; (params,
+    history)."""
     from .models.train import TrainConfig, finetune_full
 
     batch = min(16, max(4, len(labels)))
@@ -1650,10 +1673,11 @@ def _train_full(engine, r: ConfigResolver, token_lists, labels,
     tc = TrainConfig(
         learning_rate=r.get_float("train.learning_rate", 2e-5),
         warmup_steps=10, grad_accum_steps=grad_accum)
+    ecfg, params, _, device = weights
     return finetune_full(
-        engine.ecfg, engine.params, token_lists, labels, tc=tc,
+        ecfg, params, token_lists, labels, tc=tc,
         epochs=epochs, batch_size=batch, state_dir=state_dir or None,
-        device=engine.device)
+        device=device)
 
 
 def _run_train_head(cfg: CrawlerConfig, r: ConfigResolver,
@@ -1684,10 +1708,9 @@ def _run_train_head(cfg: CrawlerConfig, r: ConfigResolver,
         return 2
     texts, labels, n_labels, vocab = examples
 
-    engine = _make_engine(cfg, r, n_labels=n_labels, cast_params=False,
-                          device=device)
-
-    token_lists = engine.tokenizer.encode_batch(texts)
+    weights = _train_weights(cfg, r, n_labels, device=device)
+    ecfg, params, tokenizer, dev = weights
+    token_lists = tokenizer.encode_batch(texts)
     epochs = r.get_int("train.epochs", 20)
     if epochs < 1:
         print("error: --train-epochs must be >= 1", file=sys.stderr)
@@ -1726,8 +1749,6 @@ def _run_train_head(cfg: CrawlerConfig, r: ConfigResolver,
         print(f"error: --train-state-dir applies to --train-scope full "
               f"only (scope is {scope})", file=sys.stderr)
         return 2
-    dev = engine.device
-    params = engine.params
     if scope == "lora":
         from .models.lora import finetune_lora
 
@@ -1735,18 +1756,18 @@ def _run_train_head(cfg: CrawlerConfig, r: ConfigResolver,
             learning_rate=r.get_float("train.learning_rate", 1e-4),
             warmup_steps=10)
         params, history = finetune_lora(
-            engine.ecfg, params, token_lists, labels,
+            ecfg, params, token_lists, labels,
             rank=lora_rank, tc=tc, epochs=epochs,
             batch_size=min(16, max(4, len(labels))), device=dev)
     elif scope == "full":
-        params, history = _train_full(engine, r, token_lists, labels,
+        params, history = _train_full(weights, r, token_lists, labels,
                                       epochs, state_dir)
     else:
         tc = TrainConfig(
             learning_rate=r.get_float("train.learning_rate", 1e-3),
             warmup_steps=10)
         params, history = finetune_head(
-            engine.ecfg, params, token_lists, labels, tc=tc,
+            ecfg, params, token_lists, labels, tc=tc,
             epochs=epochs, batch_size=min(32, max(8, len(labels))),
             buckets=tuple(cfg.inference.bucket_sizes), device=dev)
 

@@ -1,0 +1,47 @@
+"""The Telegram client boundary of the channel crawl: the port's copy of
+what the reference's `distributed_crawler_tpu/clients/` gives it.
+
+The 16-method `TelegramClient` protocol and its TL dataclasses, the error
+taxonomy, the per-method rate limiter, the connection pool, the username
+filter, and the in-process network simulation that stands in for
+Telegram (`sim.py`).  The reference's native client, DC gateway, HTTP
+validator, TL API and YouTube client wait for ROADMAP Queue 1.
+"""
+
+from .errors import FloodWaitError, TelegramError, parse_flood_wait_seconds
+from .pool import ConnectionPool, PooledConnection, PoolEmptyError
+from .rate_limiter import (
+    Clock,
+    FakeClock,
+    RateLimitedTelegramClient,
+    SystemClock,
+    TokenBucket,
+    detect_cache_or_server,
+)
+from .sim import SimChannel, SimNetwork, SimTelegramClient
+from .telegram import (
+    TelegramClient,
+    TLChat,
+    TLFile,
+    TLMessage,
+    TLMessageLink,
+    TLMessages,
+    TLMessageThreadInfo,
+    TLSupergroup,
+    TLSupergroupFullInfo,
+    TLUser,
+)
+from .username_filter import UsernameFilterResult, filter_username
+
+__all__ = [
+    "TelegramClient", "TelegramError", "FloodWaitError",
+    "parse_flood_wait_seconds",
+    "TLMessage", "TLMessages", "TLChat", "TLSupergroup",
+    "TLSupergroupFullInfo", "TLUser", "TLFile", "TLMessageLink",
+    "TLMessageThreadInfo",
+    "TokenBucket", "RateLimitedTelegramClient", "detect_cache_or_server",
+    "Clock", "SystemClock", "FakeClock",
+    "ConnectionPool", "PooledConnection", "PoolEmptyError",
+    "SimTelegramClient", "SimNetwork", "SimChannel",
+    "filter_username", "UsernameFilterResult",
+]

@@ -6,11 +6,13 @@ from .crawler import (
     CrawlerConfig,
     InferenceConfig,
     MediaConfig,
+    TelegramRateLimitConfig,
     generate_crawl_id,
 )
 from .precedence import ENV_PREFIX, ConfigResolver, env_key
 
 __all__ = [
     "ConfigResolver", "CrawlerConfig", "ENV_PREFIX", "InferenceConfig",
-    "MediaConfig", "env_key", "generate_crawl_id",
+    "MediaConfig", "TelegramRateLimitConfig", "env_key",
+    "generate_crawl_id",
 ]

@@ -2,12 +2,16 @@
 media settings of the reference's `distributed_crawler_tpu/config/
 crawler.py`, at the reference's defaults.
 
-`InferenceConfig` and `MediaConfig` are copied whole.  `CrawlerConfig`
-keeps the fields the port's modes read: the results sink, the crawl
-identity, the tenant, the object-store URL, the two blocks above, and the
-crawl settings the orchestrator copies into every work item
-(`bus/messages.WorkItemConfig`).  The crawler's client, validator and
-chunker settings belong to the reference's crawler.
+`InferenceConfig`, `MediaConfig` and `TelegramRateLimitConfig` are
+copied whole.  `CrawlerConfig` keeps the fields the port's modes and its
+channel crawl read: the results sink, the crawl identity, the tenant, the
+object-store URL, the two blocks above, the crawl settings the
+orchestrator copies into every work item (`bus/messages.WorkItemConfig`),
+the Telegram client's database URLs and gateway address (which the
+port's pool refuses until the native client lands) and the null-field
+rules.  `TelegramRateLimitConfig` is the connection pool's.  The random
+walk's, the validator's and the chunker's settings wait for their
+modules (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -17,6 +21,23 @@ from datetime import datetime, timezone
 from typing import List, Optional
 
 PLATFORM_TELEGRAM = "telegram"
+
+
+@dataclass
+class TelegramRateLimitConfig:
+    """Per-connection Telegram API rate limits, in calls per minute; the
+    jitter adds a random delay after each limited call.  GetMessage is
+    limited reactively: a token is spent only when the call misses the
+    client's local cache and reaches the server."""
+
+    get_chat_history_rate: float = 30.0
+    search_public_chat_rate: float = 6.0
+    get_supergroup_info_rate: float = 20.0
+    get_chat_history_jitter_ms: int = 500
+    search_public_chat_jitter_ms: int = 1500
+    get_supergroup_info_jitter_ms: int = 800
+    get_message_server_hit_rate: float = 60.0
+    get_message_server_hit_jitter_ms: int = 300
 
 
 @dataclass
@@ -112,6 +133,15 @@ class CrawlerConfig:
     min_channel_videos: int = 0
     # --max-crawl-duration, in seconds: 0 = unlimited.
     max_crawl_duration_s: float = 0.0
+    # The Telegram client's connection pool (`crawl/runner.
+    # setup_pool_from_config`): one connection per database URL, or
+    # wire connections to a DC gateway; both need the native client.
+    tdlib_database_url: str = ""
+    tdlib_database_urls: List[str] = field(default_factory=list)
+    dc_address: str = ""
+    # Null handling: user JSON overriding the default rules
+    # (`datamodel/validation.py`).
+    null_config: str = ""
 
 
 def generate_crawl_id(now: Optional[datetime] = None) -> str:

@@ -1,7 +1,8 @@
 """The post record: the unit the crawl writes and the text path embeds.
 
 The port's copy of the reference's `distributed_crawler_tpu/datamodel/
-post.py` (`Post` and the nested records it serializes).  Field names,
+post.py` (`Post`, the nested records it serializes, and the
+`NullLogEvent` the null-field validation emits).  Field names,
 order and the JSON bytes of `Post.to_json` are the reference's (a post
 written by either package is byte-equal), so a crawl's ``posts.jsonl``
 and the records of a `RecordBatch` read the same in both packages.
@@ -239,6 +240,28 @@ class MediaData:
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "MediaData":
         return cls(document_name=d.get("document_name", "") or "")
+
+
+@dataclass
+class NullLogEvent:
+    """A structured record of a null or empty field."""
+
+    platform: str = ""
+    data_type: str = ""
+    field_name: str = ""
+    strategy_used: str = ""
+    is_platform_limit: bool = False
+    message: str = ""
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "platform": self.platform,
+            "data_type": self.data_type,
+            "field_name": self.field_name,
+            "strategy_used": self.strategy_used,
+            "is_platform_limit": self.is_platform_limit,
+            "message": self.message,
+        }
 
 
 @dataclass

@@ -113,17 +113,15 @@ class InferenceEngine:
     (`models/from_jax.py`); without it the weights come from
     ``cfg.checkpoint_dir`` (a port checkpoint, `inference/checkpoint.py`),
     ``cfg.pretrained_dir``, or are drawn from a ``torch.Generator`` seeded
-    with ``cfg.seed``.  ``dtype`` replaces the model's activation dtype
-    (the trainer's engine is ``"float32"``, so `params` reads its f32
-    weights back exactly)."""
+    with ``cfg.seed``.  The trainer starts from `training_weights`, the
+    same weights in f32 without the model."""
 
     def __init__(self, cfg: EngineConfig,
                  mesh=None,
                  params: Optional[Any] = None,
                  tokenizer: Optional[Tokenizer] = None,
                  registry: MetricsRegistry = REGISTRY,
-                 device: Optional[Union[str, torch.device]] = None,
-                 dtype: Optional[str] = None):
+                 device: Optional[Union[str, torch.device]] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         if mesh is not None:
@@ -141,17 +139,8 @@ class InferenceEngine:
         if cfg.attention == "xla" and self.device.type == "cuda":
             raise ValueError("attention='xla' selects the plain version, "
                              "which never runs on the card")
-        if cfg.pretrained_dir:
-            self.ecfg, params, tokenizer = _load_pretrained(
-                cfg, params, tokenizer)
-        else:
-            self.ecfg = cfg.encoder_config()
-        if cfg.attention:
-            self.ecfg = replace(self.ecfg, attention=cfg.attention)
-        if cfg.moe_dispatch:
-            self.ecfg = replace(self.ecfg, moe_dispatch=cfg.moe_dispatch)
-        if dtype:
-            self.ecfg = replace(self.ecfg, dtype=dtype)
+        self.ecfg, params, tokenizer = _resolve_weights(cfg, params,
+                                                        tokenizer)
         self.label_names: Optional[List[str]] = None
         if cfg.checkpoint_dir:
             # The checkpoint's own head width wins; its hidden size must be
@@ -267,7 +256,11 @@ class InferenceEngine:
 
     def _load(self, ecfg: EncoderConfig, tree: Any,
               embed_dtype: torch.dtype) -> EmbedderClassifier:
-        model = EmbedderClassifier(ecfg, embed_dtype)
+        # Built on the engine's device: the default initialization that
+        # the loaded weights replace runs there, and each weight crosses
+        # to the card once.
+        with torch.device(self.device):
+            model = EmbedderClassifier(ecfg, embed_dtype)
         load_flax_params(model, tree)
         return model.to(self.device).eval()
 
@@ -618,6 +611,42 @@ def _round_floats(tree: Any, dtype: torch.dtype) -> Any:
     if a.dtype != np.float32:
         return tree
     return torch.from_numpy(np.array(a)).to(dtype).float().numpy()
+
+
+def _resolve_weights(cfg: EngineConfig, params: Optional[Any],
+                     tokenizer: Optional[Tokenizer],
+                     dtype: Optional[str] = None):
+    """(encoder config, params or None for `random_tree`'s, tokenizer or
+    None) of an engine built from ``cfg``, before any checkpoint restore,
+    cast or quantize; ``dtype`` replaces the activation dtype."""
+    if cfg.pretrained_dir:
+        ecfg, params, tokenizer = _load_pretrained(cfg, params, tokenizer)
+    else:
+        ecfg = cfg.encoder_config()
+    if cfg.attention:
+        ecfg = replace(ecfg, attention=cfg.attention)
+    if cfg.moe_dispatch:
+        ecfg = replace(ecfg, moe_dispatch=cfg.moe_dispatch)
+    if dtype:
+        ecfg = replace(ecfg, dtype=dtype)
+    return ecfg, params, tokenizer
+
+
+def training_weights(cfg: EngineConfig,
+                     device: Optional[Union[str, torch.device]] = None):
+    """train-head's starting point, ``(encoder config, params, tokenizer,
+    device)``: the f32 weights an engine built from ``cfg`` would load
+    (the checkpoint's as read, or `random_tree`'s) with the activation
+    dtype f32, without building the engine's model (the trainer builds
+    its own).  ``cfg`` sets no cast, quantize or checkpoint restore."""
+    if cfg.param_dtype or cfg.quantize or cfg.checkpoint_dir:
+        raise ValueError("training_weights: the config casts, quantizes "
+                         "or restores a checkpoint")
+    dev = resolve_device(device)
+    ecfg, params, tokenizer = _resolve_weights(cfg, None, None, "float32")
+    if params is None:
+        params = random_tree(ecfg, cfg.seed)
+    return ecfg, params, tokenizer or HashingTokenizer(ecfg.vocab_size), dev
 
 
 def _load_pretrained(cfg: EngineConfig, params: Optional[Any],

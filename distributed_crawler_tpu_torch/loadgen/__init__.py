@@ -21,9 +21,9 @@ or on the CPU when the caller asks):
 Entry point: ``python -m distributed_crawler_tpu_torch.loadgen --scenario
 kill-worker``.  Scenario files live under `loadgen/scenarios/`, a copy of
 the reference's; the format is documented in docs/operations.md "Load
-testing & chaos".  Scenarios with a ``crawl`` block (the simulated crawl
-leg) or a ``parallel`` block (the serving mesh) are refused: neither is
-ported.
+testing & chaos".  A ``crawl`` block runs the simulated crawl leg
+through the port's `CrawlWorker`; a ``parallel`` block (the serving mesh)
+is refused: it is not ported.
 """
 
 from .chaos import ChaosBus, ChaosController, Fault, parse_timeline

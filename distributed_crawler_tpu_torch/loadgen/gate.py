@@ -3,11 +3,16 @@
 The port's copy of the reference's `distributed_crawler_tpu/loadgen/
 gate.py`, over the port's own stack: the engine, the ASR pipeline and
 every worker are built on the card (``device=None``) or on the CPU
-(``device="cpu"``, as the tests ask).  Scenarios with a ``crawl`` block
-(the simulated crawl leg: the reference's `SimNetwork`, connection pool,
-crawl runner and `CrawlWorker`) or a ``parallel`` block (the serving
-mesh) are refused with a ValueError / NotImplementedError that names
-what is not ported; the entry point turns it into the error verdict.
+(``device="cpu"``, as the tests ask).  A ``crawl`` block runs the
+simulated crawl leg on the port's own modules: a seeded `SimNetwork`, a
+pool of `SimTelegramClient`s, the channel crawl runner and a `CrawlWorker`
+whose posts reach the text worker through an `InferenceBridge`.  One
+deliberate difference: the reference gives the crawl's state managers an
+in-memory SQL graph store (``SqlConfig(url=":memory:")``); the port's
+`CompositeStateManager` has none, and channel sampling never reaches it
+(ROADMAP Queue 3).  A ``parallel`` block (the serving mesh) is refused
+with a NotImplementedError that names what is not ported; the entry
+point turns it into the error verdict.
 
 A *scenario* is a JSON file (see `loadgen/scenarios/`) naming the
 workload, the bus transport, the chaos timeline, and the envelope the
@@ -77,6 +82,7 @@ from .generator import (
     PlannedBatch,
     PlannedRecord,
     SyntheticWorkload,
+    zipf_text,
 )
 
 logger = logging.getLogger("dct.loadgen.gate")
@@ -1040,6 +1046,34 @@ class WorkerHandle(_ServingWorkerHandle):
         self._engine.block_for(seconds)
 
 
+class _SimNetworkHandle:
+    """The chaos controller's view of the simulated Telegram backend:
+    ``flood`` injects a burst of FLOOD_WAIT errors (with real
+    ``retry_after_s`` hints) into the hot crawl methods, so an
+    ``at=1s flood network 1s`` timeline line reproduces the crawler's
+    defining failure mode: the resilience layer's server-directed backoff
+    (`utils/resilience.py`) must ride it out with zero loss."""
+
+    # FLOOD_WAITs injected per flood line: the history page reads take
+    # the brunt (the per-page hot path), the chat resolve a glancing
+    # hit.  Two queued history faults = one fetch exhausts its retry
+    # budget (FETCH_ATTEMPTS, 2) and fails over to an orchestrator page
+    # retry, and every retried call pays the proactive rate-limiter
+    # wait again, which is why flood scenarios budget a generous
+    # drain_timeout_s.
+    BURST = (("GetChatHistory", 2), ("SearchPublicChat", 1))
+
+    def __init__(self, net):
+        self.net = net
+
+    def flood(self, retry_after_s: float) -> None:
+        seconds = max(1, int(round(retry_after_s)))
+        for method, count in self.BURST:
+            self.net.inject_flood_wait(method, seconds, count=count)
+        flight.record("flood_wait_storm", retry_after_s=seconds,
+                      methods=[m for m, _ in self.BURST])
+
+
 def _teardown(label: str, fn) -> None:
     """Per-step teardown isolation for the gates' finally blocks: one
     failing close (e.g. a killed worker's RemoteBus) must not leak the
@@ -1076,14 +1110,37 @@ def _written_uids(provider, crawl_ids: List[str],
     return counts
 
 
+def _seed_sim_network(crawl_cfg: Dict[str, Any], seed: int):
+    """A deterministic SimNetwork for the crawl leg: ``channels``
+    channels of ``posts_per_channel`` Zipf-length messages (the
+    reference's network for the same seed)."""
+    import random as _random
+
+    from ..clients import SimNetwork
+    from ..clients.telegram import TLMessage
+
+    rng = _random.Random(seed)
+    net = SimNetwork()
+    names = []
+    for c in range(int(crawl_cfg.get("channels", 2))):
+        name = f"loadchan{c}"
+        msgs = []
+        for i in range(int(crawl_cfg.get("posts_per_channel", 4))):
+            u = max(1e-9, 1.0 - rng.random())
+            words = max(1, min(80, int(u ** (-1.0 / 0.6))))
+            msgs.append(TLMessage(
+                content={"@type": "messageText",
+                         "text": {"text": zipf_text(c * 100 + i, words),
+                                  "entities": []}},
+                date=1700000000 + i, view_count=rng.randrange(1000)))
+        net.add_channel(name, messages=msgs, member_count=500)
+        names.append(name)
+    return net, names
+
+
 def _refuse_unported(scenario: Dict[str, Any]) -> None:
-    """The blocks whose code path the port does not have yet."""
+    """The block whose code path the port does not have yet."""
     name = scenario.get("name", "?")
-    if scenario.get("crawl"):
-        raise ValueError(
-            f"scenario {name!r}: the \"crawl\" block needs the simulated "
-            f"crawl leg (SimNetwork, the connection pool, the crawl runner "
-            f"and CrawlWorker), which the port has not ported yet")
     if scenario.get("parallel"):
         raise NotImplementedError(
             f"scenario {name!r}: multi-device serving is not ported yet "
@@ -1242,6 +1299,8 @@ def run_scenario(scenario: Dict[str, Any],
     server = None
     inner_bus = None
     orch_handle = None
+    crawl_worker = None
+    pool_installed = False
     handle = None
     supervisor = None
     autoscaler = None
@@ -1441,10 +1500,21 @@ def run_scenario(scenario: Dict[str, Any],
                 crawl_execution_id="e1",
                 storage_root=os.path.join(tmpdir, sub)))
 
+        crawl_leg = scenario.get("crawl")
         crawler_cfg = CrawlerConfig(
             crawl_id=scenario.get("crawl_id", "c1"), platform="telegram",
             skip_media_download=True, sampling_method="channel")
         seeds: List[str] = []
+        if crawl_leg:
+            from ..clients import SimTelegramClient
+            from ..clients.pool import ConnectionPool
+            from ..crawl import runner as crawl_runner
+
+            net, seeds = _seed_sim_network(crawl_leg, load_cfg.seed)
+            crawl_runner.shutdown_connection_pool()
+            crawl_runner.init_connection_pool(ConnectionPool.for_testing(
+                {"conn0": SimTelegramClient(net, conn_id="conn0")}))
+            pool_installed = True
         # Watchtower rules: a scenario "alerts" block (a list of rule
         # dicts) REPLACES same-named defaults and keeps the rest of the
         # pack — chaos scenarios shrink the burn windows to their own
@@ -1468,9 +1538,10 @@ def run_scenario(scenario: Dict[str, Any],
                                               window_s=budget_window_s)
             return orch
 
-        # No crawl leg: the orchestrator folds the fleet, runs the
+        # Without a crawl leg the orchestrator folds the fleet, runs the
         # watchtower and the tenant ledger, and distributes no work.
-        orch_handle = OrchestratorHandle(_make_orch, seeds, drive=False)
+        orch_handle = OrchestratorHandle(_make_orch, seeds,
+                                         drive=bool(crawl_leg))
         orch_handle.start()
         cluster_provider = orch_handle.get_cluster
         set_cluster_provider(cluster_provider)
@@ -1486,6 +1557,19 @@ def run_scenario(scenario: Dict[str, Any],
         alert_msgs: List[Dict[str, Any]] = []
         local_bus.subscribe(TOPIC_ALERTS,
                             lambda payload: alert_msgs.append(payload))
+
+        if crawl_leg:
+            from ..inference.bridge import InferenceBridge
+            from ..worker import CrawlWorker, WorkerConfig
+
+            bridge = InferenceBridge(
+                _sm("crawl"), chaos_bus, crawl_id=crawler_cfg.crawl_id,
+                batch_size=int(crawl_leg.get("batch_size", 4)),
+                deadline_s=0.05)
+            crawl_worker = CrawlWorker(
+                "crawl-1", crawler_cfg, local_bus, bridge,
+                wcfg=WorkerConfig(worker_id="crawl-1", heartbeat_s=0.5))
+            crawl_worker.start()
 
         # --- TPU worker ----------------------------------------------------
         handle = WorkerHandle(worker_name, make_worker_bus, engine,
@@ -1506,6 +1590,11 @@ def run_scenario(scenario: Dict[str, Any],
             # `down bus` / `kill bus` timeline lines hard-stop the broker
             # generation; restart rebuilds over the same spool dir + port.
             targets["bus"] = server
+        if crawl_worker is not None:
+            targets["crawl-1"] = crawl_worker
+        if crawl_leg:
+            # `flood network <retry_after>` lines reach the sim backend.
+            targets["network"] = _SimNetworkHandle(net)
         controller = ChaosController(timeline, targets=targets,
                                      bus=chaos_bus, publish_bus=local_bus,
                                      dynamic_targets=bool(pool_policies))
@@ -1664,6 +1753,17 @@ def run_scenario(scenario: Dict[str, Any],
             _fleet_tick()
             time.sleep(0.02)
         controller.stop()
+        if crawl_leg:
+            # Drive the (possibly restarted) orchestrator until the crawl
+            # itself completes, resumed in-flight pages included.
+            deadline = time.monotonic() + drain_timeout_s
+            while time.monotonic() < deadline:
+                orch_handle.tick()
+                _fleet_tick()
+                o = orch_handle.orch
+                if o is not None and o.crawl_completed:
+                    break
+                time.sleep(0.02)
         _flush_outboxes(drain_timeout_s)
         if server is not None:
             server.drain(timeout_s=drain_timeout_s)
@@ -2176,6 +2276,8 @@ def run_scenario(scenario: Dict[str, Any],
                 _teardown(h.name, h.stop)
         elif handle is not None:
             _teardown("tpu-worker", handle.stop)
+        if crawl_worker is not None:
+            _teardown("crawl-worker", crawl_worker.stop)
         if orch_handle is not None:
             _teardown("orchestrator", orch_handle.stop)
         if cluster_provider is not None:
@@ -2202,6 +2304,11 @@ def run_scenario(scenario: Dict[str, Any],
                       lambda: clear_shards_provider(shards_provider))
         if http_server is not None:
             _teardown("http-server", http_server.shutdown)
+        if pool_installed:
+            from ..crawl import runner as crawl_runner
+
+            _teardown("connection-pool",
+                      crawl_runner.shutdown_connection_pool)
         if local_outbox is not None:
             # close_inner=False: stops the outbox flusher only — the
             # broker handle is torn down on its own line below.

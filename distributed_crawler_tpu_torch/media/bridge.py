@@ -11,7 +11,9 @@ empty transcripts are counted, not stored.
 
 The reference's `MediaBridge` (the crawl's media writes into
 `AudioBatchMessage`s) is not ported: only the reference's crawl modes build
-it (ROADMAP Queue 1, with the load gate).
+it, and it waits with them (ROADMAP Queue 1 part C).  The port's channel
+crawl already calls the hook it implements (``notify_media_stored``, in
+`telegram/parsing.fetch_and_upload_media`) on a manager that has one.
 """
 
 from __future__ import annotations

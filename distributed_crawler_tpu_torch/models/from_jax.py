@@ -192,9 +192,13 @@ def load_leaves(tree: Mapping[str, Any],
                 arr = arr.transpose(2, 1, 0)
             elif kind == "experts":
                 arr = arr.transpose(0, 2, 1)
-            src = np.array(arr.reshape(target.shape), order="C",
-                           dtype=np.int8 if arr.dtype == np.int8
-                           else np.float32)  # a writable copy
+            src = arr.reshape(target.shape)
+            want = np.int8 if arr.dtype == np.int8 else np.float32
+            if src.dtype != want or not src.flags.writeable:
+                src = src.astype(want)  # a writable copy
+            # Strided views (a transposed kernel) copy as they are; the
+            # bulk of the bytes (the embedding tables) is not copied
+            # again on the host.
             target.copy_(torch.from_numpy(src))
 
 
@@ -211,7 +215,10 @@ def leaves_tree(expected: Dict[str, _Leaf]) -> Dict[str, Any]:
             a = a.permute(2, 1, 0)
         elif kind == "experts":
             a = a.transpose(1, 2)
-        flat[path] = a.reshape(shape).numpy().copy()
+        a = a.reshape(shape).contiguous()
+        if a.untyped_storage().data_ptr() == t.untyped_storage().data_ptr():
+            a = a.clone()  # never a view of the model's own weights
+        flat[path] = a.numpy()
     return {"params": nest_tree(flat)}
 
 

@@ -121,7 +121,9 @@ def write_safetensors(path: str, tensors: Mapping[str, np.ndarray]) -> int:
         f.write(struct.pack("<Q", len(raw)))
         f.write(raw)
         for a in arrays:
-            f.write(a.tobytes())
+            # The array's own C-ordered bytes, without a copy.
+            f.write(memoryview(a).cast("B") if a.ndim and a.size
+                    else a.tobytes())
     return 8 + len(raw) + off
 
 
@@ -198,7 +200,7 @@ def convert_roberta_encoder(state: Mapping[str, np.ndarray],
         pos += type_emb[0][None, :]
     tree: Dict[str, Any] = {
         "embed_tokens": state["embeddings.word_embeddings.weight"].astype(
-            np.float32),
+            np.float32, copy=False),
         "embed_positions": pos,
         "ln_embed": _ln(state, "embeddings.LayerNorm"),
     }

@@ -500,6 +500,7 @@ def finetune_full(ecfg: EncoderConfig, params: Any,
                     f"only {epochs} were requested — raise epochs to "
                     f"continue or point state_dir elsewhere")
 
+    saved = None  # the last epoch's params, as its train state holds them
     for epoch in range(start_epoch, epochs):
         rng = np.random.default_rng(seed + epoch)
         losses, accs, auxes = [], [], []
@@ -514,6 +515,8 @@ def finetune_full(ecfg: EncoderConfig, params: Any,
         if state_dir:
             from ..inference.checkpoint import save_train_state
 
-            save_train_state(state_dir, epoch, step.params(),
-                             step.opt_state(), history)
-    return {"params": step.params()}, history
+            saved = step.params()
+            save_train_state(state_dir, epoch, saved, step.opt_state(),
+                             history)
+    return {"params": saved if saved is not None
+            else step.params()}, history

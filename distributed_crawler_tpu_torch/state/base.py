@@ -3,12 +3,12 @@
 The reference's `BaseStateManager` (`distributed_crawler_tpu/state/
 base.py`), for what the orchestrator drives: a layer map + page map
 behind a lock, URL dedup and the max-pages deadend-replacement rule in
-`add_layer`, crawl metadata and incomplete-crawl detection.  The
-random-walk and tandem methods, message-status tracking, the media cache
-and the combined-file upload belong to the crawler's half and are not
-ported; neither is the random-walk seeding of `initialize`, since the
-port's orchestrator refuses ``--sampling random-walk`` (it needs the SQL
-graph store).
+`add_layer`, crawl metadata and incomplete-crawl detection, and what the
+channel crawl calls: `update_message` and the processed-media set, which
+remembers nothing here (the reference's `LocalStateManager` backs it with
+a media cache, `state/media_cache.py`, ROADMAP Queue 1 part B).  The random-walk and tandem methods, the random-walk seeding of
+`initialize` and the combined-file upload need the SQL graph store or the
+crawl modes and are not ported (ROADMAP Queue 1 parts B and C).
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from .datamodels import (
     PAGE_FETCHED,
     CrawlMetadata,
     Layer,
+    Message,
     Page,
     State,
     new_id,
@@ -85,6 +86,21 @@ class BaseStateManager:
             ids = self.layer_map.get(page.depth)
             if ids is not None and page.id not in ids:
                 ids.append(page.id)
+
+    def update_message(self, page_id: str, chat_id: int, message_id: int,
+                       status: str) -> None:
+        """Set a message's status, appending it if new."""
+        with self._lock:
+            page = self.page_map.get(page_id)
+            if page is None:
+                raise KeyError(f"page with ID {page_id} not found")
+            for m in page.messages:
+                if m.chat_id == chat_id and m.message_id == message_id:
+                    m.status = status
+                    return
+            page.messages.append(Message(chat_id=chat_id,
+                                         message_id=message_id,
+                                         status=status, page_id=page_id))
 
     # --- layers ----------------------------------------------------------
     def add_layer(self, pages: List[Page]) -> None:
@@ -217,3 +233,10 @@ class BaseStateManager:
                         if page is not None and page.status != PAGE_FETCHED:
                             return self.metadata.execution_id, True
             return "", False
+
+    # --- the processed-media set -----------------------------------------
+    def has_processed_media(self, media_id: str) -> bool:
+        return False
+
+    def mark_media_as_processed(self, media_id: str) -> None:
+        return None

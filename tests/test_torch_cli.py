@@ -1354,3 +1354,76 @@ def test_orchestrator_process_crawls_with_the_references_worker(
     with open(tmp_path / "store" / "c9" / "metadata.json",
               encoding="utf-8") as f:
         assert json.load(f)["status"] == "completed"
+
+
+def test_orchestrator_process_crawls_with_the_ports_worker(tmp_path):
+    """The same crawl with the port's own `CrawlWorker`: its pool of
+    `SimTelegramClient`s over the port's `SimNetwork`, the port's
+    `RemoteBus` into the orchestrator process; the process exits 0 once
+    the crawl completes, every page fetched."""
+    pytest.importorskip("grpc")
+    from distributed_crawler_tpu_torch.bus.grpc_bus import RemoteBus
+    from distributed_crawler_tpu_torch.clients import (
+        ConnectionPool,
+        SimNetwork,
+        SimTelegramClient,
+        TLMessage,
+    )
+    from distributed_crawler_tpu_torch.config.crawler import CrawlerConfig
+    from distributed_crawler_tpu_torch.crawl import runner as crawl_runner
+    from distributed_crawler_tpu_torch.state import (
+        CompositeStateManager,
+        StateConfig,
+    )
+    from distributed_crawler_tpu_torch.worker import CrawlWorker
+
+    def text(t, **kw):
+        return TLMessage(content={"@type": "messageText",
+                                  "text": {"text": t, "entities": []}}, **kw)
+
+    net = SimNetwork()
+    net.add_channel("chana", messages=[
+        text("hello t.me/chanb", date=1700000000, view_count=5),
+    ], member_count=100)
+    net.add_channel("chanb", messages=[
+        text("plain message", date=1700000100, view_count=3),
+    ], member_count=200)
+    crawl_runner.shutdown_connection_pool()
+    crawl_runner.init_connection_pool(ConnectionPool.for_testing(
+        {"conn0": SimTelegramClient(net, conn_id="conn0")}))
+    address = f"127.0.0.1:{free_port()}"
+    proc, url = _orch_process(tmp_path, "--urls", "chana", "--bus-address",
+                              address, "--max-depth", "2")
+    remote = worker = None
+    try:
+        _wait_route(proc, url + "/status")
+        remote = RemoteBus(address)
+        worker = CrawlWorker(
+            "w1", CrawlerConfig(crawl_id="c9", platform="telegram",
+                                skip_media_download=True,
+                                sampling_method="channel"),
+            remote, CompositeStateManager(StateConfig(
+                crawl_id="c9", crawl_execution_id="e1",
+                storage_root=str(tmp_path / "wrk"))))
+        worker.start(background=False)
+        assert proc.wait(timeout=90) == 0, proc.communicate()[1][-2000:]
+    finally:
+        if worker is not None:
+            worker.stop()
+        if remote is not None:
+            remote.close()
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate()
+        crawl_runner.shutdown_connection_pool()
+    with open(tmp_path / "store" / "c9" / "state.json",
+              encoding="utf-8") as f:
+        layers = json.load(f)["layers"]
+    assert [[(p["url"], p["status"]) for p in layer["pages"]]
+            for layer in layers] == [[("chana", "fetched")],
+                                     [("chanb", "fetched")]]
+    with open(tmp_path / "store" / "c9" / "metadata.json",
+              encoding="utf-8") as f:
+        assert json.load(f)["status"] == "completed"
+    posts = tmp_path / "wrk" / "c9" / "chana" / "posts" / "posts.jsonl"
+    assert len(posts.read_text().splitlines()) == 1

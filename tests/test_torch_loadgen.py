@@ -15,10 +15,17 @@ CPU, without running traffic:
   messages;
 - the scenario files are byte-equal, and the entry point's ``--list``,
   ``--smoke`` and unknown-scenario error print what ``tools/loadtest.py``
-  prints; ``crawl`` and ``parallel`` blocks get the error verdict naming
-  what is not ported.
+  prints; a ``parallel`` block gets the error verdict naming what is not
+  ported;
+- the crawl leg: `_seed_sim_network` builds the reference's network for a
+  seed, and the four scenarios with a ``crawl`` block (``steady-state``,
+  ``kill-orchestrator``, ``partitioned-steady``, ``flood-wait-storm``)
+  pass through the port's gate with ``device="cpu"``.  These four run
+  traffic: the crawl's rate limiter waits in real time (a search every
+  10 s per connection), so ``flood-wait-storm``'s retried crawl takes
+  about 80 s on its own.
 
-The end-to-end runs are in `tests/test_torch_loadgen_*.py`.
+The other end-to-end runs are in `tests/test_torch_loadgen_*.py`.
 """
 
 import json
@@ -396,8 +403,6 @@ def test_entry_point_prints_what_loadtest_prints(argv, capsys):
 
 
 @pytest.mark.parametrize("name,needle", [
-    ("steady-state", "crawl leg"), ("kill-orchestrator", "crawl leg"),
-    ("partitioned-steady", "crawl leg"), ("flood-wait-storm", "crawl leg"),
     ("multichip-steady", "multi-device serving is not ported yet"),
 ])
 def test_unported_blocks_get_the_error_verdict(name, needle, capsys):
@@ -472,3 +477,77 @@ def test_parser_flags_are_the_references():
                 for a in p._actions}
 
     assert flags(tmain.build_parser()) == flags(loadtest.build_parser())
+
+
+# -- the crawl leg ------------------------------------------------------------
+def _network(gate_mod, crawl_cfg, seed):
+    net, names = gate_mod._seed_sim_network(crawl_cfg, seed)
+    return names, [
+        (ch.username, ch.chat_id, ch.supergroup_id, ch.title,
+         ch.member_count,
+         [(m.id, m.chat_id, m.date, m.view_count, m.content)
+          for m in ch.messages])
+        for ch in net.channels.values()]
+
+
+@pytest.mark.parametrize("seed", [11, 31, 37, 0])
+def test_seed_sim_network_is_the_references(seed):
+    """The crawl leg's network for a seed: the same channels, ids and
+    messages in both packages, for every checked-in ``crawl`` block."""
+    blocks = [jlg.load_scenario(n)["crawl"] for n in SCENARIOS
+              if jlg.load_scenario(n).get("crawl")]
+    assert len(blocks) == 4
+    for block in blocks + [{}]:
+        assert _network(tlg.gate, block, seed) \
+            == _network(jlg.gate, block, seed)
+
+
+CRAWL_LEG = ("steady-state", "kill-orchestrator", "partitioned-steady",
+             "flood-wait-storm")
+
+
+@pytest.mark.parametrize("name", CRAWL_LEG)
+def test_crawl_leg_scenario_passes_through_the_port(name):
+    """Each crawl-leg scenario through the port's gate on the CPU: the
+    port's `SimNetwork`, pool, runner and `CrawlWorker` feed the text
+    worker through the `InferenceBridge`; ``pass`` with nothing lost or
+    duplicated.  ``steady-state``: traces spanning two processes, no
+    scale event; ``kill-orchestrator``: the reference's
+    `test_kill_orchestrator_scenario_resumes_from_journal`;
+    ``partitioned-steady``: three shards, each on its first generation,
+    every page fetched once; ``flood-wait-storm``: the storm flight-
+    recorded and the crawl completed."""
+    verdict = tlg.run_scenario(tlg.load_scenario(name), device="cpu")
+    assert verdict["status"] == "pass", json.dumps(verdict["checks"])
+    assert verdict["lost"] == 0 and verdict["duplicates"] == 0
+    checks = verdict["checks"]
+    orch = verdict["orchestrator"]
+    if name == "steady-state":
+        assert checks["dtrace_processes"]["ok"]
+        assert verdict["dtraces"]["multi_process"] >= 1
+        assert verdict["autoscaler"]["decisions"] == 0
+        assert checks["scale_events"]["value"] == 0
+    elif name == "kill-orchestrator":
+        assert orch["generations"] == 2 and orch["resumed"]
+        assert orch["pages_by_status"] == {"fetched": 2}
+        assert orch["completed_items"] == 2
+        assert checks["orch_pages_lost"]["ok"]
+        assert checks["orch_result_duplicates"]["ok"]
+        assert checks["flight_orch_kill"]["ok"]
+        assert checks["flight_orch_resume"]["ok"]
+        assert verdict["tail_breaches"] == {}
+        budget = checks["tail_queue_wait_p95_ms"]
+        assert budget["ok"] and budget["value"] <= budget["budget"]
+    elif name == "partitioned-steady":
+        assert verdict["bus_shards"]["count"] == 3
+        assert sum(verdict["bus_shards"]["routed_batches"].values()) > 0
+        assert verdict["bus_shards"]["generations"] == \
+            {"bus-0": 1, "bus-1": 1, "bus-2": 1}
+        assert checks["flight_frontier_shards"]["ok"]
+        assert orch["pages_by_status"] == {"fetched": 3}
+        assert orch["completed_items"] == 3
+    else:
+        assert checks["flight_flood_wait_storm"]["ok"]
+        assert checks["scale_events"]["value"] == 0
+        assert orch["pages_by_status"] == {"fetched": 2}
+        assert orch["completed_items"] == 2

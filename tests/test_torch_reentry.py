@@ -335,8 +335,10 @@ def test_bridge_delegates_everything_else(tmp_path):
     try:
         assert bridge.crawl_id == "d2"
         assert bridge.provider is inner.provider
+        # The channel crawl's state call, on the wrapped manager.
+        assert bridge.update_message == inner.update_message
         with pytest.raises(AttributeError):
-            bridge.update_message  # noqa: B018 (not a port method)
+            bridge.no_such_method  # noqa: B018 (no manager has it)
     finally:
         bridge.close()
         bus.close()
