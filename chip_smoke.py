@@ -290,10 +290,12 @@ JSON line each:
    (rate limits off) and a `CompositeStateManager` on a SQLite graph file
    behind an `InferenceBridge`.  The walk stores channel data and no posts
    (the reference's rule), so its next channels, the page buffer's rows,
-   are then crawled by a second ``--mode orchestrator`` (channel sampling)
-   through the same kind of worker, 64 posts each, into the tpu-worker.
-   Checks: both orchestrators exit 0 with metadata ``completed`` and
-   every page fetched; in the walk's graph file, per seed, exactly one
+   are then crawled (channel sampling, 64 posts each) by a `CrawlWorker`
+   in this process behind an `InferenceBridge` on a broker the script
+   hosts at the phase's address, into the tpu-worker.  Checks: the
+   orchestrator exits 0 with metadata ``completed`` and every page
+   fetched; each follow-on item a success with its 64 posts; in the
+   walk's graph file, per seed, exactly one
    primary edge (forward or walkback), skipped edges for its other new
    channels and one page-buffer row on the primary destination whose
    ``sequence_id`` follows the forward/walkback rule; ``seed_channels``
@@ -301,7 +303,34 @@ JSON line each:
    ``invalid_channels`` holding both bad usernames with their reasons;
    the walk's bridge shipping no post; every stored post committed once by
    the tpu-worker, 384 finite floats each; 12 sm90 launches per dispatch
-   over run C.
+   over run C.  Run D (slice.tandem_walk), over the same tpu-worker: the
+   tandem random walk as the reference deploys it, two pods coupled only
+   by one SQLite graph file.  Run C's network drawn anew plus a ninth seed
+   naming a username that t.me shows as valid but the network does not
+   hold (crawling it raises TDLib400Error, so the 400-replacement runs);
+   a t.me stand-in on loopback (`http.server`, the fixtures' pages by what
+   the network holds) counting its requests; the validator pod, ``--mode
+   launch --validate-only`` as a CLI process started at the walk's start
+   (the reference's poll intervals, the rate limit off, walkback rate 0);
+   the crawler pod, `modes.runner.launch` in this process on run C's pool
+   with ``tandem_crawl``, a 15 s ``max_crawl_duration_s`` and a 0.25 s
+   page-buffer poll, the seeds in the graph's seed pool.  Once every batch
+   completes the validator is stopped by SIGTERM; the channels the walk
+   stepped to and fetched are then crawled by a `CrawlWorker` in this
+   process behind an `InferenceBridge`, on a broker this script hosts at
+   the phase's address.  Checks: the validator exits 130 and made no
+   ``access_events`` row; launch's metadata ``completed`` and no batch
+   left incomplete; every pending edge's final status the one its page
+   gives (the first edge to a name; a later one from the caches: duplicate
+   or cached_invalid), read from triggers the script adds to the graph
+   file, and one stand-in request per name; every primary forward edge to
+   a valid name, neither bad name a primary destination,
+   ``invalid_channels`` holding both and the 400 name (``tdlib_400``); the
+   400 name's edge gone and a replacement from its source; every
+   page-buffer row left on a forward edge's chain or a walkback's new one;
+   a forced walkback; no post stored by the walk; every post of the
+   follow-on crawl committed once by the tpu-worker as 384 finite floats;
+   12 sm90 launches per dispatch over run D.
 16. slice.autoscaler (after phase 15, on its machinery) — ``--mode
    orchestrator --autoscaler`` with phase 15's crawl, spool, journal and
    rule, ``--autoscaler-eval-interval 1`` and one pool ``tpu`` of one to
@@ -3550,7 +3579,7 @@ OPS_ASR_SECONDS = (7.0, 19.0)  # two WAVs of one 30 s window each
 # The spin runs well past stall_exit_s: the clock that calibrates it may
 # still be ramping, so the spin can come out shorter than asked.
 OPS_SPIN_S, OPS_SPIN_WARN_S, OPS_SPIN_EXIT_S = 1.0, 0.1, 0.3
-OPS_PAIRS = 10              # knobs-on/knobs-off run pairs
+OPS_PAIRS = 5               # knobs-on/knobs-off run pairs
 
 
 def free_port():
@@ -4159,6 +4188,9 @@ def phase_ops(torch, np, seed, smi, engine_rows):
              if d["message_type"] == "worker_stopping"]
     check(len(stops) == 1 and stops[0]["status"] == "offline",
           f"stop() announced {stops}")
+    # Right after a beat, so that none is being built when kill() stops
+    # the heartbeat thread (a beat under way is published, kill or not).
+    tap.wait_beat("smoke-ops-cluster")
     n_cluster = len(tap.of("smoke-ops-cluster"))
     cw.kill()
     cw.stop()   # after kill(): silent, closes the metrics server
@@ -7260,8 +7292,9 @@ def check_walk(rows, net, seeds, kids, pages):
 
 def walk_run(np, procs, root, address, store, url, seed):
     """Run C: the walk's step over the seeds, then a channel crawl of the
-    channels it stepped to; 12 sm90 launches per dispatch of the
-    tpu-worker over both."""
+    channels it stepped to in this process (the walk's orchestrator has
+    exited, so the script hosts the bus); 12 sm90 launches per dispatch
+    of the tpu-worker over both."""
     from distributed_crawler_tpu_torch.crawl import runner as crawl_runner
 
     net, seeds, kids = walk_network(np, seed)
@@ -7278,23 +7311,11 @@ def walk_run(np, procs, root, address, store, url, seed):
               f"bridged {walk['bridge']['posts']} (a random walk stores "
               f"none); the orchestrator's graph file {walk['orch_graph']}")
         nxt = [b[0] for b in rows["buffer"]]
-        crawl = walk_crawl(procs, root, address, store, "C2", nxt)
+        with PhaseBroker(address):
+            crawl = follow_on_crawl(np, os.path.join(root, "C2"), address,
+                                    store, nxt, "orch-C2", "C")
     finally:
         crawl_runner.shutdown_connection_pool()
-    want = set(crawl["stored"])
-    check(len(crawl["stored"]) == len(want) == len(nxt) * WALK_POSTS,
-          f"run C: {len(crawl['stored'])} posts stored ({len(want)} "
-          f"distinct) from {len(nxt)} channels of {WALK_POSTS}")
-    out = poll_until(lambda: (lambda r: len(r) >= len(want) and r)(
-        orch_rows(store, crawl["crawl_id"])),
-        "run C: the tpu-worker's rows", timeout_s=120)
-    uids = [r["post_uid"] for r in out]
-    check(len(uids) == len(want) and set(uids) == want,
-          f"run C: {len(uids)} rows ({len(set(uids))} posts) for "
-          f"{len(want)} stored posts")
-    check(all(len(r["embedding"]) == 384 and np.isfinite(
-        r["embedding"]).all() for r in out),
-          "run C: result embeddings not 384 finite floats")
     after, d1 = proc_counts(url)
     launches = {p: after[p] - before[p] for p in after}
     check_sm90_only(launches, 12, d1 - d0, "run C's tpu-worker")
@@ -7308,10 +7329,437 @@ def walk_run(np, procs, root, address, store, url, seed):
         "invalid_marks": len(rows["invalid"]),
         "seed_channel_chat_ids": len(rows["seeds"]),
         "walk_crawl_s": walk["crawl_s"], "walk_posts": len(walk["stored"]),
-        "next_pages": len(nxt), "posts": len(want),
-        "posts_committed": len(uids), "crawl_s": crawl["crawl_s"],
-        "bridge_batches": crawl["bridge"]["batches"],
+        "next_pages": len(nxt), "posts": crawl["follow_on_posts"],
+        "posts_committed": crawl["follow_on_commits"],
+        "crawl_s": crawl["follow_on_s"],
+        "bridge_batches": crawl["bridge_batches"],
         "dispatches": d1 - d0, "kernel_launches_by_path": launches}
+
+
+# Phase 15's run D (slice.tandem_walk): the tandem random walk, the
+# reference's two-pod deployment.  The crawler pod is `modes.runner.launch`
+# in this process; the validator pod is ``--mode launch --validate-only``,
+# a CLI process that validates the crawler's pending edges against a t.me
+# stand-in on loopback; they share one SQLite graph file and nothing else.
+# The channels the walk stepped to are then crawled into the tpu-worker.
+TANDEM_FOUR_SEED = "rwfourseed"   # a seed naming the 400 name and the ghost
+TANDEM_FOUR = "rwfourhundred"     # valid on t.me, unknown to the network
+TANDEM_WINDOW_S = 15.0            # the walk's max_crawl_duration_s
+TANDEM_POLL_S = 0.25              # the walk's page-buffer poll
+TANDEM_FIXTURES = {"valid": "valid-channel.html",
+                   "not_supergroup": "not-a-supergroup.html",
+                   "not_found": "username-not-occupied.html"}
+# The final status (and reason) an edge gets from each page: the first
+# edge to a name from the page, a later one from the validator's caches.
+TANDEM_FIRST = {"valid": ("valid", ""),
+                "not_supergroup": ("not_channel", "not_supergroup"),
+                "not_found": ("invalid", "not_found")}
+TANDEM_LATER = {"valid": ("duplicate", ""),
+                "not_supergroup": ("invalid", "cached_invalid"),
+                "not_found": ("invalid", "cached_invalid")}
+# The script's own record of every pending edge's statuses: triggers on
+# the shared graph file, which the port never reads.
+TANDEM_EDGE_LOG = """
+CREATE TABLE smoke_edge_log (n INTEGER PRIMARY KEY AUTOINCREMENT,
+    pending_id INTEGER, channel TEXT, status TEXT, reason TEXT);
+CREATE TRIGGER smoke_edge_new AFTER INSERT ON pending_edges BEGIN
+    INSERT INTO smoke_edge_log (pending_id, channel, status, reason)
+    VALUES (NEW.pending_id, NEW.destination_channel, 'inserted', '');
+END;
+CREATE TRIGGER smoke_edge_final AFTER UPDATE OF validation_status
+    ON pending_edges WHEN NEW.validation_status NOT IN ('pending',
+    'validating') BEGIN
+    INSERT INTO smoke_edge_log (pending_id, channel, status, reason)
+    VALUES (NEW.pending_id, NEW.destination_channel,
+            NEW.validation_status, NEW.validation_reason);
+END;
+"""
+
+
+def tandem_page(net, name):
+    """The class of t.me's page for ``name``, rendered from the network:
+    the 400 name shows as a valid channel."""
+    ch = net.channels.get(name)
+    if name == TANDEM_FOUR or (ch is not None and ch.is_supergroup):
+        return "valid"
+    return "not_supergroup" if ch is not None else "not_found"
+
+
+class TmeStandIn:
+    """t.me on loopback (`http.server`): each username's page from the
+    fixtures, by `tandem_page`; the requests counted per username."""
+
+    def __init__(self, net):
+        import http.server
+        import threading
+
+        fixtures = os.path.join(ROOT, "tests", "fixtures", "telegram-html")
+        bodies = {}
+        for cls, name in TANDEM_FIXTURES.items():
+            with open(os.path.join(fixtures, name), "rb") as f:
+                bodies[cls] = f.read()
+        self.requests = {}
+        lock = threading.Lock()
+        stand_in = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):
+                name = self.path.strip("/")
+                with lock:
+                    stand_in.requests[name] = \
+                        stand_in.requests.get(name, 0) + 1
+                body = bodies[tandem_page(net, name)]
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *a):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                      Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       name="tme-stand-in", daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=10)
+
+
+def tandem_rows(path):
+    """The shared graph file after the walk, read with sqlite3 alone."""
+    import sqlite3
+
+    con = sqlite3.connect(path)
+    try:
+        q = con.execute
+        return {
+            "edges": q("SELECT destination_channel, source_channel, "
+                       "walkback, skipped, sequence_id FROM edge_records "
+                       "ORDER BY edge_id").fetchall(),
+            "buffer": q("SELECT url, parent_id, depth, sequence_id FROM "
+                        "page_buffer").fetchall(),
+            "batches": [r[0] for r in q("SELECT status FROM "
+                                        "pending_edge_batches")],
+            "log": q("SELECT pending_id, channel, status, reason FROM "
+                     "smoke_edge_log ORDER BY n").fetchall(),
+            "invalid": dict(q("SELECT channel_username, reason FROM "
+                              "invalid_channels").fetchall()),
+            "crawled": {r[0] for r in q(
+                "SELECT channel_username FROM seed_channels WHERE "
+                "last_crawled_at IS NOT NULL").fetchall()},
+            "events": q("SELECT COUNT(*) FROM access_events").fetchone()[0]}
+    finally:
+        con.close()
+
+
+def check_tandem(rows, net, seeds, kids, requests):
+    """Every check of run D on the graph file and the stand-in; returns
+    the edges' final statuses and the walkbacks by kind."""
+    first_seen, finals, inserted = {}, {}, set()
+    for pid, name, status, reason in rows["log"]:
+        if status == "inserted":
+            inserted.add(pid)
+            continue
+        cls = tandem_page(net, name)
+        want = (TANDEM_LATER if name in first_seen else TANDEM_FIRST)[cls]
+        first_seen.setdefault(name, pid)
+        check((status, reason) == want,
+              f"run D: edge {pid} to {name} ({cls} page) ended "
+              f"{status}/{reason}, expected {want}")
+        finals[pid] = status
+    check(inserted and set(finals) == inserted,
+          f"run D: {len(inserted)} pending edges, {len(finals)} with a "
+          f"final status")
+    check(sum(requests.values()) <= len(inserted)
+          and requests == {n: 1 for n in first_seen},
+          f"run D: stand-in requests {requests} for {len(inserted)} edges "
+          f"to {sorted(first_seen)}")
+    valid = {n for n in first_seen if tandem_page(net, n) == "valid"}
+    primary = [e for e in rows["edges"] if not e[3]]
+    forward = [e for e in primary if not e[2]]
+    check(all(e[0] in valid for e in forward)
+          and not any(e[0] in (WALK_GHOST, WALK_PRIVATE) for e in primary),
+          f"run D: primary edges {primary}, valid names {sorted(valid)}")
+    check(rows["invalid"] == {WALK_GHOST: "not_found",
+                              WALK_PRIVATE: "not_supergroup",
+                              TANDEM_FOUR: "tdlib_400"},
+          f"run D: invalid_channels {rows['invalid']}")
+    # The 400 name: its edge gone, a promoted sibling or a walkback from
+    # its source in its place.
+    replaced = [e for e in rows["edges"] if e[1] == TANDEM_FOUR_SEED
+                and not e[3]]
+    check(not any(e[0] == TANDEM_FOUR for e in rows["edges"])
+          and replaced and rows["invalid"].get(TANDEM_FOUR) == "tdlib_400",
+          f"run D: edges from {TANDEM_FOUR_SEED}: {replaced}")
+    all_kids = {k for s in seeds for k in kids[s]}
+    for url, _, depth, seq in rows["buffer"]:
+        if depth == 0:
+            continue   # a seed the window left uncrawled
+        fwd = [e for e in forward if e[0] == url and e[4] == seq]
+        back = [e for e in primary if e[0] == url and e[2]
+                and e[4] != seq and len(seq) == 36]
+        check(fwd or back, f"run D: page-buffer row {url} {seq} follows "
+              "neither a forward edge's chain nor a walkback's new chain")
+    forced = [e for e in primary if e[2] and e[1] in all_kids]
+    check(forced, f"run D: no forced walkback in {primary}")
+    decided = [e for e in primary if e[2] and e[1] in seeds]
+    return finals, forced, decided, replaced
+
+
+def tandem_network(np, seed):
+    """Run C's network drawn anew (8 seeds, each naming its own 3
+    channels, the missing username and the private chat) and a ninth seed
+    naming the 400 name and the missing username."""
+    from distributed_crawler_tpu_torch.clients import TLMessage
+
+    net, seeds, kids = walk_network(np, seed)
+    net.add_channel(TANDEM_FOUR_SEED, messages=[TLMessage(
+        content={"@type": "messageText", "text": {
+            "text": f"see @{TANDEM_FOUR} and t.me/{WALK_GHOST}",
+            "entities": []}}, date=1700000000, view_count=3)],
+        member_count=1000)
+    return net, seeds, kids
+
+
+def tandem_pods(procs, net, seeds, run, crawl_id):
+    """The two pods on one graph file: the validator process started at
+    the walk's start, `launch` in this process on run C's pool, then the
+    validator stopped once every batch completed.  Returns the graph's
+    rows, the stand-in's requests, the pages crawled and the seconds."""
+    import sqlite3
+    import threading
+
+    from distributed_crawler_tpu_torch.config.crawler import CrawlerConfig
+    from distributed_crawler_tpu_torch.crawl import runner as crawl_runner
+    from distributed_crawler_tpu_torch.modes.runner import launch
+    from distributed_crawler_tpu_torch.state import (
+        CompositeStateManager,
+        SqlConfig,
+        StateConfig,
+    )
+
+    graph = os.path.join(run, "validator", "graph.sqlite")
+    crawler_root = os.path.join(run, "crawler")
+    sm = CompositeStateManager(StateConfig(
+        crawl_id=crawl_id, crawl_execution_id=crawl_id,
+        storage_root=crawler_root, sampling_method="random-walk",
+        sql=SqlConfig(url=graph)))
+    # The deployment's seed pool: the crawler's walkbacks draw from it.
+    for s in seeds:
+        sm.upsert_seed_channel_chat_id(s, net.channels[s].chat_id)
+    con = sqlite3.connect(graph)
+    con.executescript(TANDEM_EDGE_LOG)
+    con.close()
+    stand_in = TmeStandIn(net)
+    pages, started = [], {}
+
+    def counted(client, page, *a, **kw):
+        pages.append(page.url)
+        return crawl_runner.run_for_channel(client, page, *a, **kw)
+
+    walk_pool(net)
+    crawl_runner.set_run_for_channel_fn(counted)
+    try:
+        t0 = time.perf_counter()
+        validator = procs.start(
+            "validator", "--mode", "launch", "--validate-only",
+            "--crawl-id", crawl_id, "--storage-root",
+            os.path.dirname(graph), "--validator-base-url", stand_in.url,
+            "--validator-request-rate", "60000",
+            "--validator-request-jitter-ms", "0", "--walkback-rate", "0",
+            "--log-json", env={"NO_PROXY": "127.0.0.1,localhost",
+                               "no_proxy": "127.0.0.1,localhost"})
+
+        def watch():
+            deadline = time.monotonic() + 60
+            while time.monotonic() < deadline and validator.poll() is None:
+                if any("starting validation loop" in ln
+                       for ln in procs.tail("validator", 200)):
+                    started["s"] = time.perf_counter() - t0
+                    return
+                time.sleep(0.05)
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        try:
+            launch(seeds, CrawlerConfig(
+                crawl_id=crawl_id, storage_root=crawler_root,
+                platform="telegram", sampling_method="random-walk",
+                tandem_crawl=True, concurrency=2, skip_media_download=True,
+                max_crawl_duration_s=TANDEM_WINDOW_S), sm=sm,
+                layerless_poll_s=TANDEM_POLL_S)
+        finally:
+            sm.close()   # the caller's manager: its close saves metadata
+        walk_s = time.perf_counter() - t0
+        poll_until(lambda: sm.count_incomplete_batches(crawl_id) == 0,
+                   "run D: the validator completing every batch",
+                   timeout_s=60, procs=[validator], poll_s=0.1)
+        drain_s = time.perf_counter() - t0 - walk_s
+        watcher.join(timeout=10)
+        procs.stop(validator)   # SIGTERM: 130
+    finally:
+        crawl_runner.set_run_for_channel_fn(None)
+        stand_in.close()
+    with open(os.path.join(crawler_root, crawl_id, "metadata.json"),
+              encoding="utf-8") as f:
+        status = json.load(f)["status"]
+    check(status == "completed", f"run D: launch left metadata {status}")
+    check("s" in started, "run D: the validator never logged its start")
+    posted = [os.path.join(dp, f) for dp, _, fs in os.walk(crawler_root)
+              for f in fs if f == "posts.jsonl"]
+    check(not posted, f"run D: the walk stored posts {posted}")
+    return {"rows": tandem_rows(graph), "requests": stand_in.requests,
+            "pages": pages, "walk_s": walk_s, "drain_s": drain_s,
+            "startup_s": started["s"]}
+
+
+class PhaseBroker:
+    """The phase's bus hosted in this process at ``address`` (runs A-C's
+    orchestrators host it while they run); the tpu-worker reconnects."""
+
+    def __init__(self, address):
+        from distributed_crawler_tpu_torch.bus.grpc_bus import GrpcBusServer
+        from distributed_crawler_tpu_torch.bus.messages import (
+            TOPIC_INFERENCE_BATCHES,
+        )
+
+        self.server = GrpcBusServer(address)
+        self.server.enable_pull(TOPIC_INFERENCE_BATCHES)
+
+    def __enter__(self):
+        self.server.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.server.close()
+
+
+def follow_on_crawl(np, wrk, address, store, channels, crawl_id, tag):
+    """A walk's channels crawled (channel sampling) by a `CrawlWorker` in
+    this process behind an `InferenceBridge` at the CLI's defaults on the
+    phase's bus: each item a success with its 64 posts, and every stored
+    post committed once by the tpu-worker as 384 finite floats."""
+    from distributed_crawler_tpu_torch.bus.grpc_bus import RemoteBus
+    from distributed_crawler_tpu_torch.bus.messages import (
+        WorkItem,
+        WorkItemConfig,
+    )
+    from distributed_crawler_tpu_torch.config.crawler import (
+        CrawlerConfig,
+        InferenceConfig,
+    )
+    from distributed_crawler_tpu_torch.crawl import runner as crawl_runner
+    from distributed_crawler_tpu_torch.inference.bridge import InferenceBridge
+    from distributed_crawler_tpu_torch.state import (
+        CompositeStateManager,
+        StateConfig,
+    )
+    from distributed_crawler_tpu_torch.state.datamodels import new_id
+    from distributed_crawler_tpu_torch.worker import CrawlWorker
+
+    t0 = time.perf_counter()
+    infer = InferenceConfig()
+    bus = RemoteBus(address)
+    bridge = InferenceBridge(
+        CompositeStateManager(StateConfig(
+            crawl_id=crawl_id, crawl_execution_id="e1", storage_root=wrk)),
+        bus, crawl_id=crawl_id, batch_size=infer.batch_size,
+        deadline_s=infer.batch_deadline_ms / 1000.0)
+    worker = CrawlWorker(f"crawl-{tag}", CrawlerConfig(
+        crawl_id=crawl_id, platform="telegram", skip_media_download=True),
+        bus, bridge)
+    try:
+        results = [worker.process_work_item(WorkItem.new(
+            ch, 0, new_id(), crawl_id, "telegram", WorkItemConfig(
+                sampling_method="channel", skip_media_download=True)))
+            for ch in channels]
+    finally:
+        bridge.close()   # ships the rest
+        bus.close()
+        crawl_runner.shutdown_connection_pool()
+    check(all(r.status == "success" and r.message_count == WALK_POSTS
+              for r in results),
+          f"run {tag}: follow-on results " + str([
+              (r.processed_url, r.status, r.error, r.message_count)
+              for r in results]))
+    stored = []
+    base = os.path.join(wrk, crawl_id)
+    for ch in sorted(os.listdir(base)) if os.path.isdir(base) else []:
+        path = os.path.join(base, ch, "posts", "posts.jsonl")
+        if os.path.exists(path):
+            with open(path, encoding="utf-8") as f:
+                stored += [json.loads(ln)["post_uid"] for ln in f]
+    want = set(stored)
+    check(len(stored) == len(want) == len(channels) * WALK_POSTS,
+          f"run {tag}: {len(stored)} posts stored ({len(want)} distinct) "
+          f"from {len(channels)} channels of {WALK_POSTS}")
+    out = poll_until(lambda: (lambda r: len(r) >= len(want) and r)(
+        orch_rows(store, crawl_id)),
+        f"run {tag}: the tpu-worker's rows", timeout_s=120)
+    uids = [r["post_uid"] for r in out]
+    check(len(uids) == len(want) and set(uids) == want,
+          f"run {tag}: {len(uids)} rows ({len(set(uids))} posts) for "
+          f"{len(want)} stored posts")
+    check(all(len(r["embedding"]) == 384 and np.isfinite(
+        r["embedding"]).all() for r in out),
+          f"run {tag}: result embeddings not 384 finite floats")
+    return {"follow_on_channels": len(channels), "follow_on_posts": len(want),
+            "follow_on_commits": len(uids),
+            "follow_on_s": time.perf_counter() - t0,
+            "bridge_batches": bridge.batches_published}
+
+
+def tandem_run(np, procs, root, address, store, url, seed):
+    """Run D: the tandem walk beside a validator process, then a crawl of
+    the channels it stepped to into the tpu-worker; 12 sm90 launches per
+    dispatch of the tpu-worker over both."""
+    import collections
+
+    t0 = time.perf_counter()
+    net, seeds, kids = tandem_network(np, seed + 1)
+    run = os.path.join(root, "D")
+    before, d0 = proc_counts(url)
+    # Hosted from the start: the tpu-worker reconnects during the walk.
+    with PhaseBroker(address):
+        pods = tandem_pods(procs, net, seeds + [TANDEM_FOUR_SEED], run,
+                           "tandem-D")
+        rows = pods["rows"]
+        check(rows["batches"] and all(b == "completed"
+                                      for b in rows["batches"]),
+              f"run D: batches {collections.Counter(rows['batches'])}")
+        check(rows["events"] == 0, f"run D: the validator made "
+              f"{rows['events']} access_events rows")
+        finals, forced, decided, replaced = check_tandem(
+            rows, net, seeds, kids, pods["requests"])
+        fetched = sorted(rows["crawled"] & {k for s in seeds
+                                            for k in kids[s]})
+        check(fetched, "run D: the walk fetched no channel it stepped to")
+        follow = follow_on_crawl(np, os.path.join(run, "follow"), address,
+                                 store, fetched, "tandem-D2", "D")
+    after, d1 = proc_counts(url)
+    launches = {p: after[p] - before[p] for p in after}
+    check_sm90_only(launches, 12, d1 - d0, "run D's tpu-worker")
+    return {
+        "seeds": len(seeds) + 1, "pages_crawled": len(pods["pages"]),
+        "channels_fetched": len(rows["crawled"]),
+        "batches_closed": len(rows["batches"]),
+        "batches_completed": rows["batches"].count("completed"),
+        "pending_edges": len(finals),
+        "edges_by_status": dict(collections.Counter(finals.values())),
+        "walkbacks_forced": len(forced), "walkbacks_decided": len(decided),
+        "replacements": len(replaced),
+        "page_buffer_rows_left": len(rows["buffer"]),
+        "http_requests": sum(pods["requests"].values()),
+        "walk_s": pods["walk_s"], "window_s": TANDEM_WINDOW_S,
+        "validator_startup_s": pods["startup_s"],
+        "batches_drained_s": pods["drain_s"], **follow,
+        "run_s": time.perf_counter() - t0, "dispatches": d1 - d0,
+        "kernel_launches_by_path": launches}
 
 
 def phase_orchestrator(np, attention, work, grpc_posts_s, seed, smi):
@@ -7319,7 +7767,9 @@ def phase_orchestrator(np, attention, work, grpc_posts_s, seed, smi):
     ``cluster-worker``, two stand-in crawl workers, run A (the valve and
     the routes) and run B (a SIGKILL and a resume); then run C, the random
     walk's step through the port's `CrawlWorker` and a crawl of its next
-    channels into the same ``tpu-worker``."""
+    channels into the same ``tpu-worker``; then run D, the tandem walk
+    beside a validator process and a crawl of the channels it stepped
+    to."""
     try:
         import grpc  # noqa: F401
     except ImportError:
@@ -7371,6 +7821,7 @@ def phase_orchestrator(np, attention, work, grpc_posts_s, seed, smi):
         t_walk = time.perf_counter()
         walk = walk_run(np, procs, root, address, store, url, seed)
         walk["seconds"] = time.perf_counter() - t_walk
+        tandem = tandem_run(np, procs, root, address, store, url, seed)
         procs.stop(clu)
         procs.stop(tpu)
     except BaseException:
@@ -7418,8 +7869,9 @@ def phase_orchestrator(np, attention, work, grpc_posts_s, seed, smi):
             "cluster_guide"].get("prioritized_items"),
         phase_s=seconds, card=smi)
     emit("slice.random_walk", **walk, card=smi)
+    emit("slice.tandem_walk", **tandem, card=smi)
     launches = {p: launches[p] + walk["kernel_launches_by_path"][p]
-                for p in launches}
+                + tandem["kernel_launches_by_path"][p] for p in launches}
     emit("slice.orchestrator", seconds=seconds,
          kernel_launches_by_path=launches)
     return {"launches": launches, "tpu_burst_posts_per_s": report["A"][

@@ -35,7 +35,13 @@ on the card and the broker between processes:
   flags (``--min-post-date``, ``--time-ago``, ``--date-between``) reach
   every work item it dispatches. ``--max-crawl-duration`` resolves into
   the config as the reference's does, but this mode ignores it, as the
-  reference's does (it warns when the flag is set).
+  reference's does (it warns when the flag is set);
+- ``launch --validate-only`` (or a bare ``--validate-only``): the tandem
+  crawl's validator pod (`modes/validate.py`) over the graph store on
+  ``<storage-root>/graph.sqlite``, until SIGTERM (exit 130).  Without
+  ``--validate-only``, ``launch`` exits 2 before any set-up: its random
+  walk needs a pool from the native client (ROADMAP Queue 1 part D), its
+  other samplings the crawl modes (part C).
 
 With ``--bus-spool-dir``, a worker's publishes go through a durable
 outbox under ``<spool-dir>/outbox/<worker-id>``, so a broker outage
@@ -48,10 +54,9 @@ object store (`state/objectstore.py`) instead of ``--storage-root``.
 The flags, their ``CRAWLER_*`` environment variables and the YAML config
 keys are the reference's, resolved through the same precedence (flags >
 env > config file > defaults; `config/precedence.py`).  The crawler's
-modes other than the orchestrator (the crawl workers, standalone crawls,
-jobs and the Telegram gateway) run from the reference's CLI; here they
-exit 2 and say so.  A
-serving mesh and multi-process serving are not ported yet: they exit 2
+modes other than the orchestrator and the validator (the crawl workers,
+standalone crawls, jobs and the Telegram gateway) run from the
+reference's CLI; here they exit 2 and say so.  A serving mesh and multi-process serving are not ported yet: they exit 2
 with a message that names where they wait in ROADMAP.md, never silently
 ignored.
 
@@ -62,6 +67,7 @@ in-process callers (the tests); it is not a flag.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import sys
@@ -77,10 +83,10 @@ logger = logging.getLogger("dct.cli")
 
 VERSION = "distributed_crawler_tpu_torch v0.1.0"
 DEVICE_MODES = ("tpu-worker", "asr-worker", "cluster-worker", "transcribe",
-                "cluster", "train-head", "bus", "orchestrator")
+                "cluster", "train-head", "bus", "orchestrator", "launch")
 # The reference CLI's other modes: the crawler's half.
-CRAWLER_MODES = ("standalone", "launch", "worker", "job", "job-submit",
-                 "dc-gateway", "gen-code")
+CRAWLER_MODES = ("standalone", "worker", "job", "job-submit", "dc-gateway",
+                 "gen-code")
 _WORKER_MODES = ("tpu-worker", "asr-worker", "cluster-worker")
 
 
@@ -98,8 +104,8 @@ def build_parser() -> argparse.ArgumentParser:
     a("--log-json", action="store_const", const=True, default=None)
     a("--mode", default=None,
       help="tpu-worker | asr-worker | cluster-worker | transcribe | "
-           "cluster | train-head | bus | orchestrator (the crawler's other "
-           "modes run from distributed_crawler_tpu.cli)")
+           "cluster | train-head | bus | orchestrator | launch (the "
+           "crawler's other modes run from distributed_crawler_tpu.cli)")
     a("--worker-id", default=None, help="worker identifier (worker modes)")
     # The crawl's settings, carried to the crawl workers in every work
     # item the orchestrator dispatches.
@@ -119,7 +125,21 @@ def build_parser() -> argparse.ArgumentParser:
     a("--youtube-api-key", default=None)
     a("--sampling", default=None,
       help="channel | random | random-walk | snowball")
+    a("--seed-size", type=int, default=None)
+    a("--walkback-rate", type=int, default=None)
     a("--min-channel-videos", type=int, default=None)
+    # The tandem crawl and its validator pod.
+    a("--tandem-crawl", action="store_const", const=True, default=None)
+    a("--validate-only", action="store_const", const=True, default=None)
+    a("--validator-request-rate", type=float, default=None)
+    a("--validator-request-jitter-ms", type=int, default=None)
+    a("--validator-claim-batch-size", type=int, default=None)
+    a("--validator-timeout", default=None, help="e.g. 30m")
+    a("--validator-base-url", default=None,
+      help="validation endpoint base (default https://t.me); point at a "
+           "mirror/forward proxy")
+    a("--validator-transport", default=None,
+      help="t.me transport: urllib | chrome (native Chrome-shaped TLS)")
     a("--urls", default=None, help="comma-separated URLs to crawl")
     a("--url-file", default=None, help="file with one URL per line")
     a("--storage-root", default=None)
@@ -388,7 +408,17 @@ _KEY_MAP = {
     "skip_media": "crawler.skipmedia",
     "youtube_api_key": "youtube.api_key",
     "sampling": "crawler.sampling",
+    "seed_size": "crawler.seedsize",
+    "walkback_rate": "crawler.walkback_rate",
     "min_channel_videos": "crawler.min_channel_videos",
+    "tandem_crawl": "crawler.tandem_crawl",
+    "validate_only": "crawler.validate_only",
+    "validator_request_rate": "crawler.validator_request_rate",
+    "validator_request_jitter_ms": "crawler.validator_request_jitter_ms",
+    "validator_claim_batch_size": "crawler.validator_claim_batch_size",
+    "validator_timeout": "crawler.validator_timeout",
+    "validator_transport": "crawler.validator_transport",
+    "validator_base_url": "crawler.validator_base_url",
     "urls": "crawler.urls",
     "url_file": "crawler.url_file",
     "alert_rules": "observability.alert_rules",
@@ -508,7 +538,21 @@ def resolve_config(args: argparse.Namespace,
     cfg.skip_media_download = r.get_bool("crawler.skipmedia", False)
     cfg.youtube_api_key = r.get_str("youtube.api_key")
     cfg.sampling_method = r.get_str("crawler.sampling", "channel")
+    cfg.seed_size = r.get_int("crawler.seedsize", 0)
+    cfg.walkback_rate = r.get_int("crawler.walkback_rate", 15)
     cfg.min_channel_videos = r.get_int("crawler.min_channel_videos", 10)
+    cfg.tandem_crawl = r.get_bool("crawler.tandem_crawl", False)
+    cfg.validate_only = r.get_bool("crawler.validate_only", False)
+    cfg.validator_request_rate = r.get_float(
+        "crawler.validator_request_rate", 6.0)
+    cfg.validator_request_jitter_ms = r.get_int(
+        "crawler.validator_request_jitter_ms", 200)
+    cfg.validator_claim_batch_size = r.get_int(
+        "crawler.validator_claim_batch_size", 10)
+    cfg.validator_transport = r.get_str(
+        "crawler.validator_transport", "urllib")
+    cfg.validator_base_url = r.get_str(
+        "crawler.validator_base_url", "https://t.me")
     cfg.storage_root = r.get_str("storage.root", "/tmp/crawl")
     cfg.crawl_id = r.get_str("crawler.crawlid") or generate_crawl_id()
     cfg.crawl_label = r.get_str("crawler.crawllabel")
@@ -579,6 +623,9 @@ def _resolve_dates(cfg: CrawlerConfig, r: ConfigResolver) -> None:
     duration = r.get_str("crawler.maxcrawlduration")
     if duration:
         cfg.max_crawl_duration_s = parse_duration(duration)
+    vtimeout = r.get_str("crawler.validator_timeout")
+    if vtimeout:
+        cfg.validator_timeout_s = parse_duration(vtimeout)
 
 
 def main(argv: Optional[List[str]] = None, env=None,
@@ -597,8 +644,15 @@ def main(argv: Optional[List[str]] = None, env=None,
         print(f"error: {e}", file=sys.stderr)
         return 2
     mode = r.get_str("distributed.mode", "")
+    if cfg.validate_only and mode in ("", "standalone", "launch"):
+        # The validator pod is a branch of the launch router: a bare
+        # --validate-only runs it, not a crawl of no URLs.
+        mode = "launch"
     if mode not in DEVICE_MODES:
         print(f"error: {_not_a_device_mode(mode)}", file=sys.stderr)
+        return 2
+    if mode == "launch" and not cfg.validate_only:
+        print(f"error: {_launch_waits(cfg)}", file=sys.stderr)
         return 2
     setup_logging(r.get_str("logging.level", "info"),
                   json_output=r.get_bool("logging.json", False))
@@ -651,6 +705,8 @@ def main(argv: Optional[List[str]] = None, env=None,
             return _run_train_head(cfg, r, device=device)
         elif mode == "orchestrator":
             _run_orchestrator(collect_urls(r), cfg, r)
+        elif mode == "launch":
+            _run_launch(collect_urls(r), cfg)
         else:
             return _run_bus(r)
     except CliConfigError as e:
@@ -670,6 +726,33 @@ def _not_a_device_mode(mode: str) -> str:
     return f"unknown execution mode: {mode}"
 
 
+def _launch_waits(cfg: CrawlerConfig) -> str:
+    """Why ``--mode launch`` without ``--validate-only`` exits 2: the
+    crawl has no pool to crawl with until the native client, and the
+    other samplings run in the crawl modes."""
+    if cfg.sampling_method == "random-walk":
+        return ("--mode launch runs a random walk on a connection pool from "
+                "the native Telegram client (clients/native.py), which the "
+                "port has not ported yet (ROADMAP Queue 1 part D); "
+                "--validate-only runs the validator pod")
+    return (f"--mode launch with {cfg.sampling_method} sampling runs in the "
+            f"crawl modes, which the port has not ported yet (ROADMAP "
+            f"Queue 1 part C); --validate-only runs the validator pod")
+
+
+def _run_launch(urls: List[str], cfg: CrawlerConfig) -> None:
+    """mode=launch with --validate-only: the validator pod over the
+    factory's manager on ``<storage-root>/graph.sqlite``, until SIGTERM
+    or ^C (exit 130)."""
+    from .modes.common import create_state_manager, determine_crawl_id
+    from .modes.runner import launch
+
+    exec_id, _ = determine_crawl_id(create_state_manager(cfg), cfg)
+    sm = create_state_manager(cfg, exec_id)
+    with _sigterm_as_interrupt():
+        launch(urls, cfg, sm=sm)
+
+
 def _heartbeat_interval(r: ConfigResolver) -> float:
     """The heartbeat period, clamped to 1-90 s: heartbeats are the
     liveness signal, and a period past the orchestrator's 300 s timeout
@@ -684,16 +767,13 @@ def _heartbeat_interval(r: ConfigResolver) -> float:
     return clamped
 
 
-def _serve_forever(poll_s: float = 1.0,
-                   running: Optional[Callable[[], bool]] = None) -> None:
-    """Block the main thread while a service's threads run; ``running``
-    ends the loop when it turns False.
-
-    SIGTERM becomes KeyboardInterrupt for the duration, so a supervisor's
-    stop takes the same graceful path as ^C; with a dump dir the flight
-    recorder writes its postmortem bundle first (the teardown may hang).
-    Off the main thread the handler cannot be installed, and the loop
-    runs without it."""
+@contextlib.contextmanager
+def _sigterm_as_interrupt():
+    """SIGTERM becomes KeyboardInterrupt inside the block, so a
+    supervisor's stop takes the same graceful path as ^C; with a dump dir
+    the flight recorder writes its postmortem bundle first (the teardown
+    may hang).  Off the main thread the handler cannot be installed, and
+    the block runs without it."""
     import signal
 
     from .utils import flight
@@ -710,8 +790,7 @@ def _serve_forever(poll_s: float = 1.0,
     except ValueError:
         pass  # not the main thread
     try:
-        while running is None or running():
-            time.sleep(poll_s)
+        yield
     finally:
         if installed:
             try:
@@ -719,6 +798,16 @@ def _serve_forever(poll_s: float = 1.0,
                               prev if prev is not None else signal.SIG_DFL)
             except ValueError:
                 pass
+
+
+def _serve_forever(poll_s: float = 1.0,
+                   running: Optional[Callable[[], bool]] = None) -> None:
+    """Block the main thread while a service's threads run; ``running``
+    ends the loop when it turns False.  SIGTERM is ^C meanwhile
+    (`_sigterm_as_interrupt`)."""
+    with _sigterm_as_interrupt():
+        while running is None or running():
+            time.sleep(poll_s)
 
 
 # -- what waits -------------------------------------------------------------
@@ -1395,11 +1484,15 @@ def _build_autoscaler(r: ConfigResolver, config, orch, bus):
 def _check_orchestrator(urls: List[str], cfg: CrawlerConfig,
                         r: ConfigResolver) -> None:
     """The reference's sampling matrix for this mode (`config/sampling.
-    validate_sampling_method`), before the broker starts."""
+    validate_sampling_method`), before the broker starts; a validate-only
+    config is exempt, as in the reference."""
+    if cfg.validate_only:
+        return
     try:
         validate_sampling_method(SamplingValidationInput(
             platform=cfg.platform, sampling_method=cfg.sampling_method,
-            url_list=urls, mode="orchestrator", crawl_id=cfg.crawl_id))
+            url_list=urls, mode="orchestrator", seed_size=cfg.seed_size,
+            crawl_id=cfg.crawl_id))
     except ValueError as e:
         raise CliConfigError(str(e)) from None
 

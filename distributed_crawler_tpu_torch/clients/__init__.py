@@ -3,12 +3,22 @@ what the reference's `distributed_crawler_tpu/clients/` gives it.
 
 The 16-method `TelegramClient` protocol and its TL dataclasses, the error
 taxonomy, the per-method rate limiter, the connection pool, the username
-filter, and the in-process network simulation that stands in for
-Telegram (`sim.py`).  The reference's native client, DC gateway, HTTP
-validator, TL API and YouTube client wait for ROADMAP Queue 1.
+filter, the account-free t.me validator of the tandem crawl
+(`http_validator.py`), and the in-process network simulation that stands
+in for Telegram (`sim.py`).  The reference's native client, DC gateway
+and TL API wait for ROADMAP Queue 1 part D, its YouTube client for part C.
 """
 
 from .errors import FloodWaitError, TelegramError, parse_flood_wait_seconds
+from .http_validator import (
+    BLOCKED,
+    TRANSIENT,
+    ChannelValidationResult,
+    ValidationHTTPError,
+    ValidatorRateLimiter,
+    parse_channel_html,
+    validate_channel_http,
+)
 from .pool import ConnectionPool, PooledConnection, PoolEmptyError
 from .rate_limiter import (
     Clock,
@@ -44,4 +54,6 @@ __all__ = [
     "ConnectionPool", "PooledConnection", "PoolEmptyError",
     "SimTelegramClient", "SimNetwork", "SimChannel",
     "filter_username", "UsernameFilterResult",
+    "ChannelValidationResult", "ValidationHTTPError", "ValidatorRateLimiter",
+    "parse_channel_html", "validate_channel_http", "TRANSIENT", "BLOCKED",
 ]

@@ -9,9 +9,10 @@ object-store URL, the two blocks above, the crawl settings the
 orchestrator copies into every work item (`bus/messages.WorkItemConfig`),
 the Telegram client's database URLs and gateway address (which the
 port's pool refuses until the native client lands) and the null-field
-rules, and the random walk's ``walkback_rate``.  `TelegramRateLimitConfig`
-is the connection pool's.  The validator's and the chunker's settings
-wait for their modules (ROADMAP Queue 1).
+rules, the random walk's ``seed_size`` and ``walkback_rate``, and the
+tandem crawl's and its validator's settings.  `TelegramRateLimitConfig`
+is the connection pool's.  The chunker's settings wait for its module
+(ROADMAP Queue 1 part C).
 """
 
 from __future__ import annotations
@@ -130,6 +131,8 @@ class CrawlerConfig:
     skip_media_download: bool = False
     youtube_api_key: str = ""
     sampling_method: str = "channel"  # channel | random | snowball | random-walk
+    # Random-walk seeds drawn from the seed pool when no URL is given.
+    seed_size: int = 0
     # The random walk's chance, in percent, of walking back although new
     # channels were found (`crawl/runner._walkback_decision`).
     walkback_rate: int = 0
@@ -145,6 +148,20 @@ class CrawlerConfig:
     # Null handling: user JSON overriding the default rules
     # (`datamodel/validation.py`).
     null_config: str = ""
+    # The tandem crawl and its validator (`crawl/validator.py`): the
+    # crawler streams a page's outlinks to the SQL pending-edge queue and
+    # the validator pod checks them against t.me.
+    tandem_crawl: bool = False
+    validate_only: bool = False
+    validator_request_rate: float = 6.0  # HTTP calls per minute
+    # t.me transport: "urllib" (stdlib) or "chrome" (the native client's
+    # Chrome-shaped TLS, ROADMAP Queue 1 part D).
+    validator_transport: str = "urllib"
+    # Validation endpoint base; a mirror or forward proxy may stand in.
+    validator_base_url: str = "https://t.me"
+    validator_request_jitter_ms: int = 200
+    validator_claim_batch_size: int = 10
+    validator_timeout_s: float = 0.0  # 0 = disabled
 
 
 def generate_crawl_id(now: Optional[datetime] = None) -> str:

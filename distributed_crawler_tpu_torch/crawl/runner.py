@@ -21,19 +21,20 @@ snowball and random-walk sampling.
   decision (`_walkback_decision`): forward to a random new channel, its
   siblings written as skipped edges, or back to a random discovered
   channel (`pick_walkback_channel`), the next page put in the page buffer;
+- the tandem crawl (``tandem_crawl``): a random walk's outlinks that pass
+  the username filter are streamed, without lookups, into one
+  pending-edge batch per page, which `_finish_tandem` closes for the
+  validator (`crawl/validator.py`), who owns the walkback decision; a
+  page that found no edge walks back at once;
 - message dedup (`add_new_messages`) and `resample_marker`.
 
 Each package keeps its own pool and its own `_run_for_channel_fn`, so a
 process that runs both packages' runners installs a pool in each.
 
-Not ported: the tandem crawl (``tandem_crawl``, its pending-edge batches
-and `_finish_tandem`), whose consumer is the validator (ROADMAP Queue 1
-part B′); the port's `CrawlerConfig` has no ``tandem_crawl``, so a random
-walk here always takes the walkback decision.  `pool_is_empty` has no
-caller until the layerless mode.  `setup_pool_from_config` builds its pool
-from the native client (`clients/native.py`), which waits for ROADMAP
-Queue 1 part D: it keeps the reference's no-op when a pool is installed
-or no URL is configured and raises otherwise.
+Not ported: `setup_pool_from_config` builds its pool from the native
+client (`clients/native.py`), which waits for ROADMAP Queue 1 part D: it
+keeps the reference's no-op when a pool is installed or no URL is
+configured and raises otherwise.
 """
 
 from __future__ import annotations
@@ -42,14 +43,24 @@ import dataclasses
 import logging
 import random
 import threading
-from typing import Callable, Dict, List, Optional, Protocol
+from typing import Callable, Dict, List, Optional, Protocol, Set
 
 from ..clients.errors import FLOOD_WAIT_RETIRE_THRESHOLD_S
 from ..clients.pool import ConnectionPool, PooledConnection, PoolEmptyError
 from ..clients.telegram import TelegramClient, TLMessage
+from ..clients.username_filter import filter_username
 from ..config.crawler import CrawlerConfig
 from ..datamodel import ChannelData, EngagementData, NullValidator
-from ..state.datamodels import EdgeRecord, Message, Page, new_id, utcnow
+from ..state.datamodels import (
+    BATCH_OPEN,
+    EdgeRecord,
+    Message,
+    Page,
+    PendingEdge,
+    PendingEdgeBatch,
+    new_id,
+    utcnow,
+)
 from ..telegram.parsing import extract_channel_links_with_source, parse_message
 from .channelinfo import (
     ChannelInfo,
@@ -136,6 +147,12 @@ def retire_connection_from_pool(conn_id: str, reason: str = "") -> None:
         pool = _pool
     if pool is not None:
         pool.retire(conn_id, reason)
+
+
+def pool_is_empty() -> bool:
+    with _pool_lock:
+        pool = _pool
+    return pool is None or pool.empty()
 
 
 def shutdown_connection_pool() -> None:
@@ -366,8 +383,9 @@ def process_all_messages(client: TelegramClient, info: ChannelInfo,
                          rng: Optional[random.Random] = None,
                          sleep=None) -> List[Page]:
     """Process each message and discover the next depth's pages, or in a
-    random walk the new channels and the walk's next page.  ``rng`` draws
-    the walkback decision, ``sleep`` waits out a short FLOOD_WAIT."""
+    random walk the new channels and the walk's next page (in a tandem
+    crawl, the page's pending-edge batch).  ``rng`` draws the walkback
+    decision, ``sleep`` waits out a short FLOOD_WAIT."""
     import time as _time
     sleep = sleep or _time.sleep
     rng = rng or random.Random()
@@ -377,6 +395,10 @@ def process_all_messages(client: TelegramClient, info: ChannelInfo,
     discovered_edges: List[EdgeRecord] = []
     new_channels: Dict[str, bool] = {}
     lookup_stats = _LookupStats()
+
+    # The tandem batch, created on the page's first edge.
+    tandem_batch: Optional[PendingEdgeBatch] = None
+    seen_in_batch: Set[str] = set()
 
     discovered_messages = [
         Message(chat_id=m.chat_id, message_id=m.id, status="unfetched",
@@ -435,9 +457,42 @@ def process_all_messages(client: TelegramClient, info: ChannelInfo,
                     id=new_id(), depth=owner.depth + 1))
                 continue
 
-            # --- the random walk: validate through SearchPublicChat ---
+            # --- the random walk ---
             if sm.is_invalid_channel(o):
                 continue
+
+            if cfg.tandem_crawl:
+                # Stream the edge to the pending-edge queue: no lookup and
+                # no walkback decision here.
+                src_type = msg_source_map.get(o, "unknown")
+                if not filter_username(o).valid:
+                    continue
+                if o in seen_in_batch:
+                    continue
+                seen_in_batch.add(o)
+                if tandem_batch is None:
+                    tandem_batch = PendingEdgeBatch(
+                        batch_id=new_id(), crawl_id=cfg.crawl_id,
+                        source_channel=owner.url, source_page_id=owner.id,
+                        source_depth=owner.depth,
+                        sequence_id=owner.sequence_id, status=BATCH_OPEN)
+                    sm.create_pending_batch(tandem_batch)
+                    logger.info("created pending batch", extra={
+                        "log_tag": "rw_channel",
+                        "batch_id": tandem_batch.batch_id,
+                        "source_channel": owner.url})
+                try:
+                    sm.insert_pending_edge(PendingEdge(
+                        batch_id=tandem_batch.batch_id, crawl_id=cfg.crawl_id,
+                        destination_channel=o, source_channel=owner.url,
+                        sequence_id=owner.sequence_id,
+                        discovery_time=utcnow(), source_type=src_type))
+                except Exception as e:
+                    logger.error("failed to insert pending edge",
+                                 extra={"channel": o, "error": str(e)})
+                continue
+
+            # Otherwise validate through SearchPublicChat.
             if sm.is_discovered_channel(o):
                 continue
             _, is_seed = sm.get_cached_chat_id(o)
@@ -483,16 +538,40 @@ def process_all_messages(client: TelegramClient, info: ChannelInfo,
     logger.info("message processing summary", extra={
         "messages_processed": processed, "messages_fetched": fetched,
         "messages_deleted": deleted, "messages_failed": failed,
-        "discovered_channels": len(discovered_channels),
+        "discovered_channels": len(seen_in_batch) if cfg.tandem_crawl
+        else len(discovered_channels),
         "page_url": owner.url})
 
     if cfg.sampling_method == "random-walk":
-        _walkback_decision(sm, owner, new_channels, discovered_edges, cfg,
-                           rng)
+        if cfg.tandem_crawl:
+            _finish_tandem(sm, owner, tandem_batch, rng)
+        else:
+            _walkback_decision(sm, owner, new_channels, discovered_edges,
+                               cfg, rng)
 
     owner.status = "fetched"
     sm.update_page(owner)
     return discovered_channels
+
+
+def _finish_tandem(sm, owner: Page, tandem_batch: Optional[PendingEdgeBatch],
+                   rng: random.Random) -> None:
+    """Close the page's batch (the validator then decides the walkback),
+    or, when the page found no edge, walk back at once: the edge stays in
+    this chain and the next page starts a new one."""
+    if tandem_batch is not None:
+        sm.close_pending_batch(tandem_batch.batch_id)
+        logger.info("batch closed, validator will handle walkback", extra={
+            "log_tag": "rw_channel", "batch_id": tandem_batch.batch_id})
+        return
+    walkback_url = pick_walkback_channel(sm, owner.url, rng=rng)
+    page = Page(id=new_id(), parent_id=owner.id, depth=owner.depth + 1,
+                url=walkback_url, sequence_id=new_id(), status="unfetched")
+    edge = EdgeRecord(destination_channel=walkback_url,
+                      source_channel=owner.url, walkback=True, skipped=False,
+                      discovery_time=utcnow(), sequence_id=owner.sequence_id)
+    sm.add_page_to_page_buffer(page)
+    sm.save_edge_records([edge])
 
 
 def _walkback_decision(sm, owner: Page, new_channels: Dict[str, bool],

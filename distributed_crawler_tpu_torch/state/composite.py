@@ -19,8 +19,8 @@ composite.py`):
   channels.
 
 Every graph method of the reference delegates to the store, the tandem
-queue's too (their producer and consumer, the tandem crawl and the
-validator, are ROADMAP Queue 1 part B′).
+queue's too: its producer is the tandem crawl (`crawl/runner.
+_finish_tandem`), its consumer the validator (`crawl/validator.py`).
 """
 
 from __future__ import annotations

@@ -20,18 +20,21 @@ writes through a `LocalStorageProvider` on the storage root, also when
 reference's does (`LocalConfig(base_path=storage_root)`).
 
 The page buffer and raw SQL need a SQL-backed manager
-(`state/composite.py`) and raise here, as the reference's do.  Not ported:
-media files and page exports (`store_file`, `export_pages_to_binding`),
-whose callers are the crawl modes (ROADMAP Queue 1 part C).
+(`state/composite.py`) and raise here, as the reference's do.
+`export_pages_to_binding` writes the crawl's pages to
+``<crawl_id>/exports/pages-export-<stamp>.jsonl`` (`modes/runner.launch`
+calls it at the end).  Not ported: media files (`store_file`), whose
+callers are the crawl modes (ROADMAP Queue 1 part C).
 """
 
 from __future__ import annotations
 
+import json
 from typing import Any, List, Optional, Tuple
 
 from ..datamodel.post import Post
 from .base import BaseStateManager
-from .datamodels import Page, State
+from .datamodels import Page, State, utcnow
 from .interface import StateConfig
 from .media_cache import ShardedMediaCache
 from .providers import LocalStorageProvider
@@ -85,6 +88,15 @@ class LocalStateManager(BaseStateManager):
     def store_post(self, channel_id: str, post: Post) -> None:
         rel = f"{self.config.crawl_id}/{channel_id}/posts/posts.jsonl"
         self.provider.append_jsonl(rel, post.to_json())
+
+    def export_pages_to_binding(self, crawl_id: str) -> None:
+        """Append every page of the state to a pages-export JSONL."""
+        state = self.get_state()
+        stamp = utcnow().strftime("%Y%m%d%H%M%S")
+        rel = f"{crawl_id}/exports/pages-export-{stamp}.jsonl"
+        for layer in state.layers:
+            for page in layer.pages:
+                self.provider.append_jsonl(rel, json.dumps(page.to_dict()))
 
     # --- the media cache ------------------------------------------------------
     def has_processed_media(self, media_id: str) -> bool:

@@ -22,7 +22,13 @@ package's, on the CPU.
   and a postmortem bundle that the reference's `tools/postmortem.py`
   renders.
 - Each feature that waits, and each crawler mode, exits 2 and names what
-  it waits for.
+  it waits for; ``--mode launch`` without ``--validate-only`` names part
+  D (a random walk needs the native client's pool) or part C.
+- The validator pod: the tandem and validator flags resolve as the
+  reference's; ``--validate-only`` needs no URLs and, bare, runs the
+  validator in both CLIs; a ``--mode launch --validate-only`` process
+  validates a closed batch against a t.me stand-in on loopback, writes
+  the next page, and exits 130 on SIGTERM.
 - The transcript re-entry and the object-store sink: each flag that used
   to exit 2 builds its mode (the provider's client, or the bridge on
   ``worker.bus`` with its batch size and deadline); ``_run_asr_worker``
@@ -1065,6 +1071,165 @@ def test_crawler_mode_exits_2(capsys, mode):
     assert f"--mode {mode or 'standalone'} runs from " \
         f"distributed_crawler_tpu.cli" in err
     assert logging_state() == before  # refused before any set-up
+
+
+# -- launch and the validator pod ------------------------------------------------
+TANDEM_ARGV = ["--sampling", "random-walk", "--seed-size", "4",
+               "--walkback-rate", "30", "--tandem-crawl",
+               "--validator-request-rate", "120.5",
+               "--validator-request-jitter-ms", "7",
+               "--validator-claim-batch-size", "3", "--validator-timeout",
+               "2m30s", "--validator-base-url", "http://mirror.test",
+               "--validator-transport", "chrome", "--crawl-id", "tw"]
+TANDEM_FIELDS = ("seed_size", "walkback_rate", "tandem_crawl",
+                 "validate_only", "validator_request_rate",
+                 "validator_request_jitter_ms", "validator_claim_batch_size",
+                 "validator_timeout_s", "validator_base_url",
+                 "validator_transport", "sampling_method", "crawl_id",
+                 "max_crawl_duration_s")
+
+
+@pytest.mark.parametrize("argv", [
+    ["--mode", "launch", "--validate-only"],
+    ["--mode", "launch", "--validate-only"] + TANDEM_ARGV,
+    ["--mode", "orchestrator", "--urls", "a"] + TANDEM_ARGV[2:],
+    ["--validate-only", "--sampling", "random-walk", "--max-crawl-duration",
+     "15s"]])
+def test_tandem_and_validator_config_resolves_as_the_references(argv):
+    (t_cfg, t_r), (j_cfg, j_r) = (resolve(c, argv) for c in (tcli, jcli))
+    for name in TANDEM_FIELDS:
+        assert getattr(t_cfg, name) == getattr(j_cfg, name), name
+
+
+def test_validate_only_needs_no_urls():
+    """The reference's `test_validate_only_needs_no_urls`: no sampling
+    check for the validator pod (the reference's resolver runs it for
+    every crawling mode, the port's orchestrator before its broker)."""
+    for cli in (tcli, jcli):
+        cfg, _ = resolve(cli, ["--validate-only", "--sampling",
+                               "random-walk"])
+        assert cfg.validate_only
+    tcli._check_orchestrator([], resolve(tcli, [
+        "--mode", "orchestrator", "--validate-only", "--sampling",
+        "random-walk"])[0], None)
+
+
+@pytest.mark.parametrize("argv", [["--validate-only"],
+                                  ["--mode", "launch", "--validate-only"],
+                                  ["--mode", "standalone", "--validate-only"]])
+def test_validate_only_routes_to_the_validator(tmp_path, monkeypatch,
+                                               capsys, argv):
+    """The reference's `test_validate_only_routes_to_validator`: a bare
+    ``--validate-only`` runs the validator pod, in both CLIs."""
+    from distributed_crawler_tpu.modes import runner as jrouter
+    from distributed_crawler_tpu_torch.modes import runner as trouter
+
+    for cli, router in ((tcli, trouter), (jcli, jrouter)):
+        ran = []
+        monkeypatch.setattr(router, "run_validate_only",
+                            lambda sm, cfg, validate_fn=None, **kw:
+                            ran.append((type(sm).__name__,
+                                        cfg.validate_only)))
+        rc, _, err = run_main(cli, argv + [
+            "--storage-root", str(tmp_path / cli.__name__),
+            "--log-level", "error"], capsys)
+        assert rc == 0, err
+        assert ran == [("CompositeStateManager", True)]
+        assert (tmp_path / cli.__name__ / "graph.sqlite").exists()
+
+
+@pytest.mark.parametrize("sampling,part", [
+    ("random-walk", "part D"), ("channel", "part C"), ("snowball", "part C"),
+    ("random", "part C")])
+def test_launch_without_validate_only_exits_2(tmp_path, capsys, sampling,
+                                              part):
+    """Without --validate-only the port's launch has no pool to walk with
+    (part D) or no crawl mode (part C): exit 2 before any set-up."""
+    before = logging_state()
+    rc, _, err = run_main(tcli, [
+        "--mode", "launch", "--sampling", sampling, "--urls", "alpha",
+        "--storage-root", str(tmp_path / "s")], capsys)
+    assert rc == 2
+    assert f"ROADMAP Queue 1 {part}" in err and "--validate-only" in err
+    assert logging_state() == before
+    assert not (tmp_path / "s").exists()
+
+
+def test_validator_process_validates_a_batch_and_exits_130(tmp_path):
+    """``python -m distributed_crawler_tpu_torch --mode launch
+    --validate-only`` on a graph holding one closed batch: each edge gets
+    the stand-in's class, the walkback processor forwards to the valid
+    channel in the batch's chain, and SIGTERM stops it with 130.  The
+    stand-in is `chip_smoke.py`'s: t.me's pages by what a `SimNetwork`
+    holds."""
+    from chip_smoke import TmeStandIn
+    from distributed_crawler_tpu_torch.clients import SimNetwork
+    from distributed_crawler_tpu_torch.state import (
+        CompositeStateManager,
+        PendingEdge,
+        PendingEdgeBatch,
+        SqlConfig,
+        StateConfig,
+    )
+
+    store = tmp_path / "store"
+    sm = CompositeStateManager(StateConfig(
+        crawl_id="tw", crawl_execution_id="e1", storage_root=str(tmp_path),
+        sampling_method="random-walk",
+        sql=SqlConfig(url=str(store / "graph.sqlite"))))
+    sm.create_pending_batch(PendingEdgeBatch(
+        batch_id="b1", crawl_id="tw", source_channel="seedchan",
+        source_page_id="p1", source_depth=0, sequence_id="q1"))
+    net = SimNetwork()
+    net.add_channel("goodchan")
+    net.add_channel("privroom", is_supergroup=False)
+    names = ("goodchan", "privroom", "ghostname")  # the last one missing
+    for n in names:
+        sm.insert_pending_edge(PendingEdge(
+            batch_id="b1", crawl_id="tw", destination_channel=n,
+            source_channel="seedchan", sequence_id="q1",
+            source_type="mention"))
+    sm.close_pending_batch("b1")
+    stand_in = TmeStandIn(net)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=ROOT, NO_PROXY="127.0.0.1,localhost",
+               no_proxy="127.0.0.1,localhost")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distributed_crawler_tpu_torch", "--mode",
+         "launch", "--validate-only", "--crawl-id", "tw", "--storage-root",
+         str(store), "--validator-base-url", stand_in.url,
+         "--validator-request-rate", "60000",
+         "--validator-request-jitter-ms", "0", "--walkback-rate", "0",
+         "--log-level", "error"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        deadline = time.monotonic() + 90
+        while sm.count_incomplete_batches("tw") and \
+                time.monotonic() < deadline and proc.poll() is None:
+            time.sleep(0.1)
+        assert proc.poll() is None, proc.communicate()[1].decode()[-2000:]
+        assert sm.count_incomplete_batches("tw") == 0
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 130
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate()
+        stand_in.close()
+    q = sm.graph.binding.query
+    assert stand_in.requests == {n: 1 for n in names}
+    assert [(p.url, p.sequence_id, p.depth)
+            for p in sm.get_pages_from_page_buffer(9)] == \
+        [("goodchan", "q1", 1)]
+    assert q("SELECT destination_channel, walkback, skipped, sequence_id "
+             "FROM edge_records") == [("goodchan", 0, 0, "q1")]
+    assert dict(q("SELECT channel_username, reason FROM "
+                  "invalid_channels")) == {"privroom": "not_supergroup",
+                                           "ghostname": "not_found"}
+    assert q("SELECT total, valid, not_channel, invalid FROM "
+             "source_type_stats") == [(3, 1, 1, 1)]
+    assert q("SELECT COUNT(*) FROM access_events") == [(0,)]
+    assert q("SELECT COUNT(*) FROM pending_edges") == [(0,)]
 
 
 def test_generate_code_is_the_gen_code_mode(capsys):
