@@ -10,7 +10,10 @@ JSON line each:
 
 1. device — name, count, torch/CUDA versions, name and power limit;
 2. build — nvcc builds every kernel from `distributed_crawler_tpu_torch/
-   csrc`, with the compiler's register/shared-memory report;
+   csrc`, with the compiler's register/shared-memory report, and g++ the
+   native Telegram client from `native/` into
+   `distributed_crawler_tpu_torch/_build/native/` beside it (its
+   seconds);
 3. kernel — each kernel against its plain PyTorch version on the card:
    buckets 32-1024, head dims 8-256 (16/32/64 at every bucket; 8, 25, 48,
    80, 128 and 256, and TinyBERT-4L-312D's fused QKV view of 12 heads of
@@ -330,7 +333,25 @@ JSON line each:
    page-buffer row left on a forward edge's chain or a walkback's new one;
    a forced walkback; no post stored by the walk; every post of the
    follow-on crawl committed once by the tpu-worker as 384 finite floats;
-   12 sm90 launches per dispatch over run D.
+   12 sm90 launches per dispatch over run D.  Run E (slice.native_crawl),
+   over the same tpu-worker: the reference's production topology, all of
+   it the port's processes.  ``--mode orchestrator`` (BFS, ``--max-depth
+   1``) hosting the broker and ``--mode worker --infer``, whose pool holds
+   one native-client connection per seed-DB tarball (8 ``.tar.gz`` files
+   the script writes from ``--seed``: 16 channels of 128 text posts, one
+   seed channel naming the other 15 by ``t.me/<name>``, phase 4's texts
+   over buckets 32-512) at the reference's rate limits.  Checks: the
+   crawl completed with all 16 pages fetched and applied once (the
+   worker's ``/status`` counting 16 items); one ``posts.jsonl`` per
+   channel; exactly one result row per stored post, 2048 with none twice,
+   within 2e-2 of phase 11's engine's ``engine.run`` on the stored posts'
+   texts with labels equal off a 5e-2 margin; the worker loaded the
+   library built from `native/` under ``_build/native/``; 12 sm90
+   launches per dispatch over run E; the worker's exit 130 on SIGTERM.
+   Times: the crawl's seconds, pages/s and posts/s end to end, the rate
+   limiter's calls and waits per method (the worker's ``/metrics``), the
+   worker's start to its first heartbeat at the orchestrator, the
+   library's build seconds.
 16. slice.autoscaler (after phase 15, on its machinery) — ``--mode
    orchestrator --autoscaler`` with phase 15's crawl, spool, journal and
    rule, ``--autoscaler-eval-interval 1`` and one pool ``tpu`` of one to
@@ -865,13 +886,14 @@ def whisper_f32_kernel_times(torch, F, attention, device, gen, smi,
 _LETTERS = "abcdefghijklmnopqrstuvwxyz"
 
 
-def synthetic_posts(np, rng, n, start):
+def synthetic_posts(np, rng, n, start, spans=SPANS):
     """Posts whose token counts (words + CLS + SEP) spread over all five
-    buckets: each word is 3-8 lowercase letters, so it hashes to one id."""
+    buckets (``spans``): each word is 3-8 lowercase letters, so it hashes
+    to one id."""
     letters = np.array(list(_LETTERS))
     posts = []
     for i in range(n):
-        lo, hi = SPANS[int(rng.integers(len(SPANS)))]
+        lo, hi = spans[int(rng.integers(len(spans)))]
         n_words = int(rng.integers(lo, hi + 1))
         sizes = rng.integers(3, 9, size=n_words)
         chars = letters[rng.integers(0, 26, size=int(sizes.sum()))]
@@ -4395,7 +4417,7 @@ def cli_tpu_worker(torch, np, attention, work, seed, smi, phase4_posts_s):
          phase4_posts_per_s=phase4_posts_s, card=smi)
     return {"launches": launches, "batches": batches, "want": want,
             "frames": frames, "warmup_s": warm_s, "posts_per_s": posts_s,
-            "n_layers": ecfg.n_layers}
+            "n_layers": ecfg.n_layers, "engine": engine}
 
 
 def wait_http_200(url, proc, timeout_s):
@@ -7762,14 +7784,233 @@ def tandem_run(np, procs, root, address, store, url, seed):
         "kernel_launches_by_path": launches}
 
 
-def phase_orchestrator(np, attention, work, grpc_posts_s, seed, smi):
+# Phase 15's run E (slice.native_crawl): the reference's production
+# topology (`tests/test_topology_e2e.py:68-143`), all of it the port's own
+# processes: ``--mode orchestrator`` (BFS, depth 1) hosting the broker, and
+# ``--mode worker --infer``, whose pool holds one native-client connection
+# per seed-DB tarball at the reference's rate limits, into the phase's
+# E5-small tpu-worker.
+NATIVE_CHANNELS = 16        # channel 0 the seed, naming the other 15
+NATIVE_POSTS = 128          # text posts per channel: 2048 in all
+NATIVE_DBS = 8              # seed-DB tarballs: one pool connection each
+
+
+def native_store(np, seed, channels=NATIVE_CHANNELS, posts=NATIVE_POSTS,
+                 spans=SPANS):
+    """The seed store's document and its channel names: each channel's
+    posts are phase 4's texts (over buckets 32-512 with the default
+    ``spans``), and each of the seed channel's ends with ``t.me/<name>``
+    of the others in turn."""
+    rng = np.random.default_rng(seed + 20)
+    names = [f"nat{int(x):06x}" for x in rng.integers(0, 1 << 24,
+                                                      channels)]
+    check(len(set(names)) == channels, "native channel names collide")
+    doc = {"channels": []}
+    for c, name in enumerate(names):
+        msgs = []
+        for i, p in enumerate(synthetic_posts(np, rng, posts, 0, spans)):
+            text = p["description"]
+            if c == 0:
+                text += f" t.me/{names[1 + i % (channels - 1)]}"
+            msgs.append({"date": 1700000000 + 60 * i,
+                         "view_count": int(rng.integers(1, 500)),
+                         "content": {"@type": "messageText",
+                                     "text": {"text": text,
+                                              "entities": []}}})
+        doc["channels"].append({"username": name,
+                                "title": f"Channel {name}",
+                                "member_count": 1000, "messages": msgs})
+    return doc, names
+
+
+def write_seed_dbs(root, doc, n):
+    """``n`` seed-DB tarballs of one store, each holding
+    ``db/seed.json``, as a deployment keeps one per account."""
+    import tarfile
+
+    os.makedirs(root, exist_ok=True)
+    src = os.path.join(root, "seed.json")
+    with open(src, "w", encoding="utf-8") as f:
+        json.dump(doc, f)
+    paths = []
+    for i in range(n):
+        path = os.path.join(root, f"db{i}.tar.gz")
+        with tarfile.open(path, "w:gz") as tar:
+            tar.add(src, arcname="db/seed.json")
+        paths.append(path)
+    return paths
+
+
+def stored_posts(wrk, crawl_id):
+    """The worker's store: ``{channel: [post dicts]}``, one posts.jsonl
+    per channel."""
+    out = {}
+    base = os.path.join(wrk, crawl_id)
+    for ch in sorted(os.listdir(base)) if os.path.isdir(base) else []:
+        path = os.path.join(base, ch, "posts", "posts.jsonl")
+        if os.path.exists(path):
+            with open(path, encoding="utf-8") as f:
+                out[ch] = [json.loads(ln) for ln in f]
+    return out
+
+
+def limiter_waits(lines):
+    """The rate limiter's calls and seconds waited per method, from a
+    process's /metrics."""
+    out = {}
+    for key, value in lines.items():
+        for name, field in (("telegram_rate_limit_calls_total", "calls"),
+                            ("telegram_rate_limit_wait_seconds_total",
+                             "wait_s")):
+            if key.startswith(name + '{api_call="'):
+                call = key.split('"')[1]
+                out.setdefault(call, {})[field] = value
+    return out
+
+
+def native_run(np, procs, root, address, store, url, seed, engine,
+               native_build):
+    """Run E: the orchestrator and a crawl-worker process over 8 seed-DB
+    tarballs into the tpu-worker at ``url``.  Checks: 16 pages fetched
+    once, 2048 result rows within 2e-2 of ``engine.run`` on the stored
+    posts, the library built from `native/`, 12 sm90 launches per dispatch
+    of the tpu-worker, the worker's exit 130."""
+    from distributed_crawler_tpu_torch.datamodel.post import (
+        text_for_inference,
+    )
+    from distributed_crawler_tpu_torch.orchestrator.journal import (
+        CrawlJournal,
+    )
+
+    t_run = time.perf_counter()
+    run = os.path.join(root, "E")
+    crawl_id = "orch-E"
+    doc, names = native_store(np, seed)
+    dbs = write_seed_dbs(os.path.join(run, "dbs"), doc, NATIVE_DBS)
+    state, wrk = os.path.join(run, "state"), os.path.join(run, "wrk")
+    journal = os.path.join(run, "journal")
+    m_orch, m_wrk = free_port(), free_port()
+    ourl, wurl = (f"http://127.0.0.1:{m}" for m in (m_orch, m_wrk))
+    before, d0 = proc_counts(url)
+    t0 = time.perf_counter()
+    orch = procs.start(
+        "orch_E", "--mode", "orchestrator", "--bus-address", address,
+        "--metrics-port", str(m_orch), "--storage-root", state,
+        "--crawl-id", crawl_id, "--journal-dir", journal, "--urls",
+        names[0], "--max-depth", "1", "--skip-media", "--log-json")
+    poll_until(lambda: json_route(ourl, "/status"),
+               "run E: the orchestrator's /status", procs=[orch],
+               timeout_s=120)
+    t_w = time.perf_counter()
+    # The reference's rate limits (TelegramRateLimitConfig's defaults).
+    wproc = procs.start(
+        "worker_E", "--mode", "worker", "--worker-id", "crawl-E",
+        "--bus-address", address, "--crawl-id", crawl_id,
+        "--tdlib-database-urls", ",".join(dbs), "--storage-root", wrk,
+        "--skip-media", "--infer", "--metrics-port", str(m_wrk),
+        "--telemetry-interval", str(ORCH_BEAT_S), "--log-json")
+    poll_until(lambda: (json_route(ourl, "/cluster") or {}).get(
+        "workers", {}).get("crawl-E"),
+        "run E: the crawl worker's first heartbeat at the orchestrator",
+        procs=[orch, wproc], timeout_s=120)
+    first_beat_s = time.perf_counter() - t_w
+    want_n = NATIVE_CHANNELS * NATIVE_POSTS
+    try:
+        rc = orch.wait(timeout=ORCH_DEADLINE_S)
+    except subprocess.TimeoutExpired:
+        raise Fail(f"run E: the crawl did not complete in "
+                   f"{ORCH_DEADLINE_S} s: {procs.tail(orch.name)}")
+    crawl_s = time.perf_counter() - t0
+    procs.live.remove(orch)
+    check(rc == 0, f"run E: the orchestrator exited {rc}: "
+          f"{procs.tail(orch.name)}")
+    rows = poll_until(lambda: (lambda r: len(r) >= want_n and r)(
+        orch_rows(store, crawl_id)), "run E: the tpu-worker's rows",
+        timeout_s=120)
+    end_to_end_s = time.perf_counter() - t0
+    posts = stored_posts(wrk, crawl_id)
+    uids = [p["post_uid"] for ch in names for p in posts.get(ch, [])]
+    want_n = NATIVE_CHANNELS * NATIVE_POSTS
+    status = json_route(wurl, "/status") or {}
+    waits = limiter_waits(metric_lines(wurl))
+    procs.stop(wproc)   # exit 130 on SIGTERM
+    with open(os.path.join(state, crawl_id, "state.json"),
+              encoding="utf-8") as f:
+        layers = json.load(f)["layers"]
+    with open(os.path.join(state, crawl_id, "metadata.json"),
+              encoding="utf-8") as f:
+        meta = json.load(f)["status"]
+    pages = [(p["url"], p["status"]) for layer in layers
+             for p in layer["pages"]]
+    rec = CrawlJournal(journal).replay()
+    check(meta == "completed" and rec.crawl_completed
+          and sorted(u for u, _ in pages) == sorted(names)
+          and all(st == "fetched" for _, st in pages)
+          and [len(layer["pages"]) for layer in layers]
+          == [1, NATIVE_CHANNELS - 1]
+          and rec.completed_items == NATIVE_CHANNELS
+          and rec.error_items == 0
+          and len(rec.applied_results) == NATIVE_CHANNELS,
+          f"run E: metadata {meta}, pages {pages}, the journal's replay "
+          f"{rec.to_debug_dict()}")
+    check(status.get("tasks_processed") == NATIVE_CHANNELS
+          and status.get("tasks_success") == NATIVE_CHANNELS,
+          f"run E: the worker's /status {status}")
+    check(sorted(posts) == sorted(names)
+          and all(len(posts[ch]) == NATIVE_POSTS for ch in names)
+          and len(set(uids)) == len(uids) == want_n,
+          f"run E: posts.jsonl per channel "
+          f"{ {ch: len(v) for ch, v in posts.items()} }, {len(uids)} posts "
+          f"({len(set(uids))} distinct)")
+    got = [r["post_uid"] for r in rows]
+    check(len(got) == len(set(got)) == want_n and set(got) == set(uids),
+          f"run E: {len(got)} result rows ({len(set(got))} posts) for "
+          f"{want_n} stored posts")
+    text = {p["post_uid"]: text_for_inference(p)
+            for ch in names for p in posts[ch]}
+    rows.sort(key=lambda r: r["post_uid"])
+    vs_engine = check_rows_against(
+        np, rows, engine.run([text[r["post_uid"]] for r in rows]))
+    log = procs.tail(wproc.name, 10 ** 6)
+    lib = [json.loads(ln).get("path", "") for ln in log
+           if ln.startswith("{") and "native client library loaded" in ln]
+    build_dir = os.path.join(ROOT, PACKAGE, "_build", "native")
+    check(lib and all(p == str(native_build.path) for p in lib)
+          and os.path.dirname(str(native_build.path)) == build_dir,
+          f"run E: the worker loaded {lib}, not the library built from "
+          f"native/ into {build_dir} ({native_build.path})")
+    after, d1 = proc_counts(url)
+    launches = {p: after[p] - before[p] for p in after}
+    check_sm90_only(launches, 12, d1 - d0, "run E's tpu-worker")
+    return {
+        "channels": NATIVE_CHANNELS, "seed_dbs": NATIVE_DBS,
+        "pages_fetched": len(pages), "posts": want_n,
+        "result_rows": len(got), "vs_engine_run": vs_engine,
+        "crawl_s": crawl_s, "end_to_end_s": end_to_end_s,
+        "pages_per_s": len(pages) / end_to_end_s,
+        "posts_per_s": want_n / end_to_end_s,
+        "worker_first_beat_s": first_beat_s,
+        "worker_items": status.get("tasks_processed"),
+        "limiter": waits, "library": os.path.relpath(native_build.path,
+                                                     ROOT),
+        "library_build_s": native_build.seconds,
+        "library_cached": native_build.cached,
+        "dispatches": d1 - d0, "run_s": time.perf_counter() - t_run,
+        "kernel_launches_by_path": launches}
+
+
+def phase_orchestrator(np, attention, work, grpc_posts_s, seed, smi, engine,
+                       native_build):
     """Phase 15: ``--mode orchestrator`` over a card ``tpu-worker`` and a
     ``cluster-worker``, two stand-in crawl workers, run A (the valve and
     the routes) and run B (a SIGKILL and a resume); then run C, the random
     walk's step through the port's `CrawlWorker` and a crawl of its next
     channels into the same ``tpu-worker``; then run D, the tandem walk
     beside a validator process and a crawl of the channels it stepped
-    to."""
+    to; then run E, the orchestrator and a ``--mode worker --infer``
+    process crawling 8 seed-DB tarballs through the native client into
+    the same ``tpu-worker``, its rows held against ``engine`` (phase 11's,
+    the same weights)."""
     try:
         import grpc  # noqa: F401
     except ImportError:
@@ -7823,6 +8064,8 @@ def phase_orchestrator(np, attention, work, grpc_posts_s, seed, smi):
         walk["seconds"] = time.perf_counter() - t_walk
         tandem = tandem_run(np, procs, root, address, store, url, seed)
         procs.stop(clu)
+        native_crawl = native_run(np, procs, root, address, store, url,
+                                  seed, engine, native_build)
         procs.stop(tpu)
     except BaseException:
         for name in sorted(os.listdir(root)):
@@ -7870,8 +8113,16 @@ def phase_orchestrator(np, attention, work, grpc_posts_s, seed, smi):
         phase_s=seconds, card=smi)
     emit("slice.random_walk", **walk, card=smi)
     emit("slice.tandem_walk", **tandem, card=smi)
+    # Run E's seconds are set by the rate limiter (a search per 10 s and
+    # jitter per call, per connection), the worker's one item at a time and
+    # the orchestrator's 5 s tick, not by the card.
+    emit("slice.native_crawl", **native_crawl,
+         paced_by="the rate limiter's waits, the worker's sequential items "
+                  "and the 5 s distribute tick", card=smi)
     launches = {p: launches[p] + walk["kernel_launches_by_path"][p]
-                + tandem["kernel_launches_by_path"][p] for p in launches}
+                + tandem["kernel_launches_by_path"][p]
+                + native_crawl["kernel_launches_by_path"][p]
+                for p in launches}
     emit("slice.orchestrator", seconds=seconds,
          kernel_launches_by_path=launches)
     return {"launches": launches, "tpu_burst_posts_per_s": report["A"][
@@ -8559,14 +8810,24 @@ def main() -> int:
          cuda=torch.version.cuda, nvidia_smi=smi)
     print(smi, flush=True)
 
+    from distributed_crawler_tpu_torch.clients import native
+
+    # The native client's g++ build runs beside nvcc's.
+    native_pool = concurrent.futures.ThreadPoolExecutor(1)
+    native_future = native_pool.submit(native.build_library)
     builds = kernels.build()
+    native_build = native_future.result()
+    native_pool.shutdown()
     emit("build", kernels=[{
         "name": r.name, "seconds": r.seconds, "cached": r.cached,
         "library": os.path.relpath(r.path, ROOT),
         "ptxas": [ln.strip() for ln in r.log.splitlines()
                   if "registers" in ln or "spill" in ln or "smem" in ln
                   or "Compiling entry" in ln or "Performance Loss" in ln]}
-        for r in builds])
+        for r in builds], native_client={
+            "seconds": native_build.seconds, "cached": native_build.cached,
+            "library": os.path.relpath(native_build.path, ROOT),
+            "sources": [f"native/{n}" for n in native.SOURCES]})
 
     device = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(args.seed)
@@ -8601,7 +8862,8 @@ def main() -> int:
     bus = timed("bus", phase_bus, np, attention, work.name, cli_["tpu"],
                 cli_["grpc_posts_per_s"], smi)
     orch = timed("orchestrator", phase_orchestrator, np, attention,
-                 work.name, cli_["grpc_posts_per_s"], args.seed, smi)
+                 work.name, cli_["grpc_posts_per_s"], args.seed, smi,
+                 cli_["tpu"].pop("engine"), native_build)
     auto = timed("autoscaler", phase_autoscaler, np, work.name,
                  cli_["grpc_posts_per_s"], orch["tpu_burst_posts_per_s"],
                  args.seed, smi)

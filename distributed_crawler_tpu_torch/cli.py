@@ -36,12 +36,28 @@ on the card and the broker between processes:
   every work item it dispatches. ``--max-crawl-duration`` resolves into
   the config as the reference's does, but this mode ignores it, as the
   reference's does (it warns when the flag is set);
+- ``worker``: a crawl worker (`worker.CrawlWorker`) taking the
+  orchestrator's work items off the bus, its connection pool built by
+  `crawl/runner.setup_pool_from_config` from the native client
+  (`clients/native.py`): one connection per ``--tdlib-database-urls``
+  seed-DB tarball, or ``--concurrency`` connections dialing a DC gateway
+  at ``--dc-address``; heartbeats, ``/status``, exit 130 on SIGTERM;
+- ``gen-code`` (or ``--generate-code``): the auth bootstrap, writing
+  ``<tdlib-dir>/credentials.json`` from the TG_* environment, against the
+  embedded engine or a ``--dc-address`` gateway;
 - ``launch --validate-only`` (or a bare ``--validate-only``): the tandem
   crawl's validator pod (`modes/validate.py`) over the graph store on
   ``<storage-root>/graph.sqlite``, until SIGTERM (exit 130).  Without
-  ``--validate-only``, ``launch`` exits 2 before any set-up: its random
-  walk needs a pool from the native client (ROADMAP Queue 1 part D), its
-  other samplings the crawl modes (part C).
+  ``--validate-only``, ``launch`` runs the random walk on the native
+  client's pool; its other samplings exit 2 before any set-up, as they
+  run in the crawl modes (ROADMAP Queue 1 part C).
+
+With ``--infer``, ``worker`` and ``launch`` wrap their state manager in
+`inference/bridge.InferenceBridge`: stored posts are published on
+``tpu-inference-batches`` for a ``tpu-worker``.  ``--media-bridge`` and
+``--platform youtube`` exit 2 there: `MediaBridge` and the YouTube
+crawler belong to the crawl modes (part C).  ``--dc-wire mtproto`` exits
+2: the MTProto wire waits for the rest of part D.
 
 With ``--bus-spool-dir``, a worker's publishes go through a durable
 outbox under ``<spool-dir>/outbox/<worker-id>``, so a broker outage
@@ -54,9 +70,8 @@ object store (`state/objectstore.py`) instead of ``--storage-root``.
 The flags, their ``CRAWLER_*`` environment variables and the YAML config
 keys are the reference's, resolved through the same precedence (flags >
 env > config file > defaults; `config/precedence.py`).  The crawler's
-modes other than the orchestrator and the validator (the crawl workers,
-standalone crawls, jobs and the Telegram gateway) run from the
-reference's CLI; here they exit 2 and say so.  A serving mesh and multi-process serving are not ported yet: they exit 2
+other modes (standalone crawls, jobs and the Telegram gateway) run from
+the reference's CLI; here they exit 2 and say so.  A serving mesh and multi-process serving are not ported yet: they exit 2
 with a message that names where they wait in ROADMAP.md, never silently
 ignored.
 
@@ -83,10 +98,10 @@ logger = logging.getLogger("dct.cli")
 
 VERSION = "distributed_crawler_tpu_torch v0.1.0"
 DEVICE_MODES = ("tpu-worker", "asr-worker", "cluster-worker", "transcribe",
-                "cluster", "train-head", "bus", "orchestrator", "launch")
+                "cluster", "train-head", "bus", "orchestrator", "launch",
+                "worker", "gen-code")
 # The reference CLI's other modes: the crawler's half.
-CRAWLER_MODES = ("standalone", "worker", "job", "job-submit", "dc-gateway",
-                 "gen-code")
+CRAWLER_MODES = ("standalone", "job", "job-submit", "dc-gateway")
 _WORKER_MODES = ("tpu-worker", "asr-worker", "cluster-worker")
 
 
@@ -104,8 +119,9 @@ def build_parser() -> argparse.ArgumentParser:
     a("--log-json", action="store_const", const=True, default=None)
     a("--mode", default=None,
       help="tpu-worker | asr-worker | cluster-worker | transcribe | "
-           "cluster | train-head | bus | orchestrator | launch (the "
-           "crawler's other modes run from distributed_crawler_tpu.cli)")
+           "cluster | train-head | bus | orchestrator | launch | worker | "
+           "gen-code (the crawler's other modes run from "
+           "distributed_crawler_tpu.cli)")
     a("--worker-id", default=None, help="worker identifier (worker modes)")
     # The crawl's settings, carried to the crawl workers in every work
     # item the orchestrator dispatches.
@@ -141,6 +157,29 @@ def build_parser() -> argparse.ArgumentParser:
     a("--validator-transport", default=None,
       help="t.me transport: urllib | chrome (native Chrome-shaped TLS)")
     a("--urls", default=None, help="comma-separated URLs to crawl")
+    # The native Telegram client's pool: seed-DB tarballs, or a DC gateway
+    # the connections dial (credentials from --tdlib-dir or TG_* env).
+    a("--tdlib-database-url", default=None)
+    a("--tdlib-database-urls", default=None, help="comma-separated")
+    a("--dc-address", default=None,
+      help="host:port of a dc-gateway; pool connections dial it over the "
+           "wire protocol (empty = offline embedded store)")
+    a("--dc-tls", action="store_const", const=True, default=None,
+      help="dial the gateway over TLS (Chrome-shaped ClientHello)")
+    a("--dc-tls-insecure", action="store_const", const=True, default=None,
+      help="skip cert verification (self-signed gateway bootstrap)")
+    a("--dc-sni", default=None, help="TLS SNI override")
+    a("--dc-wire", default=None, choices=["dct", "mtproto"],
+      help="client wire protocol: dct (mtproto waits for the rest of "
+           "ROADMAP Queue 1 part D)")
+    a("--dc-pubkey-file", default=None,
+      help="gateway RSA public key JSON ({n, e})")
+    a("--dc-table-file", default=None,
+      help="DC table JSON ({dc_id: {address, pubkey_file}}): connections "
+           "follow PHONE_MIGRATE_X redirects to an account's home DC")
+    a("--tdlib-dir", default=None,
+      help="client-side auth/credentials dir (default .tdlib): gen-code "
+           "writes credentials.json here, pools read it back")
     a("--url-file", default=None, help="file with one URL per line")
     a("--storage-root", default=None)
     a("--crawl-id", default=None)
@@ -285,8 +324,9 @@ def build_parser() -> argparse.ArgumentParser:
     a("--bus-serve", action="store_const", const=True, default=None,
       help="also host the gRPC broker at --bus-address (worker modes)")
     a("--infer", action="store_const", const=True, default=None,
-      help="asr-worker and transcribe: transcripts re-enter the text "
-           "path as posts on tpu-inference-batches")
+      help="worker and launch: stored posts are published on "
+           "tpu-inference-batches; asr-worker and transcribe: transcripts "
+           "re-enter the text path as posts there")
     a("--infer-model", default=None, help="model registry key")
     a("--infer-backpressure-high", type=int, default=None,
       help="orchestrator pauses crawl distribution when live TPU workers' "
@@ -303,6 +343,9 @@ def build_parser() -> argparse.ArgumentParser:
       help="discard any existing crawl state + journal and re-seed")
     a("--asr-pretrained-dir", default=None,
       help="local HF Whisper checkpoint dir")
+    a("--media-bridge", action="store_const", const=True, default=None,
+      help="publish crawled audio refs to tpu-media-batches (the crawl "
+           "modes' MediaBridge: ROADMAP Queue 1 part C)")
     a("--transcribe-input", default=None,
       help="dir scanned recursively for .wav media, or a single file")
     a("--transcribe-output", default=None,
@@ -382,7 +425,9 @@ def build_parser() -> argparse.ArgumentParser:
       action="store_const", const=False, default=None,
       help="strip embeddings from published result batches")
     a("--generate-code", action="store_true",
-      help="the Telegram auth bootstrap (the crawler's half)")
+      help="run the Telegram auth bootstrap (TG_* env vars) and write "
+           "credentials.json under --tdlib-dir, then exit (alias: "
+           "--mode gen-code)")
     a("--version", action="store_true")
     return p
 
@@ -420,6 +465,17 @@ _KEY_MAP = {
     "validator_transport": "crawler.validator_transport",
     "validator_base_url": "crawler.validator_base_url",
     "urls": "crawler.urls",
+    "tdlib_database_url": "tdlib.database_url",
+    "tdlib_database_urls": "tdlib.database_urls",
+    "tdlib_dir": "tdlib.dir",
+    "dc_address": "tdlib.dc_address",
+    "dc_tls": "tdlib.dc_tls",
+    "dc_tls_insecure": "tdlib.dc_tls_insecure",
+    "dc_sni": "tdlib.dc_sni",
+    "dc_wire": "tdlib.dc_wire",
+    "dc_pubkey_file": "tdlib.dc_pubkey_file",
+    "dc_table_file": "tdlib.dc_table_file",
+    "media_bridge": "media.enabled",
     "url_file": "crawler.url_file",
     "alert_rules": "observability.alert_rules",
     "tenant_budgets": "observability.tenant_budgets",
@@ -559,6 +615,16 @@ def resolve_config(args: argparse.Namespace,
     cfg.tenant = r.get_str("crawler.tenant")
     cfg.platform = r.get_str("crawler.platform", "telegram")
     cfg.object_store_url = r.get_str("crawler.object_store_url", "")
+    cfg.tdlib_database_url = r.get_str("tdlib.database_url")
+    cfg.tdlib_database_urls = r.get_list("tdlib.database_urls")
+    cfg.tdlib_dir = r.get_str("tdlib.dir", ".tdlib")
+    cfg.dc_address = r.get_str("tdlib.dc_address")
+    cfg.dc_tls = r.get_bool("tdlib.dc_tls", False)
+    cfg.dc_tls_insecure = r.get_bool("tdlib.dc_tls_insecure", False)
+    cfg.dc_sni = r.get_str("tdlib.dc_sni")
+    cfg.dc_wire = r.get_str("tdlib.dc_wire")
+    cfg.dc_pubkey_file = r.get_str("tdlib.dc_pubkey_file")
+    cfg.dc_table_file = r.get_str("tdlib.dc_table_file")
     inf = cfg.inference
     inf.enabled = r.get_bool("inference.enabled", False)
     model = r.get_str("inference.model")
@@ -651,7 +717,7 @@ def main(argv: Optional[List[str]] = None, env=None,
     if mode not in DEVICE_MODES:
         print(f"error: {_not_a_device_mode(mode)}", file=sys.stderr)
         return 2
-    if mode == "launch" and not cfg.validate_only:
+    if mode == "launch" and not cfg.validate_only and _launch_waits(cfg):
         print(f"error: {_launch_waits(cfg)}", file=sys.stderr)
         return 2
     setup_logging(r.get_str("logging.level", "info"),
@@ -706,7 +772,11 @@ def main(argv: Optional[List[str]] = None, env=None,
         elif mode == "orchestrator":
             _run_orchestrator(collect_urls(r), cfg, r)
         elif mode == "launch":
-            _run_launch(collect_urls(r), cfg)
+            _run_launch(collect_urls(r), cfg, r)
+        elif mode == "worker":
+            _run_worker(cfg, r)
+        elif mode == "gen-code":
+            return _gen_code(r, env)
         else:
             return _run_bus(r)
     except CliConfigError as e:
@@ -727,30 +797,164 @@ def _not_a_device_mode(mode: str) -> str:
 
 
 def _launch_waits(cfg: CrawlerConfig) -> str:
-    """Why ``--mode launch`` without ``--validate-only`` exits 2: the
-    crawl has no pool to crawl with until the native client, and the
-    other samplings run in the crawl modes."""
-    if cfg.sampling_method == "random-walk":
-        return ("--mode launch runs a random walk on a connection pool from "
-                "the native Telegram client (clients/native.py), which the "
-                "port has not ported yet (ROADMAP Queue 1 part D); "
-                "--validate-only runs the validator pod")
+    """Why ``--mode launch`` without ``--validate-only`` exits 2, or ""
+    for the telegram random walk, which runs: the other samplings run in
+    the crawl modes."""
+    if cfg.sampling_method == "random-walk" and cfg.platform == "telegram":
+        return ""
     return (f"--mode launch with {cfg.sampling_method} sampling runs in the "
             f"crawl modes, which the port has not ported yet (ROADMAP "
             f"Queue 1 part C); --validate-only runs the validator pod")
 
 
-def _run_launch(urls: List[str], cfg: CrawlerConfig) -> None:
-    """mode=launch with --validate-only: the validator pod over the
-    factory's manager on ``<storage-root>/graph.sqlite``, until SIGTERM
-    or ^C (exit 130)."""
+def _check_sampling(urls: List[str], cfg: CrawlerConfig, mode: str) -> None:
+    """The reference's sampling matrix (`config/sampling.
+    validate_sampling_method`) for a crawling mode, before any set-up; a
+    validate-only config is exempt, as in the reference."""
+    if cfg.validate_only:
+        return
+    try:
+        validate_sampling_method(SamplingValidationInput(
+            platform=cfg.platform, sampling_method=cfg.sampling_method,
+            url_list=urls, mode=mode, seed_size=cfg.seed_size,
+            crawl_id=cfg.crawl_id))
+    except ValueError as e:
+        raise CliConfigError(str(e)) from None
+
+
+def _refuse_crawl_mode_features(cfg: CrawlerConfig) -> None:
+    """What a crawling process of the port cannot build yet: the media
+    bridge and the YouTube crawler (the crawl modes, ROADMAP Queue 1 part
+    C) and the MTProto wire (the rest of part D)."""
+    if cfg.media.enabled:
+        raise CliConfigError(
+            "--media-bridge needs MediaBridge, which comes with the crawl "
+            "modes (ROADMAP Queue 1 part C); the port's crawl bridges posts "
+            "with --infer only")
+    if cfg.platform == "youtube":
+        raise CliConfigError(
+            "--platform youtube crawls through the YouTube crawler, which "
+            "comes with the crawl modes (ROADMAP Queue 1 part C); the "
+            "port's crawl workers crawl telegram")
+    if cfg.dc_wire == "mtproto":
+        from .clients.native import MTPROTO_WAITS
+
+        raise CliConfigError(MTPROTO_WAITS)
+
+
+def _maybe_bridge(sm, cfg: CrawlerConfig, r: ConfigResolver):
+    """With ``--infer`` the state manager is wrapped in `InferenceBridge`,
+    so stored posts ship to ``tpu-inference-batches`` (over the gRPC bus
+    with ``--bus-address``, for a ``tpu-worker`` process); returns (sm,
+    closer).  The closer owns the last ``sm.close()`` either way, which
+    flushes the crawl's completed status."""
+    if not cfg.inference.enabled:
+        return sm, sm.close
+    from .inference.bridge import InferenceBridge
+
+    bus = _make_bus(r)
+    wrapped = InferenceBridge(sm, bus, crawl_id=cfg.crawl_id,
+                              batch_size=cfg.inference.batch_size,
+                              deadline_s=cfg.inference.batch_deadline_ms
+                              / 1000.0)
+
+    def closer():
+        wrapped.close()  # flushes, then closes the inner manager
+        try:
+            bus.close()
+        except Exception as e:
+            logger.warning("bridge bus close failed: %s", e)
+
+    return wrapped, closer
+
+
+def _run_launch(urls: List[str], cfg: CrawlerConfig,
+                r: ConfigResolver) -> None:
+    """mode=launch: the validator pod (``--validate-only``) or the random
+    walk on the native client's pool, over the factory's manager on
+    ``<storage-root>/graph.sqlite``, behind the bridge with ``--infer``.
+    The validator runs until SIGTERM or ^C (exit 130)."""
+    from .crawl import shutdown_connection_pool
     from .modes.common import create_state_manager, determine_crawl_id
     from .modes.runner import launch
 
+    _check_sampling(urls, cfg, "launch")
+    if not cfg.validate_only:
+        _refuse_crawl_mode_features(cfg)
     exec_id, _ = determine_crawl_id(create_state_manager(cfg), cfg)
-    sm = create_state_manager(cfg, exec_id)
-    with _sigterm_as_interrupt():
-        launch(urls, cfg, sm=sm)
+    sm, closer = _maybe_bridge(create_state_manager(cfg, exec_id), cfg, r)
+    try:
+        with _sigterm_as_interrupt():
+            launch(urls, cfg, sm=sm)
+    finally:
+        closer()
+        shutdown_connection_pool()
+
+
+def _run_worker(cfg: CrawlerConfig, r: ConfigResolver) -> None:
+    """mode=worker: a `CrawlWorker` on the bus, its pool from
+    `setup_pool_from_config`, behind the bridge with ``--infer``; serves
+    ``/status`` from the worker until SIGTERM or ^C (exit 130)."""
+    worker_id = r.get_str("distributed.worker_id")
+    if not worker_id:
+        raise CliConfigError("worker mode requires --worker-id")
+    _check_sampling([], cfg, "worker")
+    _refuse_crawl_mode_features(cfg)
+    from .crawl import setup_pool_from_config, shutdown_connection_pool
+    from .modes.common import create_state_manager
+    from .utils.metrics import set_status_provider
+    from .worker import CrawlWorker
+    from .worker.worker import WorkerConfig
+
+    bus = _make_bus(r)
+    sm, bridge_closer = _maybe_bridge(
+        create_state_manager(cfg, cfg.crawl_id), cfg, r)
+    try:
+        setup_pool_from_config(cfg)
+        worker = CrawlWorker(worker_id, cfg, bus, sm, wcfg=WorkerConfig(
+            worker_id=worker_id, heartbeat_s=_heartbeat_interval(r),
+            slo_batch_p95_ms=r.get_float("observability.slo_batch_p95_ms",
+                                         0.0)))
+        set_status_provider(worker.get_status)
+        worker.start()
+        try:
+            _serve_forever(running=lambda: worker.is_running)
+        finally:
+            worker.stop()
+    finally:
+        bridge_closer()
+        bus.close()
+        shutdown_connection_pool()
+
+
+def _gen_code(r: ConfigResolver, env=None) -> int:
+    """The auth bootstrap: the ladder driven from the TG_* environment
+    (``env``, else the process's), against a ``--dc-address`` gateway or
+    else the embedded engine with auth on, and ``credentials.json``
+    written under ``--tdlib-dir`` for pools to read."""
+    from .clients.native import NativeTelegramClient, generate_pcode
+
+    client = None
+    try:
+        if r.get_str("tdlib.dc_address"):
+            client = NativeTelegramClient(
+                server_addr=r.get_str("tdlib.dc_address"),
+                tls=r.get_bool("tdlib.dc_tls", False),
+                tls_insecure=r.get_bool("tdlib.dc_tls_insecure", False),
+                sni=r.get_str("tdlib.dc_sni"),
+                wire=r.get_str("tdlib.dc_wire"),
+                server_pubkey_file=r.get_str("tdlib.dc_pubkey_file"),
+                conn_id="gen-code")
+        path = generate_pcode(tdlib_dir=r.get_str("tdlib.dir", ".tdlib"),
+                              env=env, client=client)
+    except Exception as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    finally:
+        if client is not None:
+            client.close()
+    print(f"credentials saved to {path}")
+    return 0
 
 
 def _heartbeat_interval(r: ConfigResolver) -> float:
@@ -1481,22 +1685,6 @@ def _build_autoscaler(r: ConfigResolver, config, orch, bus):
     return autoscaler
 
 
-def _check_orchestrator(urls: List[str], cfg: CrawlerConfig,
-                        r: ConfigResolver) -> None:
-    """The reference's sampling matrix for this mode (`config/sampling.
-    validate_sampling_method`), before the broker starts; a validate-only
-    config is exempt, as in the reference."""
-    if cfg.validate_only:
-        return
-    try:
-        validate_sampling_method(SamplingValidationInput(
-            platform=cfg.platform, sampling_method=cfg.sampling_method,
-            url_list=urls, mode="orchestrator", seed_size=cfg.seed_size,
-            crawl_id=cfg.crawl_id))
-    except ValueError as e:
-        raise CliConfigError(str(e)) from None
-
-
 def _run_orchestrator(urls: List[str], cfg: CrawlerConfig,
                       r: ConfigResolver) -> None:
     """mode=orchestrator: host the broker and coordinate the crawl until
@@ -1505,7 +1693,7 @@ def _run_orchestrator(urls: List[str], cfg: CrawlerConfig,
     from .orchestrator import CrawlJournal, Orchestrator, OrchestratorConfig
     from .utils import metrics
 
-    _check_orchestrator(urls, cfg, r)
+    _check_sampling(urls, cfg, "orchestrator")
     if cfg.max_crawl_duration_s > 0:
         # As in the reference: only the standalone, layers and layerless
         # modes stop a crawl on its duration, and the port has none of them.

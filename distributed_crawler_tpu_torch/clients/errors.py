@@ -2,9 +2,9 @@
 `distributed_crawler_tpu/clients/errors.py`.
 
 FLOOD_WAIT parsing for both the TDLib form ("FLOOD_WAIT_N") and the
-HTTP-429 form ("retry after N"), the 400 test and the retire threshold.
-The reference's ``parse_migrate_dc`` (the native client's DC redirect)
-waits for the native client (ROADMAP Queue 1).
+HTTP-429 form ("retry after N"), Telegram's 303 DC redirect
+(``parse_migrate_dc``, which the native client follows), the 400 test and
+the retire threshold.
 """
 
 from __future__ import annotations
@@ -56,6 +56,18 @@ def parse_flood_wait_seconds(err: Optional[BaseException]) -> Tuple[int, bool]:
         m = _RETRY_RE.search(s)
         return (int(m.group(1)), True) if m else (0, True)
     return 0, False
+
+
+_MIGRATE_RE = re.compile(r"(?:PHONE|NETWORK|USER)_MIGRATE_(\d+)")
+
+
+def parse_migrate_dc(err: Optional[BaseException]) -> Optional[int]:
+    """Telegram's 303 DC-redirect family (PHONE/NETWORK/USER_MIGRATE_X):
+    the target DC id, or None if this is not a migrate error."""
+    if err is None:
+        return None
+    m = _MIGRATE_RE.search(str(err))
+    return int(m.group(1)) if m else None
 
 
 def is_telegram_400(err: Optional[BaseException]) -> bool:

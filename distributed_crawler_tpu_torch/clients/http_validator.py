@@ -12,9 +12,9 @@ http_validator.py`.
 
 The ``transport`` is any callable ``(url, headers) -> (status, body)``:
 `urllib_transport` (the standard library's, the default) or, through
-`make_transport`, ``"chrome"``, the native client's Chrome-shaped TLS.
-That one needs `clients/native.py`, which waits for ROADMAP Queue 1 part
-D: `chrome_transport` and ``make_transport("chrome")`` raise naming it.
+`make_transport`, ``"chrome"``: `chrome_transport`, the native client's
+Chrome-shaped TLS (`clients/native.native_https_get`), which follows
+redirects as urllib does.
 """
 
 from __future__ import annotations
@@ -70,26 +70,45 @@ def urllib_transport(url: str, headers: dict) -> Tuple[int, bytes]:
         return e.code, e.read(MAX_READ_BYTES) if e.fp else b""
 
 
-def _native_missing() -> NotImplementedError:
-    return NotImplementedError(
-        "the chrome validator transport needs the native Telegram client's "
-        "TLS stack (clients/native.py), which the port has not ported yet "
-        "(ROADMAP Queue 1 part D); use validator_transport 'urllib'")
+def chrome_transport(url: str, headers: dict, *,
+                     tls_insecure: bool = False,
+                     port: int = 0,
+                     max_redirects: int = 5) -> Tuple[int, bytes]:
+    """The native Chrome-shaped TLS stack (`native/net.h`), so t.me sees a
+    browser's ciphers and SNI.  Follows up to ``max_redirects`` 3xx hops,
+    as `urllib_transport` does, so both transports classify alike."""
+    from urllib.parse import urljoin, urlsplit
 
+    from .native import native_https_get
 
-def chrome_transport(url: str, headers: dict, **kw) -> Tuple[int, bytes]:
-    """The native Chrome-shaped TLS transport: waits for part D."""
-    raise _native_missing()
+    for _ in range(max_redirects + 1):
+        parts = urlsplit(url)
+        host = parts.hostname or ""
+        use_port = port or parts.port or \
+            (80 if parts.scheme == "http" else 443)
+        path = parts.path or "/"
+        if parts.query:
+            path += "?" + parts.query
+        out = native_https_get(
+            host, path=path, port=use_port, headers=headers, sni=host,
+            tls_insecure=tls_insecure, plain=(parts.scheme == "http"),
+            max_body=MAX_READ_BYTES)
+        if out["status"] in (301, 302, 303, 307, 308) and \
+                out.get("location"):
+            url = urljoin(url, out["location"])
+            continue
+        return out["status"], out["body"]
+    raise ValidationHTTPError(TRANSIENT,
+                              f"redirect loop after {max_redirects} hops")
 
 
 def make_transport(kind: str = "urllib", **kw) -> Transport:
     """The validator's transport by name: ``urllib`` (the default) or
-    ``chrome``, which raises here, at construction, rather than failing
-    every request as a transient error."""
+    ``chrome`` (the native Chrome-shaped TLS)."""
     if kind in ("", "urllib"):
         return urllib_transport
     if kind == "chrome":
-        raise _native_missing()
+        return lambda url, headers: chrome_transport(url, headers, **kw)
     raise ValueError(f"unknown validator transport {kind!r}; "
                      f"expected 'urllib' or 'chrome'")
 

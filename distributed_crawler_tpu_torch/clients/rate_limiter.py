@@ -5,7 +5,10 @@ the reference's `distributed_crawler_tpu/clients/rate_limiter.py`.
   GetChatHistory, SearchPublicChat and the supergroup info calls;
 - **reactive** GetMessage limiting: a token is consumed only when the call
   misses the client's local cache, which its latency tells;
-- latency-based cache attribution (under 5 ms is the cache).
+- latency-based cache attribution (under 5 ms is the cache);
+- each limited call and the seconds it waited (token and jitter), per
+  method, on `/metrics` (``telegram_rate_limit_calls_total`` and
+  ``telegram_rate_limit_wait_seconds_total{api_call}``).
 
 Clocks are injectable, so tests assert the spacing between calls without
 sleeping (`FakeClock`).
@@ -20,6 +23,7 @@ import time as _time
 from typing import Callable, Optional
 
 from ..config.crawler import TelegramRateLimitConfig
+from ..utils.metrics import REGISTRY
 from .telegram import (
     TelegramClient,
     TLBasicGroupFullInfo,
@@ -120,6 +124,18 @@ class TokenBucket:
         return delay
 
 
+def _count_wait(api_call: str, seconds: float) -> None:
+    REGISTRY.counter(
+        "telegram_rate_limit_calls_total",
+        "Telegram calls through the rate limiter, per method"
+    ).labels(api_call=api_call).inc()
+    REGISTRY.counter(
+        "telegram_rate_limit_wait_seconds_total",
+        "seconds the rate limiter held Telegram calls (token and jitter), "
+        "per method"
+    ).labels(api_call=api_call).inc(seconds)
+
+
 class RateLimitedTelegramClient:
     """Decorator enforcing per-method limits over any TelegramClient.
     Each instance owns its buckets, so pooled connections never share
@@ -145,11 +161,12 @@ class RateLimitedTelegramClient:
 
     def _wait_with_jitter(self, bucket: TokenBucket, jitter_ms: int,
                           api_call: str) -> None:
-        bucket.wait()
+        waited = bucket.wait()
         jitter = self._jitter_s(jitter_ms)
         logger.debug("rate limit wait", extra={"api_call": api_call,
                                                "jitter_ms": int(jitter * 1000)})
         self.clock.sleep(jitter)
+        _count_wait(api_call, waited + jitter)
 
     def _timed(self, api_call: str, fn: Callable):
         start = self.clock.time()
@@ -200,6 +217,7 @@ class RateLimitedTelegramClient:
         if not cache_hit:
             delay = self._get_message.reserve()
             total = delay + self._jitter_s(self.config.get_message_server_hit_jitter_ms)
+            _count_wait("GetMessage", total)
             if total > 0:
                 logger.debug("reactive throttle (server hit)",
                              extra={"api_call": "GetMessage",

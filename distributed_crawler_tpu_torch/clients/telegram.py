@@ -1,8 +1,8 @@
 """The Telegram client boundary: the port's copy of the reference's
 `distributed_crawler_tpu/clients/telegram.py`, the light TL dataclasses
 (only the fields the crawl engine reads) and the 16-method
-`TelegramClient` protocol.  `sim.SimTelegramClient` implements it; the
-reference's native client waits for ROADMAP Queue 1.
+`TelegramClient` protocol.  `sim.SimTelegramClient` and
+`native.NativeTelegramClient` implement it.
 """
 
 from __future__ import annotations

@@ -7,12 +7,12 @@ copied whole.  `CrawlerConfig` keeps the fields the port's modes and its
 channel crawl read: the results sink, the crawl identity, the tenant, the
 object-store URL, the two blocks above, the crawl settings the
 orchestrator copies into every work item (`bus/messages.WorkItemConfig`),
-the Telegram client's database URLs and gateway address (which the
-port's pool refuses until the native client lands) and the null-field
-rules, the random walk's ``seed_size`` and ``walkback_rate``, and the
-tandem crawl's and its validator's settings.  `TelegramRateLimitConfig`
-is the connection pool's.  The chunker's settings wait for its module
-(ROADMAP Queue 1 part C).
+the native Telegram client's pool (seed-DB URLs, or a DC gateway's
+address with its TLS, wire, key and DC table, and the credentials
+directory) and its rate limits (`TelegramRateLimitConfig`), the
+null-field rules, the random walk's ``seed_size`` and ``walkback_rate``,
+and the tandem crawl's and its validator's settings.  The chunker's
+settings wait for its module (ROADMAP Queue 1 part C).
 """
 
 from __future__ import annotations
@@ -139,12 +139,26 @@ class CrawlerConfig:
     min_channel_videos: int = 0
     # --max-crawl-duration, in seconds: 0 = unlimited.
     max_crawl_duration_s: float = 0.0
-    # The Telegram client's connection pool (`crawl/runner.
-    # setup_pool_from_config`): one connection per database URL, or
-    # wire connections to a DC gateway; both need the native client.
+    # The native Telegram client's connection pool (`crawl/runner.
+    # setup_pool_from_config`): one connection per seed-DB URL, or
+    # `concurrency` wire connections to the DC gateway at dc_address.
     tdlib_database_url: str = ""
     tdlib_database_urls: List[str] = field(default_factory=list)
+    # The credentials directory: gen-code writes credentials.json here
+    # and a gateway pool reads it back.
+    tdlib_dir: str = ".tdlib"
     dc_address: str = ""
+    dc_tls: bool = False
+    dc_tls_insecure: bool = False  # a self-signed gateway
+    dc_sni: str = ""
+    # "" or "dct": the DCT-v1 JSON frames; "mtproto" waits for the wire's
+    # half of ROADMAP Queue 1 part D.
+    dc_wire: str = ""
+    dc_pubkey_file: str = ""
+    # {dc_id: {address, pubkey_file}}: where PHONE_MIGRATE_X redirects go.
+    dc_table_file: str = ""
+    rate_limit: TelegramRateLimitConfig = field(
+        default_factory=TelegramRateLimitConfig)
     # Null handling: user JSON overriding the default rules
     # (`datamodel/validation.py`).
     null_config: str = ""
@@ -155,7 +169,7 @@ class CrawlerConfig:
     validate_only: bool = False
     validator_request_rate: float = 6.0  # HTTP calls per minute
     # t.me transport: "urllib" (stdlib) or "chrome" (the native client's
-    # Chrome-shaped TLS, ROADMAP Queue 1 part D).
+    # Chrome-shaped TLS).
     validator_transport: str = "urllib"
     # Validation endpoint base; a mirror or forward proxy may stand in.
     validator_base_url: str = "https://t.me"

@@ -28,13 +28,12 @@ snowball and random-walk sampling.
   page that found no edge walks back at once;
 - message dedup (`add_new_messages`) and `resample_marker`.
 
+`setup_pool_from_config` builds the production pool from the native
+client (`clients/native.py`): one connection per seed-DB URL, or
+``concurrency`` connections dialing a DC gateway.
+
 Each package keeps its own pool and its own `_run_for_channel_fn`, so a
 process that runs both packages' runners installs a pool in each.
-
-Not ported: `setup_pool_from_config` builds its pool from the native
-client (`clients/native.py`), which waits for ROADMAP Queue 1 part D: it
-keeps the reference's no-op when a pool is installed or no URL is
-configured and raises otherwise.
 """
 
 from __future__ import annotations
@@ -101,30 +100,75 @@ def init_connection_pool(pool: ConnectionPool) -> None:
 
 
 def setup_pool_from_config(cfg: CrawlerConfig) -> bool:
-    """The production pool from config: one native connection per entry of
-    ``tdlib_database_urls`` (or the single ``tdlib_database_url``), or
-    wire connections to the DC gateway at ``dc_address``.
+    """Build and install the process-wide pool from config.
 
-    Returns True when a pool is already installed (tests and embedders
-    install their own) and False when no URL or address is configured,
-    as the reference does; a configured URL or address raises, because
-    both build clients from `clients/native.py`, which waits for ROADMAP
-    Queue 1 part D."""
+    With ``dc_address``: ``concurrency`` wire connections to the DC
+    gateway, each authenticated from ``{tdlib_dir}/credentials.json`` or
+    the TG_* environment.  Otherwise one connection per entry of
+    ``tdlib_database_urls`` (or the single ``tdlib_database_url``):
+    ``conn_<i>`` serves its own extracted copy of URL ``i mod n`` under
+    ``{storage_root}/.tdlib/databases/conn_<fnv32>``.  Both at the
+    config's rate limits.  A no-op when a pool is installed (tests and
+    embedders install their own) or nothing is configured.  Returns True
+    when a pool is installed."""
+    import os
+
     with _setup_lock:
         with _pool_lock:
             if _pool is not None:
-                return True
+                return True  # the first installer wins
+        from ..clients.native import (
+            load_credentials,
+            load_dc_table,
+            native_client_factory,
+        )
+
+        if cfg.dc_address:
+            n_conns = max(1, cfg.concurrency)
+            dc_table = (load_dc_table(cfg.dc_table_file)
+                        if cfg.dc_table_file else None)
+            factory = native_client_factory(
+                server_addr=cfg.dc_address, tls=cfg.dc_tls,
+                tls_insecure=cfg.dc_tls_insecure, sni=cfg.dc_sni,
+                wire=cfg.dc_wire, server_pubkey_file=cfg.dc_pubkey_file,
+                dc_table=dc_table,
+                credentials=load_credentials(cfg.tdlib_dir),
+                tdlib_dir=cfg.tdlib_dir)
+            pool = ConnectionPool(
+                factory, database_urls=[cfg.dc_address] * n_conns,
+                rate_limit=cfg.rate_limit)
+            if pool.initialize() == 0:
+                raise PoolEmptyError(
+                    f"no wire connections to gateway {cfg.dc_address}")
+            init_connection_pool(pool)
+            return True
+
         urls = list(cfg.tdlib_database_urls) or (
             [cfg.tdlib_database_url] if cfg.tdlib_database_url else [])
-        if not cfg.dc_address and not urls:
+        if not urls:
             return False
-        source = (f"the DC gateway at {cfg.dc_address}" if cfg.dc_address
-                  else f"{len(urls)} tdlib database url(s)")
-        raise NotImplementedError(
-            f"a connection pool from {source} needs the native Telegram "
-            f"client (clients/native.py), which the port has not ported yet "
-            f"(ROADMAP Queue 1 part D); install a pool of SimTelegramClients "
-            f"with init_connection_pool")
+        base_dir = os.path.join(cfg.storage_root or ".",
+                                ".tdlib", "databases")
+        factories = [native_client_factory(db_source=u, db_base_dir=base_dir)
+                     for u in urls]
+
+        def make(conn_id: str) -> TelegramClient:
+            # conn ids are "conn_<i>" (the pool keeps them across a
+            # recreate), so a connection always maps to the same URL.
+            try:
+                idx = int(conn_id.rsplit("_", 1)[-1])
+            except ValueError:
+                idx = 0
+            return factories[idx % len(factories)](conn_id)
+
+        pool = ConnectionPool(make, database_urls=urls,
+                              rate_limit=cfg.rate_limit)
+        if pool.initialize() == 0:
+            raise PoolEmptyError(
+                f"no connections could be created from {len(urls)} "
+                f"tdlib database url(s)")
+        init_connection_pool(pool)
+        return True
 
 
 def get_connection_from_pool(timeout_s: float = 30.0) -> PooledConnection:

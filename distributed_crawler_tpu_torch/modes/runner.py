@@ -4,9 +4,12 @@ random-walk branches.
 
 `launch` resumes an incomplete execution (when it builds its own state
 manager), then runs the validator pod (``validate_only``) or the
-layerless random walk: the seeds normalized, the caches loaded, the page
-buffer seeded on a fresh start (`seed_random_walk`), the walk run, and
-at the end the crawl's metadata marked completed and its pages exported.
+layerless random walk: its pool built from config unless one is
+installed (`crawl/runner.setup_pool_from_config`: the native client over
+the ``tdlib_database_urls`` seed DBs or a DC gateway), the seeds
+normalized, the caches loaded, the page buffer seeded on a fresh start
+(`seed_random_walk`), the walk run, and at the end the crawl's metadata
+marked completed and its pages exported.
 
 Not ported: the layered crawl and the YouTube branches, which `launch`
 refuses before any set-up, naming ROADMAP Queue 1 part C, and the

@@ -23,7 +23,7 @@ package's, on the CPU.
   renders.
 - Each feature that waits, and each crawler mode, exits 2 and names what
   it waits for; ``--mode launch`` without ``--validate-only`` names part
-  D (a random walk needs the native client's pool) or part C.
+  C for every sampling but the random walk.
 - The validator pod: the tandem and validator flags resolve as the
   reference's; ``--validate-only`` needs no URLs and, bare, runs the
   validator in both CLIs; a ``--mode launch --validate-only`` process
@@ -1109,9 +1109,9 @@ def test_validate_only_needs_no_urls():
         cfg, _ = resolve(cli, ["--validate-only", "--sampling",
                                "random-walk"])
         assert cfg.validate_only
-    tcli._check_orchestrator([], resolve(tcli, [
+    tcli._check_sampling([], resolve(tcli, [
         "--mode", "orchestrator", "--validate-only", "--sampling",
-        "random-walk"])[0], None)
+        "random-walk"])[0], "orchestrator")
 
 
 @pytest.mark.parametrize("argv", [["--validate-only"],
@@ -1139,12 +1139,12 @@ def test_validate_only_routes_to_the_validator(tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("sampling,part", [
-    ("random-walk", "part D"), ("channel", "part C"), ("snowball", "part C"),
-    ("random", "part C")])
+    ("channel", "part C"), ("snowball", "part C"), ("random", "part C")])
 def test_launch_without_validate_only_exits_2(tmp_path, capsys, sampling,
                                               part):
-    """Without --validate-only the port's launch has no pool to walk with
-    (part D) or no crawl mode (part C): exit 2 before any set-up."""
+    """Without --validate-only the port's launch runs the random walk
+    only; the other samplings wait for the crawl modes (part C): exit 2
+    before any set-up."""
     before = logging_state()
     rc, _, err = run_main(tcli, [
         "--mode", "launch", "--sampling", sampling, "--urls", "alpha",
@@ -1233,8 +1233,16 @@ def test_validator_process_validates_a_batch_and_exits_130(tmp_path):
 
 
 def test_generate_code_is_the_gen_code_mode(capsys):
-    rc, _, err = run_main(tcli, ["--generate-code"], capsys)
-    assert rc == 2 and "--mode gen-code" in err
+    """``--generate-code`` runs ``--mode gen-code``, as in the reference:
+    with no TG_* environment both CLIs exit 2 with the same error."""
+    errors = {}
+    for name, cli in (("port", tcli), ("ref", jcli)):
+        rc, _, err = run_main(cli, ["--generate-code"], capsys)
+        assert rc == 2
+        errors[name] = [ln for ln in err.splitlines()
+                        if ln.startswith("error:")]
+    assert errors["port"] == errors["ref"] == [
+        "error: TG_API_ID and TG_PHONE_NUMBER are required"]
 
 
 def test_spool_without_address_warns_and_serves_in_memory(tmp_path):
@@ -1601,3 +1609,362 @@ def test_orchestrator_process_crawls_with_the_ports_worker(tmp_path):
         assert json.load(f)["status"] == "completed"
     posts = tmp_path / "wrk" / "c9" / "chana" / "posts" / "posts.jsonl"
     assert len(posts.read_text().splitlines()) == 1
+
+
+# -- the crawl-worker process and the native client -----------------------------
+CPU_MAIN = ("import sys; from distributed_crawler_tpu_torch.cli import main; "
+            "sys.exit(main(sys.argv[1:], device='cpu'))")
+
+
+def _process(log, *argv, cpu=False):
+    """``python -m distributed_crawler_tpu_torch`` (or, with ``cpu``, its
+    `main` on the CPU) logging to ``log``."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=ROOT, CRAWLER_INFERENCE_BUCKET_SIZES="16,32")
+    head = ([sys.executable, "-c", CPU_MAIN] if cpu
+            else [sys.executable, "-m", "distributed_crawler_tpu_torch"])
+    with open(log, "w") as out:
+        return subprocess.Popen(head + list(argv), cwd=ROOT, env=env,
+                                stdout=out, stderr=subprocess.STDOUT)
+
+
+def _ref_process(log, *argv):
+    """The reference's ``python -m distributed_crawler_tpu.cli`` on the
+    CPU, logging to ``log``."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=ROOT, JAX_PLATFORMS="cpu")
+    with open(log, "w") as out:
+        return subprocess.Popen(
+            [sys.executable, "-m", "distributed_crawler_tpu.cli", *argv],
+            cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT)
+
+
+def _stored_posts(store, crawl_id, names):
+    """``{channel: [post dicts]}`` of a crawl worker's store, each without
+    its ``capture_time`` (the wall clock at the crawl)."""
+    out = {}
+    for name in names:
+        path = store / crawl_id / name / "posts" / "posts.jsonl"
+        out[name] = [{k: v for k, v in json.loads(ln).items()
+                      if k != "capture_time"}
+                     for ln in path.read_text().splitlines()]
+    return out
+
+
+def _seed_dbs(tmp_path, n, seed=0, channels=2, posts=3):
+    """``n`` seed-DB tarballs of `chip_smoke.native_store`'s store at a
+    tiny size (posts of 1-6 words); returns (paths, channel names)."""
+    from chip_smoke import native_store, write_seed_dbs
+
+    doc, names = native_store(np, seed, channels=channels, posts=posts,
+                              spans=((1, 6),))
+    return write_seed_dbs(str(tmp_path / "dbs"), doc, n), names
+
+
+def _result_rows(store, crawl_id):
+    rows = []
+    for f in sorted((store / "inference" / crawl_id / "batches").glob(
+            "*.jsonl")):
+        rows += [json.loads(ln) for ln in f.read_text().splitlines()]
+    return rows
+
+
+def test_worker_process_crawls_seed_dbs_into_a_tpu_worker(tmp_path):
+    """The counterpart of `tests/test_topology_e2e.py:68`, all of it the
+    port's processes: ``--mode orchestrator`` hosting the broker (BFS,
+    depth 1), ``--mode worker --infer`` with its pool from two seed-DB
+    tarballs through the native client, and a CPU ``--mode tpu-worker``.
+    The crawl completes, each channel's posts are stored once and each
+    gets one result row; the worker's ``/status`` counts both items, and
+    SIGTERM stops it with 130.  Beside it, the reference's orchestrator
+    and ``--mode worker`` crawl the same tarballs: both stores hold the
+    same posts, field by field."""
+    pytest.importorskip("grpc")
+    dbs, names = _seed_dbs(tmp_path, 2)
+    address, ref_address = (f"127.0.0.1:{free_port()}" for _ in range(2))
+    m_orch, m_wrk = free_port(), free_port()
+    procs, ref = [], []
+    try:
+        ref.append(_ref_process(
+            tmp_path / "ref_orch.log", "--mode", "orchestrator", "--urls",
+            names[0], "--bus-address", ref_address, "--crawl-id", "topo1",
+            "--storage-root", str(tmp_path / "ref_ostore"), "--max-depth",
+            "1", "--skip-media"))
+        ref.append(_ref_process(
+            tmp_path / "ref_worker.log", "--mode", "worker", "--worker-id",
+            "w1", "--bus-address", ref_address, "--crawl-id", "topo1",
+            "--tdlib-database-urls", ",".join(dbs), "--storage-root",
+            str(tmp_path / "ref_wstore"), "--skip-media"))
+        procs.append(_process(
+            tmp_path / "orch.log", "--mode", "orchestrator", "--urls",
+            names[0], "--bus-address", address, "--crawl-id", "topo1",
+            "--storage-root", str(tmp_path / "ostore"), "--max-depth", "1",
+            "--skip-media", "--metrics-port", str(m_orch)))
+        _wait_route(procs[0], f"http://127.0.0.1:{m_orch}/status")
+        procs.append(_process(
+            tmp_path / "tpu.log", "--mode", "tpu-worker", "--infer-model",
+            "tiny", "--bus-address", address, "--storage-root",
+            str(tmp_path / "tpustore"), cpu=True))
+        procs.append(_process(
+            tmp_path / "worker.log", "--mode", "worker", "--worker-id", "w1",
+            "--bus-address", address, "--crawl-id", "topo1",
+            "--tdlib-database-urls", ",".join(dbs), "--storage-root",
+            str(tmp_path / "wstore"), "--skip-media", "--infer",
+            "--metrics-port", str(m_wrk), "--telemetry-interval", "1"))
+        assert procs[0].wait(timeout=120) == 0, \
+            (tmp_path / "orch.log").read_text()[-3000:]
+        stored = {}
+        for name in names:
+            path = (tmp_path / "wstore" / "topo1" / name / "posts" /
+                    "posts.jsonl")
+            stored[name] = [json.loads(ln)["post_uid"]
+                            for ln in path.read_text().splitlines()]
+        uids = [u for v in stored.values() for u in v]
+        assert [len(v) for v in stored.values()] == [3, 3]
+        assert len(set(uids)) == 6
+        deadline = time.monotonic() + 60
+        rows = []
+        while time.monotonic() < deadline:
+            rows = _result_rows(tmp_path / "tpustore", "topo1")
+            if len(rows) >= 6:
+                break
+            time.sleep(0.5)
+        assert sorted(r["post_uid"] for r in rows) == sorted(uids), \
+            (tmp_path / "tpu.log").read_text()[-3000:]
+        assert all(len(r["embedding"]) and "label" in r for r in rows)
+        status = _wait_route(procs[2], f"http://127.0.0.1:{m_wrk}/status")
+        assert (status["worker_id"], status["tasks_processed"],
+                status["tasks_success"]) == ("w1", 2, 2)
+        code, body = http_get(f"http://127.0.0.1:{m_wrk}/metrics")
+        assert code == 200
+        assert b'telegram_rate_limit_calls_total{api_call="SearchPublicChat"}' \
+            in body
+        procs[2].send_signal(signal.SIGTERM)
+        assert procs[2].wait(timeout=60) == 130
+        log = (tmp_path / "worker.log").read_text()
+        built = os.path.join(ROOT, "distributed_crawler_tpu_torch", "_build",
+                             "native", "libdct_client-")
+        assert f"native client library loaded path={built}" in log
+        assert ref[0].wait(timeout=120) == 0, \
+            (tmp_path / "ref_orch.log").read_text()[-3000:]
+    finally:
+        for p in procs + ref:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=30)
+    assert _stored_posts(tmp_path / "wstore", "topo1", names) == \
+        _stored_posts(tmp_path / "ref_wstore", "topo1", names)
+    with open(tmp_path / "ostore" / "topo1" / "state.json",
+              encoding="utf-8") as f:
+        layers = json.load(f)["layers"]
+    assert [[(p["url"], p["status"]) for p in layer["pages"]]
+            for layer in layers] == [[(names[0], "fetched")],
+                                     [(names[1], "fetched")]]
+
+
+def test_launch_random_walk_on_a_seed_db_pool_beside_a_validator(tmp_path,
+                                                                  capsys):
+    """``--mode launch --sampling random-walk --tandem-crawl`` in process,
+    its pool from two seed-DB tarballs through the native client, beside a
+    ``--mode launch --validate-only`` process on the same graph file and a
+    t.me stand-in: the walk completes (exit 0, metadata ``completed``),
+    every batch completes, each seed steps forward to one of its own
+    channels, the missing name is marked invalid, t.me is asked once per
+    name, no post is stored, and the validator exits 130 on SIGTERM."""
+    from chip_smoke import TmeStandIn, write_seed_dbs
+    from distributed_crawler_tpu_torch.clients import SimNetwork
+    from distributed_crawler_tpu_torch.clients.native import (
+        NativeTelegramClient,
+    )
+    from distributed_crawler_tpu_torch.crawl import runner as crawl_runner
+    from distributed_crawler_tpu_torch.state import (
+        CompositeStateManager,
+        SqlConfig,
+        StateConfig,
+    )
+
+    rng = np.random.default_rng(21)
+    seeds = ["rwseeda", "rwseedb"]
+    kids = {s: [f"{s}kid{i}" for i in range(2)] for s in seeds}
+    ghost = "rwghostname"
+
+    def msg(text, i):
+        return {"date": 1700000000 + 60 * i,
+                "view_count": int(rng.integers(1, 500)),
+                "content": {"@type": "messageText",
+                            "text": {"text": text, "entities": []}}}
+
+    def words():
+        return " ".join("".join(rng.choice(list("abcdefgh"), 5))
+                        for _ in range(int(rng.integers(1, 6))))
+
+    channels = []
+    for s in seeds:
+        links = " ".join(f"t.me/{n}" for n in kids[s] + [ghost])
+        channels.append({"username": s, "title": s, "member_count": 1000,
+                         "messages": [msg(f"{words()} {links}", i)
+                                      for i in range(3)]})
+        channels += [{"username": k, "title": k, "member_count": 1000,
+                      "messages": [msg(words(), i) for i in range(3)]}
+                     for k in kids[s]]
+    doc = {"channels": channels}
+    dbs = write_seed_dbs(str(tmp_path / "dbs"), doc, 2)
+    net = SimNetwork()
+    for c in channels:
+        net.add_channel(c["username"])
+    client = NativeTelegramClient(seed_json=json.dumps(doc))
+    try:
+        ids = {s: client.search_public_chat(s).id for s in seeds}
+    finally:
+        client.close()
+    store = tmp_path / "store"
+    pool_sm = CompositeStateManager(StateConfig(
+        crawl_id="tw", crawl_execution_id="e0",
+        storage_root=str(tmp_path / "pool"), sampling_method="random-walk",
+        sql=SqlConfig(url=str(store / "graph.sqlite"))))
+    for s in seeds:   # the deployment's seed pool
+        pool_sm.upsert_seed_channel_chat_id(s, ids[s])
+    pool_sm.close()
+    stand_in = TmeStandIn(net)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=ROOT, NO_PROXY="127.0.0.1,localhost",
+               no_proxy="127.0.0.1,localhost")
+    validator = subprocess.Popen(
+        [sys.executable, "-m", "distributed_crawler_tpu_torch", "--mode",
+         "launch", "--validate-only", "--crawl-id", "tw", "--storage-root",
+         str(store), "--validator-base-url", stand_in.url,
+         "--validator-request-rate", "60000",
+         "--validator-request-jitter-ms", "0", "--walkback-rate", "0",
+         "--log-level", "error"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        rc, _, err = run_main(tcli, [
+            "--mode", "launch", "--sampling", "random-walk",
+            "--tandem-crawl", "--urls", ",".join(seeds), "--crawl-id", "tw",
+            "--storage-root", str(store), "--tdlib-database-urls",
+            ",".join(dbs), "--walkback-rate", "0", "--max-crawl-duration",
+            "90s", "--log-level", "error"], capsys)
+        assert rc == 0, err
+        assert crawl_runner._pool is None   # torn down with the mode
+        # Read before the validator stops: its manager saves its own
+        # metadata under the shared storage root when it closes.
+        with open(store / "tw" / "metadata.json", encoding="utf-8") as f:
+            assert json.load(f)["status"] == "completed"
+        assert validator.poll() is None, \
+            validator.communicate()[1].decode()[-2000:]
+        validator.send_signal(signal.SIGTERM)
+        assert validator.wait(timeout=60) == 130
+    finally:
+        if validator.poll() is None:
+            validator.kill()
+        validator.communicate()
+        stand_in.close()
+    import sqlite3
+
+    con = sqlite3.connect(store / "graph.sqlite")
+    try:
+        q = lambda sql: con.execute(sql).fetchall()  # noqa: E731
+        edges = q("SELECT destination_channel, source_channel, walkback, "
+                  "skipped FROM edge_records")
+        batches = {r[0] for r in q("SELECT status FROM "
+                                   "pending_edge_batches")}
+        invalid = dict(q("SELECT channel_username, reason FROM "
+                         "invalid_channels"))
+    finally:
+        con.close()
+    assert batches == {"completed"}
+    forward = {e[1]: e[0] for e in edges if not e[2] and not e[3]}
+    assert {s: forward.get(s) in kids[s] for s in seeds} == \
+        dict.fromkeys(seeds, True)
+    assert invalid.get(ghost) == "not_found"
+    assert stand_in.requests and set(stand_in.requests.values()) == {1}
+    assert ghost in stand_in.requests
+    assert not list((store / "tw").glob("*/posts/posts.jsonl"))
+
+
+@pytest.mark.parametrize("argv,part", [
+    (["--mode", "worker", "--worker-id", "w1", "--media-bridge"], "part C"),
+    (["--mode", "worker", "--worker-id", "w1", "--platform", "youtube"],
+     "part C"),
+    (["--mode", "worker", "--worker-id", "w1", "--dc-wire", "mtproto",
+      "--dc-address", "127.0.0.1:9"], "part D"),
+    (["--mode", "launch", "--sampling", "random-walk", "--urls", "a",
+      "--media-bridge"], "part C")])
+def test_crawling_mode_refuses_what_waits(tmp_path, capsys, argv, part):
+    """The media bridge and the YouTube crawler wait for the crawl modes,
+    the MTProto wire for the rest of part D: exit 2 before a bus, a
+    manager or a pool is made."""
+    from distributed_crawler_tpu_torch.crawl import runner as crawl_runner
+
+    rc, _, err = run_main(tcli, argv + [
+        "--storage-root", str(tmp_path / "s"), "--tdlib-database-urls",
+        str(tmp_path / "db.tar.gz")], capsys)
+    assert rc == 2
+    assert f"ROADMAP Queue 1 {part}" in err
+    assert not (tmp_path / "s").exists() and crawl_runner._pool is None
+
+
+@pytest.mark.parametrize("argv", [
+    ["--mode", "worker"],
+    ["--mode", "launch", "--sampling", "random-walk"],
+    ["--mode", "launch", "--sampling", "random-walk", "--urls", "a",
+     "--seed-size", "3"],
+    ["--mode", "launch", "--sampling", "random-walk", "--urls", "a",
+     "--crawl-id", "x" * 33]])
+def test_crawling_mode_config_errors_are_the_references(tmp_path, capsys,
+                                                        argv):
+    """A worker without ``--worker-id`` and the random walk's sampling
+    matrix: exit 2 with the reference's message."""
+    errs = {}
+    for name, cli in (("port", tcli), ("ref", jcli)):
+        rc, _, err = run_main(cli, argv + [
+            "--storage-root", str(tmp_path / name)], capsys)
+        assert rc == 2
+        errs[name] = [ln for ln in err.splitlines()
+                      if ln.startswith("error:")]
+    assert errs["port"] == errs["ref"] and len(errs["port"]) == 1
+
+
+def test_gen_code_writes_credentials_a_gateway_pool_reads(tmp_path, capsys):
+    """``--mode gen-code --dc-address`` in both CLIs walks the ladder at a
+    gateway and writes equal credentials (mode 0600); a ``--mode worker
+    --dc-address --concurrency 2`` config's pool reads them back and
+    dials two authenticated connections."""
+    from distributed_crawler_tpu.clients.mock_dc import MockDcServer
+    from distributed_crawler_tpu_torch.crawl import runner as crawl_runner
+
+    env = {"TG_API_ID": "94575", "TG_API_HASH": "h",
+           "TG_PHONE_NUMBER": "+15550004444", "TG_PHONE_CODE": "55555"}
+    seed = json.dumps({"channels": [{"username": "wirechan",
+                                     "title": "Wire", "messages": []}]})
+    srv = MockDcServer(seed_json=seed, expected_code="55555").start()
+    try:
+        files = {}
+        for name, cli in (("port", tcli), ("ref", jcli)):
+            tdlib = tmp_path / name / ".tdlib"
+            rc = cli.main(["--mode", "gen-code", "--dc-address",
+                           srv.address, "--tdlib-dir", str(tdlib)], env=env)
+            out, err = capsys.readouterr()
+            assert rc == 0, err
+            assert f"credentials saved to {tdlib}/credentials.json" in out
+            path = tdlib / "credentials.json"
+            assert oct(os.stat(path).st_mode & 0o777) == "0o600"
+            files[name] = path.read_text()
+        assert files["port"] == files["ref"]
+        cfg, _ = resolve(tcli, ["--mode", "worker", "--dc-address",
+                                srv.address, "--tdlib-dir",
+                                str(tmp_path / "port" / ".tdlib"),
+                                "--concurrency", "2"])
+        crawl_runner.shutdown_connection_pool()
+        try:
+            assert crawl_runner.setup_pool_from_config(cfg) is True
+            assert len(crawl_runner._pool._conns) == 2
+            conn = crawl_runner.get_connection_from_pool(timeout_s=5)
+            assert conn.client.search_public_chat("wirechan").title == \
+                "Wire"
+            crawl_runner.release_connection_to_pool(conn)
+        finally:
+            crawl_runner.shutdown_connection_pool()
+        assert srv.auth_successes == 4
+    finally:
+        srv.close()

@@ -9,8 +9,9 @@ audio, poll, sticker, giveaway, paid media, and forwarded and replied-to
 posts), media through the state manager's hooks, comments, the history
 fetch's windows and sampling, the message bookkeeping, `run_for_channel`
 and its gates (random-walk sampling accepted; the walk itself is held in
-`tests/test_torch_crawl_random_walk.py`), the pool facade, and the
-refusal of a pool from database URLs or a gateway (the native client).
+`tests/test_torch_crawl_random_walk.py`), the pool facade, and a pool
+from database URLs or a gateway that gets no connection (the native
+client's pools themselves: `tests/test_torch_native_client.py`).
 
 Messages and networks are made from a seed with numpy and built the same
 way in each package.  Posts are compared as `Post.to_json()` bytes with
@@ -568,16 +569,21 @@ def test_random_walk_is_refused_by_name(tmp_path):
     ("tdlib_database_url", "https://db/one.tar.gz"),
     ("dc_address", "127.0.0.1:4430"),
 ])
-def test_native_pool_is_refused_by_name(field, value):
-    """A pool from database URLs or a gateway address needs the native
-    client: the error names `clients/native.py` and ROADMAP Queue 1 part
-    D, and no pool is installed."""
-    trun.shutdown_connection_pool()
-    with pytest.raises(NotImplementedError) as ei:
-        trun.setup_pool_from_config(make_cfg(PORT, **{field: value}))
-    assert "clients/native.py" in str(ei.value)
-    assert "ROADMAP Queue 1 part D" in str(ei.value)
-    assert trun._pool is None
+def test_native_pool_is_refused_by_name(field, value, tmp_path):
+    """A pool whose every connection is refused (an https seed URL, which
+    the native client's `acquire_seed_db` refuses; a gateway address no
+    one listens on) raises the reference's `PoolEmptyError` with its
+    message, and no pool is installed, in both packages."""
+    got = {}
+    for name, P in PKGS.items():
+        P.run.shutdown_connection_pool()
+        with pytest.raises(Exception) as ei:
+            P.run.setup_pool_from_config(make_cfg(
+                P, storage_root=str(tmp_path / name), **{field: value}))
+        got[name] = (type(ei.value).__name__, str(ei.value))
+        assert P.run._pool is None
+    assert got["port"] == got["ref"]
+    assert got["port"][0] == "PoolEmptyError"
 
 
 def test_setup_pool_noop_cases_match_the_reference():

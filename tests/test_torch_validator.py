@@ -412,15 +412,27 @@ def test_zero_rate_and_jitter_are_not_honoured():
 
 
 def test_chrome_transport_names_the_native_client():
-    """The port's chrome transport waits for the native client: it raises
-    when the loop is built, where the reference builds a transport."""
-    c = PORT.conf.CrawlerConfig(validator_transport="chrome")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 part D"):
-        PORT.val.RunValidationLoop(sm=None, cfg=c)
-    with pytest.raises(NotImplementedError, match="clients/native.py"):
-        PORT.hv.chrome_transport("https://t.me/x", {})
-    assert REF.val.RunValidationLoop(sm=None, cfg=REF.conf.CrawlerConfig(
-        validator_transport="chrome")).validate_fn is not None
+    """The chrome transport is the native client's: both packages build
+    the loop with it, and a GET to a port no one listens on fails in both
+    with the native client's error, which the validator maps to a
+    transient error."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    got = {}
+    for pkg, P in PKGS.items():
+        loop = P.val.RunValidationLoop(sm=None, cfg=P.conf.CrawlerConfig(
+            validator_transport="chrome",
+            validator_base_url=f"https://127.0.0.1:{port}"))
+        with pytest.raises(Exception) as ei:
+            P.hv.chrome_transport(f"https://127.0.0.1:{port}/x", {})
+        with pytest.raises(P.hv.ValidationHTTPError) as vi:
+            loop.validate_fn("x")
+        got[pkg] = (type(ei.value).__name__, ei.value.code, vi.value.kind)
+    assert got["port"] == got["ref"] == ("NativeClientError", 500,
+                                         "transient")
 
 
 # -- the parser: fixtures, mutations, garbage, spoofs ---------------------------------
